@@ -1,0 +1,5 @@
+"""Sorted-array rank: the port of the overlap_scan TPU kernel."""
+
+from .ops import fence_rank, fence_rank_plain
+
+__all__ = ["fence_rank", "fence_rank_plain"]

@@ -1,0 +1,58 @@
+"""Guards of the port's boundaries: it imports neither JAX nor the JAX
+package, and its entry points run on the card unless the CPU is asked for."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.bench_kv.workloads import WorkloadSpec
+from repro_torch.bench_kv.ycsb import run_ycsb
+from repro_torch.core import LSMTree, Simulator, get_policy
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_neither_jax_nor_reference(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _forbidden(node.module or ""):
+                bad.append(node.module)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_port_covers_the_slice():
+    assert len(PORT_FILES) > 20
+    assert {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob(
+        "*.cu")} == {"merge_path.cu", "overlap_scan.cu", "lindley_scan.cu"}
+
+
+def test_entry_points_default_to_cuda():
+    cfg = get_policy("vlsm").default_config(1 << 16)
+    spec = WorkloadSpec("tiny", np.zeros(10, np.uint8),
+                        np.arange(10, dtype=np.int64))
+    if torch.cuda.is_available():
+        assert Simulator(cfg).compute_device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="compute_device='cpu'"):
+        Simulator(cfg)
+    with pytest.raises(RuntimeError, match="compute_device='cpu'"):
+        LSMTree(cfg)
+    with pytest.raises(RuntimeError, match="compute_device='cpu'"):
+        run_ycsb(cfg, spec, rate=1e3)
+    res = run_ycsb(cfg, spec, rate=1e3, compute_device="cpu")
+    assert res.sim.latency.shape == (10,)
