@@ -6,28 +6,40 @@
 Phases, each of which must pass (any failure raises and exits non-zero):
 
 1. Card: prints ``nvidia-smi --query-gpu=name,power.limit`` and builds the
-   three kernels from ``src/repro_torch/csrc`` (one nvcc per source, in
+   five kernels from ``src/repro_torch/csrc`` (one nvcc per source, in
    parallel) into ``build/repro_torch/``.
 2. Kernel edge cases: every kernel against its plain PyTorch version on the
-   card (merge and rank exactly, Lindley within 1e-9 s).
-3. Main path: ``Simulator.run`` on the card for vlsm and rocksdb at the
+   card (merge and rank exactly, Lindley within 1e-9 s; flash_attention
+   over S 1..384, head_dim 64/128, GQA and windows, and ssd_scan's y and
+   final state over L 1..300, G < H, dt from 1e-4 to 10, every element
+   within atol + rtol * |plain| as TOL below states).
+3. Store path: ``Simulator.run`` on the card for vlsm and rocksdb at the
    paper's byte scale (64 MiB scale, ``DeviceModel.scaled(1.0)``, 200-byte
    pairs): 8,000,000 uniform keys loaded at 500,000 ops/s, a 10 s settle,
    then 2,000,000 YCSB Run A ops (50% GET / 50% update, Zipfian 0.99) at
    8,000 ops/s.  Launch counts are zeroed just before and read just after;
-   every kernel must have launched.
-4. Kernel timings at the main path's shapes (real tree data from the vlsm
-   run): kernel, plain version and library call — ``ms``, the median of
-   five CUDA-event-timed trials of back-to-back calls, and ``device_ms``,
-   the kernels' own device time from torch.profiler — beside the memory
-   bound at 3.35 TB/s (for the rank: the keys, the ranks and the distinct
-   fence entries its searches read).
-5. Cross-check: the same main path, at full size, with
-   ``compute_device="cpu"`` (the plain PyTorch tier) against the card runs
-   of phase 3: per-op reads/probed and stall counts identical, latency
-   within 1e-9 s.
-6. Where the time goes: the vlsm main path once under torch.profiler
-   (device busy time by kernel) and once under cProfile (host hot spots).
+   merge_path, overlap_scan and lindley_scan must have launched.
+4. Serving path: ``repro_torch.launch.serve.run("zamba2_1_2b",
+   smoke=False)`` — zamba2-1.2b at full width and depth (38 Mamba2 layers,
+   d_model 2048, the shared attention block applied 6 times), bf16 weights
+   from a seeded generator, 8 requests (two shared 128-token prefixes plus
+   8-63-token tails), 16 greedy tokens each, through the vLSM prefix cache.
+   Launch counts are zeroed just before and read just after;
+   flash_attention, ssd_scan and overlap_scan must have launched.
+5. Kernel timings at the main paths' shapes: kernel, plain version and
+   library call — ``ms``, the median of five CUDA-event-timed trials of
+   back-to-back calls, and ``device_ms``, the kernels' own device time from
+   torch.profiler — beside the bound: the larger of the bytes at 3.35 TB/s
+   and the operations at 989 TFLOP/s (bf16).  The LM kernels are also
+   timed at a 4,096-token prefill.
+6. Cross-checks: the store path again with ``compute_device="cpu"`` (per-op
+   reads/probed and stall counts identical, latency within 1e-9 s); the
+   serving model in float32, full width, depth cut to 7 layers (one
+   shared-attention application), card against CPU on the first request's
+   prefill and 4 greedy decode steps (tokens identical, logits within
+   1e-3 of max(1, max|logit|)).
+7. Where the time goes: the vlsm store path under torch.profiler and
+   cProfile; a 2-request serving run under torch.profiler.
 
 Prints the card line, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  ``--out DIR`` also writes every number
@@ -46,7 +58,35 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
+BF16_FLOP_S = 989e12           # H100 SXM dense bf16 tensor-core rate
 LINDLEY_TOL_S = 1e-9
+# Kernel against plain version, element by element: |got - want| <= atol +
+# rtol * |want|.  The atols are the reference's own (tests/test_kernels.py)
+# except flash's bf16 one: both sides compute in fp32 from the same inputs
+# (the bf16 kernel keeps P to ~16 bits) and round once to bf16, so they
+# differ by at most one bf16 ulp (< 2^-7 |want|) and ~1e-4 before rounding.
+# ssd's fp32 rtol covers its cumsums over 64- vs 128-step chunks: exponents
+# up to ~700 carry ~1e-5 relative error into y (a CPU emulation of the
+# kernel's chunking reaches a quarter of it).  The state is fp32 arithmetic
+# in both dtypes and is never rounded to bf16.
+TOL = {("flash_attention", "float32"): (2e-5, 0.0),
+       ("flash_attention", "bfloat16"): (1e-3, 1e-2),
+       ("ssd_scan", "float32"): (2e-4, 1e-4),
+       ("ssd_scan", "bfloat16"): (6e-2, 1e-2)}
+SSD_STATE_TOL = (2e-4, 1e-4)
+SERVE_ARCH = "zamba2_1_2b"
+SERVE_REQUESTS = 8             # serve.run's default, the reference's
+PROFILE_REQUESTS = 2           # the profiled serving run (phase 7)
+CROSS_LAYERS = 7               # depth of the float32 card-vs-CPU cross-check
+CROSS_TOL = 1e-3               # of max(1, max|logit|), see serve_cross_check
+LONG_PREFILL = 4096
+STORE_KERNELS = ("merge_path", "overlap_scan", "lindley_scan")
+SERVE_KERNELS = ("flash_attention", "ssd_scan", "overlap_scan")
+SOURCES = {"merge_path": "kernels/merge_path/kernel.py:131",
+           "overlap_scan": "kernels/overlap_scan/kernel.py:63",
+           "lindley_scan": "kernels/lindley_scan/kernel.py:61",
+           "flash_attention": "kernels/flash_attention/kernel.py:108",
+           "ssd_scan": "kernels/ssd_scan/kernel.py:81"}
 N_LOAD = 8_000_000             # uniform keys loaded (before de-duplication)
 N_RUN = 2_000_000              # YCSB Run A ops after the settle
 
@@ -147,6 +187,13 @@ def distinct_probes(torch, fences, keys, side: str) -> int:
 
 def bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def roofline(nbytes: float, flops: float) -> tuple[float, str]:
+    """(least ms, what sets it): bytes at 3.35 TB/s or bf16 operations at
+    989 TFLOP/s, whichever takes longer."""
+    b_ms, f_ms = bound_ms(nbytes), flops / BF16_FLOP_S * 1e3
+    return (b_ms, "bytes") if b_ms >= f_ms else (f_ms, "operations")
 
 
 # --------------------------------------------------------------- workloads
@@ -389,6 +436,270 @@ def profile_main_path(torch, np, trace) -> dict:
     }
 
 
+# ------------------------------------------------------ LM kernels: edges
+def _randn(torch, gen, shape, dtype, scale=1.0):
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+
+def check_close(what: str, kernel: str, got, want, tol=None) -> float:
+    """Fails unless dtype and shape match, got is finite and every element
+    is within ``tol`` (default TOL[kernel, dtype]) of want; returns the
+    largest |got - want|."""
+    atol, rtol = tol or TOL[kernel, str(want.dtype).split(".")[1]]
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max()) if w.numel() else 0.0
+    if not (got.dtype == want.dtype and got.shape == want.shape
+            and bool(g.isfinite().all())
+            and bool(((g - w).abs() <= atol + rtol * w.abs()).all())):
+        fail(f"{what}: max |err| {err} (atol {atol}, rtol {rtol}, max|want| "
+             f"{float(w.abs().max()) if w.numel() else 0.0})")
+    return err
+
+
+def edge_flash(torch) -> float:
+    """flash_attention against its plain version: S 1, 127, 128, 130, 384;
+    head_dim 64 and 128; GQA rep 1 and 2; window None and 128; fp32 and
+    bf16; plus a non-causal case.  Returns the largest |err|."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    worst = 0.0
+    cases = [(s, d, rep, win, dt, True)
+             for s in (1, 127, 128, 130, 384) for d in (64, 128)
+             for rep in (1, 2) for win in (None, 128)
+             for dt in ("float32", "bfloat16")]
+    cases += [(130, 64, 2, None, "float32", False),
+              (384, 128, 1, 128, "bfloat16", False)]
+    for s, d, rep, win, dt, causal in cases:
+        dtype = getattr(torch, dt)
+        q = _randn(torch, gen, (2, 2 * rep, s, d), dtype)
+        k = _randn(torch, gen, (2, 2, s, d), dtype)
+        v = _randn(torch, gen, (2, 2, s, d), dtype)
+        got = flash_attention(q, k, v, causal=causal, window=win)
+        want = flash_attention_plain(q, k, v, causal=causal, window=win)
+        worst = max(worst, check_close(
+            f"flash_attention edge case S={s} D={d} rep={rep} window={win} "
+            f"{dt} causal={causal}", "flash_attention", got, want))
+    return worst
+
+
+def edge_ssd(torch) -> float:
+    """ssd_scan against its plain version, y and final state: L 1, 100,
+    128, 300 (padded as the reference pads); H 4 over G 1 and 2; (N, P)
+    (64, 64), (128, 64), (16, 32) and (64, 48) (two, one and one column
+    blocks per head); fp32 and bf16; dt log-uniform from 1e-4 to 10.
+    Returns the largest |err| of y."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    worst = 0.0
+    cases = [(L, g, n, p, dt) for L in (1, 100, 128, 300) for g in (1, 2)
+             for n, p in ((64, 64), (128, 64), (16, 32), (64, 48))
+             for dt in ("float32", "bfloat16")]
+    for L, g, n, p, dt_name in cases:
+        dtype = getattr(torch, dt_name)
+        b, h = 2, 4
+        x = _randn(torch, gen, (b, L, h, p), dtype)
+        dt = (10.0 ** (torch.rand((b, L, h), generator=gen, device="cuda")
+                       * 5 - 4)).to(dtype)
+        a = -(torch.rand(h, generator=gen, device="cuda") + 0.1)
+        bm = _randn(torch, gen, (b, L, g, n), dtype, 0.3)
+        cm = _randn(torch, gen, (b, L, g, n), dtype, 0.3)
+        worst = max(worst, check_ssd(
+            f"ssd_scan edge case L={L} G={g} N={n} P={p} {dt_name}",
+            ssd_scan(x, dt, a, bm, cm), ssd_scan_plain(x, dt, a, bm, cm)))
+    return worst
+
+
+def check_ssd(what: str, got, want) -> float:
+    """y and the final state against the plain version's; returns the
+    largest |err| of y."""
+    (y, state), (y_want, state_want) = got, want
+    check_close(f"{what}, final state", "ssd_scan", state, state_want,
+                SSD_STATE_TOL)
+    return check_close(what, "ssd_scan", y, y_want)
+
+
+# --------------------------------------------------------- serving path
+def serve_path(torch, np) -> dict:
+    """The serving entry point at zamba2-1.2b's full size, with the
+    reference's defaults (8 requests, 16 decode tokens, 32-token blocks,
+    max_seq 512, 50 req/s offered, no admission limit)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    out = serve.run(SERVE_ARCH, smoke=False, compute_device="cuda")
+    wall = time.perf_counter() - t0
+    s = out["stats"]
+    lens = [len(r) for r in serve.make_requests(SERVE_REQUESTS,
+                                                cfg.vocab_size)]
+    outs = out["outputs"]
+    if not (len(outs) == s["requests_admitted"] == SERVE_REQUESTS
+            and all(len(o) == 16 and all(0 <= t < cfg.vocab_size for t in o)
+                    for o in outs)):
+        fail("serving path: every request must get 16 tokens in the vocab")
+    # two shared 128-token prefixes: every request after the first two
+    # finds its prefix (four 32-token blocks) in the vLSM index
+    if s["prefix_hits"] != SERVE_REQUESTS - 2 \
+            or s["tokens_reused"] != 128 * (SERVE_REQUESTS - 2):
+        fail(f"serving path: prefix hits {s['prefix_hits']}, reused "
+             f"{s['tokens_reused']}")
+    decoded = (16 - 1) * len(outs)
+    return {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "param_dtype": cfg.param_dtype, "params": cfg.param_count(),
+        "wall_s": wall, "requests_served": s["requests_admitted"],
+        "requests_rejected": s["requests_rejected"],
+        "prefix_hits": s["prefix_hits"], "tokens_reused": s["tokens_reused"],
+        "prompt_tokens": lens, "p50_ms": s["p50_ms"], "p99_ms": s["p99_ms"],
+        "latency_ms": s["latency_ms"], "prefill_ms": s["prefill_ms"],
+        "decode_ms": s["decode_ms"],
+        "prefill_tok_s": sum(lens) / (sum(s["prefill_ms"]) / 1e3),
+        "prefill_tok_s_after_first": sum(lens[1:])
+        / (sum(s["prefill_ms"][1:]) / 1e3),
+        "decode_tok_s": decoded / (sum(s["decode_ms"]) / 1e3),
+        "decode_ms_per_token_after_first": sum(s["decode_ms"][1:])
+        / (15 * (len(outs) - 1)),
+        "prefix_cache": s["prefix_cache"], "outputs": outs,
+    }
+
+
+def serve_cross_check(torch, np) -> dict:
+    """The serving model in float32 at full width, depth cut to
+    CROSS_LAYERS (7 keeps one shared-attention application), card against
+    the CPU tier
+    with the same weights: the first request's prefill and 4 greedy decode
+    steps.  Tokens must be identical and logits within CROSS_TOL of
+    max(1, max|logit|): fp32 sums over 2048-8192 terms taken in another
+    order on each side (the smoke-size CPU parity, 128 wide, measured
+    3.5e-6), while a wrong kernel moves logits by O(0.1)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import decode_step, forward, init_model
+    cfg = get_config(SERVE_ARCH).with_(n_layers=CROSS_LAYERS,
+                                       param_dtype="float32")
+    params = init_model(cfg, 0, compute_device="cuda")
+
+    def to_cpu(tree):
+        return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
+                for k, v in tree.items()}
+    cpu_params = to_cpu(params)
+    tokens = make_requests(SERVE_REQUESTS, cfg.vocab_size)[0]
+    runs = {}
+    for dev, p in (("cuda", params), ("cpu", cpu_params)):
+        t0 = time.perf_counter()
+        logits, cache = forward(cfg, p, {"tokens": tokens[None]},
+                                cache_len=512, compute_device=dev)
+        steps = [logits.float().cpu()]
+        tok = torch.argmax(logits[:, -1:], -1)
+        toks = [int(tok[0, 0])]
+        pos = torch.tensor([len(tokens)], device=dev)
+        for t in range(4):
+            logits, cache = decode_step(cfg, p, tok, pos + t, cache,
+                                        compute_device=dev)
+            steps.append(logits.float().cpu())
+            tok = torch.argmax(logits[:, -1:], -1)
+            toks.append(int(tok[0, 0]))
+        runs[dev] = (steps, toks, time.perf_counter() - t0)
+    (c_steps, c_toks, c_wall), (h_steps, h_toks, h_wall) = \
+        runs["cuda"], runs["cpu"]
+    errs = [float((a - b).abs().max()) for a, b in zip(c_steps, h_steps)]
+    scale = max(1.0, max(float(b.abs().max()) for b in h_steps))
+    if c_toks != h_toks or max(errs) > CROSS_TOL * scale:
+        fail(f"serving cross-check: tokens {c_toks} vs {h_toks}, logits "
+             f"max |err| per step {errs} (scale {scale})")
+    return {"layers": CROSS_LAYERS, "prompt_tokens": len(tokens),
+            "tokens": c_toks, "max_abs_logit_err": errs,
+            "max_abs_logit": scale, "card_s": c_wall, "cpu_s": h_wall}
+
+
+# ----------------------------------------------------- LM kernel timings
+def flash_bound(bh: int, s: int, d: int, nbytes_el: int = 2):
+    """q, k, v read and o written once; 4*D operations per unmasked
+    (query, key) pair, S(S+1)/2 pairs per head (causal)."""
+    return roofline(4 * bh * s * d * nbytes_el, 2 * d * s * (s + 1) * bh)
+
+
+def ssd_bound(b: int, L: int, h: int, g: int, n: int, p: int,
+              nbytes_el: int = 2):
+    """x, dt, B, C read and y written once, the fp32 final state written
+    once (a negligible); the recurrence's 4*N*P operations per step and
+    head (state update and readout)."""
+    nbytes = nbytes_el * (2 * b * L * h * p + b * L * h + 2 * b * L * g * n) \
+        + 4 * b * h * n * p
+    return roofline(nbytes, 4 * n * p * L * b * h)
+
+
+def time_flash(torch, s: int, reps: int) -> dict:
+    """zamba2-1.2b's shared attention prefill: B 1, 32 heads (kv 32), D 64,
+    bf16, causal, at S tokens (seeded random inputs)."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    q, k, v = (_randn(torch, gen, (1, 32, s, 64), torch.bfloat16)
+               for _ in range(3))
+    err = check_close(f"flash_attention at S={s}", "flash_attention",
+                      flash_attention(q, k, v), flash_attention_plain(q, k, v))
+    bound, by = flash_bound(32, s, 64)
+    return {"shape": f"BH 32, S {s}, D 64, bf16, causal",
+            "max_abs_err": err, "bound_ms": bound, "bound_by": by,
+            **time_all(torch, lambda: flash_attention(q, k, v),
+                       lambda: flash_attention_plain(q, k, v),
+                       lambda: F.scaled_dot_product_attention(
+                           q, k, v, is_causal=True), reps)}
+
+
+def time_ssd(torch, L: int, reps: int) -> dict:
+    """zamba2-1.2b's Mamba2 prefill: B 1, 64 heads of P 64, one group of
+    N 64, bf16, at L tokens (padded by the wrapper as the reference pads;
+    seeded random inputs, dt in the softplus range)."""
+    from repro_torch.kernels.ssd_scan.ops import (DEFAULT_CK, _chunk,
+                                                  ssd_scan, ssd_scan_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    bf = torch.bfloat16
+    x = _randn(torch, gen, (1, L, 64, 64), bf)
+    dt = torch.nn.functional.softplus(
+        torch.randn((1, L, 64), generator=gen, device="cuda")).to(bf)
+    a = -torch.ones(64, device="cuda")
+    bm = _randn(torch, gen, (1, L, 1, 64), bf, 0.3)
+    cm = _randn(torch, gen, (1, L, 1, 64), bf, 0.3)
+    err = check_ssd(f"ssd_scan at L={L}", ssd_scan(x, dt, a, bm, cm),
+                    ssd_scan_plain(x, dt, a, bm, cm))
+    bound, by = ssd_bound(1, L, 64, 1, 64, 64)
+    ckk, pad = _chunk(L, DEFAULT_CK)
+    return {"shape": f"BH 64, L {L} (padded {L + pad}), P 64, N 64, bf16",
+            "max_abs_err": err, "bound_ms": bound, "bound_by": by,
+            **time_all(torch, lambda: ssd_scan(x, dt, a, bm, cm),
+                       lambda: ssd_scan_plain(x, dt, a, bm, cm), None,
+                       reps)}
+
+
+def profile_serve(torch, np) -> dict:
+    """A 2-request full-size serving run under torch.profiler: the
+    device's busy time by kernel against the run's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve.run(SERVE_ARCH, smoke=False, n_requests=PROFILE_REQUESTS,
+                  compute_device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = kernel_times_us(prof)
+    busy_ms = sum(us for _, us, _ in rows) / 1e3
+    return {"profiled_wall_s": wall, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / 1e3 / wall,
+            "top_device": [{"name": n[:90], "ms": us / 1e3, "count": c}
+                           for n, us, c in rows[:15]]}
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -418,10 +729,14 @@ def main() -> int:
     rng = np.random.default_rng(0)
     edge_err = {"merge_path": edge_merge(torch, np, rng),
                 "overlap_scan": edge_rank(torch, np, rng),
-                "lindley_scan": edge_lindley(torch, np, rng)}
+                "lindley_scan": edge_lindley(torch, np, rng),
+                "flash_attention": edge_flash(torch),
+                "ssd_scan": edge_ssd(torch)}
     torch.cuda.synchronize()
     print("kernel edge cases: merge_path and overlap_scan exact, "
-          f"lindley_scan max |err| {edge_err['lindley_scan']:.3e} s", flush=True)
+          f"lindley_scan max |err| {edge_err['lindley_scan']:.3e} s, "
+          f"flash_attention {edge_err['flash_attention']:.3e}, "
+          f"ssd_scan {edge_err['ssd_scan']:.3e}", flush=True)
 
     trace = ycsb_trace(np, N_LOAD, N_RUN)
     kernels.reset_launch_counts()
@@ -441,19 +756,48 @@ def main() -> int:
                              res.n_stalls)
         report[f"main_{policy}"] = row
         print(f"main path {policy}: " + json.dumps(row), flush=True)
-        if min(launches[policy].values()) <= 0:
-            fail(f"{policy}: a kernel never launched on the main path")
+        if min(launches[policy][k] for k in STORE_KERNELS) <= 0:
+            fail(f"{policy}: a kernel never launched on the store path")
     total = kernels.launch_counts()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    srv = serve_path(torch, np)
+    serve_launches = kernels.launch_counts()
+    srv["launches"] = serve_launches
+    srv["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    report["serve"] = srv
+    print("serving path: " + json.dumps(
+        {k: v for k, v in srv.items() if k != "outputs"}), flush=True)
+    if min(serve_launches[k] for k in SERVE_KERNELS) <= 0:
+        fail(f"serving path: a kernel never launched: {serve_launches}")
+    torch.cuda.empty_cache()
 
     sim, res = runs["vlsm"]
     timings = {"merge_path": time_merge(torch, sim),
                "overlap_scan": time_rank(torch, np, sim, trace),
                "lindley_scan": time_lindley(torch, np, sim, res)}
+    del runs, sim, res
+    s_serve = max(srv["prompt_tokens"])
+    timings["flash_attention"] = time_flash(torch, s_serve, 40)
+    timings["ssd_scan"] = time_ssd(torch, s_serve, 40)
     for name, err in edge_err.items():
         timings[name]["max_abs_err"] = max(timings[name]["max_abs_err"], err)
-    del runs, sim, res
+    report["long_prefill"] = {
+        "flash_attention": time_flash(torch, LONG_PREFILL, 10),
+        "ssd_scan": time_ssd(torch, LONG_PREFILL, 10)}
     for name, t in timings.items():
         print(f"timing {name}: " + json.dumps(t), flush=True)
+    for name, t in report["long_prefill"].items():
+        print(f"timing {name} at {LONG_PREFILL} tokens: " + json.dumps(t),
+              flush=True)
+    torch.cuda.empty_cache()
+
+    cross = serve_cross_check(torch, np)
+    report["cross_serve"] = cross
+    print("cross-check serving (float32, " f"{cross['layers']} layers): "
+          + json.dumps(cross), flush=True)
 
     for policy in ("vlsm", "rocksdb"):
         reads, probed, latency, n_stalls = card_runs.pop(policy)
@@ -477,18 +821,25 @@ def main() -> int:
           f"{prof['device_busy_ms']:.1f} ms of {prof['profiled_wall_s']:.2f} s "
           f"wall ({100 * prof['device_busy_share']:.2f}%)", flush=True)
 
-    sources = {"merge_path": "kernels/merge_path/kernel.py:131",
-               "overlap_scan": "kernels/overlap_scan/kernel.py:63",
-               "lindley_scan": "kernels/lindley_scan/kernel.py:61"}
+    sprof = profile_serve(torch, np)
+    report["profile_serve"] = sprof
+    print("profile serving (2 requests): device busy "
+          f"{sprof['device_busy_ms']:.1f} ms of {sprof['profiled_wall_s']:.2f}"
+          f" s wall ({100 * sprof['device_busy_share']:.2f}%)", flush=True)
+
     rows = []
     for name, t in timings.items():
+        # launches: each kernel's count on its own main path (store kernels
+        # on the store path, the LM kernels on the serving path)
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": f"src/repro/{sources[name]}",
-            "launches": total[name], "max_abs_err": t["max_abs_err"],
+            "replaces": f"src/repro/{SOURCES[name]}",
+            "launches": (total if name in STORE_KERNELS
+                         else serve_launches)[name],
+            "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": "bytes",
+            "bound_ms": t["bound_ms"], "bound_by": t.get("bound_by", "bytes"),
             "library_ms": t["library_ms"], "device_ms": t["device_ms"],
             "plain_device_ms": t["plain_device_ms"],
             "library_device_ms": t["library_device_ms"]})

@@ -1,24 +1,31 @@
-"""Hand-written Hopper kernels of the store's main path, with their plain
+"""Hand-written Hopper kernels of the port's main paths, with their plain
 PyTorch versions and launch counters.
 
-    merge_path    — compaction's stable two-run merge  (csrc/merge_path.cu)
-    overlap_scan  — sorted-array rank behind every fence/GET probe
-                    (csrc/overlap_scan.cu)
-    lindley_scan  — the DES's batched FIFO departure scan
-                    (csrc/lindley_scan.cu)
+    merge_path       — compaction's stable two-run merge (csrc/merge_path.cu)
+    overlap_scan     — sorted-array rank behind every fence/GET probe
+                       (csrc/overlap_scan.cu)
+    lindley_scan     — the DES's batched FIFO departure scan
+                       (csrc/lindley_scan.cu)
+    flash_attention  — causal / sliding-window attention of the LM prefill
+                       (csrc/flash_attention.cu)
+    ssd_scan         — the Mamba2 SSD chunked scan of the LM prefill
+                       (csrc/ssd_scan.cu)
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs the plain
 version for CPU tensors; its ``launches`` attribute counts kernel launches
 only.  Importing this package builds nothing (see ``_build``).
 """
 
+from .flash_attention.ops import flash_attention
 from .lindley_scan.ops import lindley_batch
 from .merge_path.ops import merge_two_runs
 from .overlap_scan.ops import fence_rank
+from .ssd_scan.ops import ssd_scan
 
 #: kernel name -> wrapper that counts its launches
 WRAPPERS = {"merge_path": merge_two_runs, "overlap_scan": fence_rank,
-            "lindley_scan": lindley_batch}
+            "lindley_scan": lindley_batch, "flash_attention": flash_attention,
+            "ssd_scan": ssd_scan}
 
 
 def launch_counts() -> dict[str, int]:
@@ -30,5 +37,6 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["WRAPPERS", "fence_rank", "launch_counts", "lindley_batch",
-           "merge_two_runs", "reset_launch_counts"]
+__all__ = ["WRAPPERS", "fence_rank", "flash_attention", "launch_counts",
+           "lindley_batch", "merge_two_runs", "reset_launch_counts",
+           "ssd_scan"]

@@ -1,0 +1,159 @@
+"""Model assembly: init and prefill for the ssm and hybrid families — the
+port of ``repro/models/blocks.py``.
+
+Parameters are plain dicts with the reference's keys and its stacked
+``[L, ...]`` layer layout; the layer stack runs as a Python loop where the
+reference scans.
+
+Families:
+  ssm     — pure Mamba2 (SSD) stack.
+  hybrid  — Mamba2 backbone with ONE shared attention block applied after
+            every full ``attn_every``-layer segment (zamba2), each
+            application with its own KV cache.
+  decoder, encdec — not ported yet (ROADMAP queue 1, item 8).
+
+Every entry point takes ``compute_device`` (default ``"cuda"``, which
+raises without a GPU; ``"cpu"`` runs the kernels' plain versions) and runs
+float32 products in full fp32 (TF32 off for matmul and cuDNN).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.types import resolve_compute_device
+from . import attention as attn
+from . import moe as moe_mod
+from . import ssd as ssd_mod
+from .common import dense_spec, materialize, norm, norm_params, stack_specs
+
+Params = dict
+Cache = dict
+PORTED_FAMILIES = ("ssm", "hybrid")
+
+
+def exact_fp32() -> None:
+    """Keep float32 products in full fp32 on the card (no TF32), so that the
+    float32 path is comparable with the CPU tier."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def require_ported(cfg) -> None:
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet: see "
+            "ROADMAP.md, queue 1, item 8 (decoder-family serving slice, "
+            "then MLA/MoE, encdec)")
+
+
+# ===================================================================== init
+def model_specs(cfg) -> dict:
+    """Leaf specs ``(kind, shape, dtype[, std])`` of every parameter, in the
+    reference's pytree layout (see ``common.materialize``)."""
+    require_ported(cfg)
+    p = {"embed": dense_spec((cfg.vocab_size, cfg.d_model), cfg.param_dtype,
+                             scale=0.02),
+         "final_norm": norm_params(cfg, cfg.d_model)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_spec((cfg.d_model, cfg.vocab_size),
+                                  cfg.param_dtype)
+    block = {"norm": norm_params(cfg, cfg.d_model),
+             "ssd": ssd_mod.ssd_specs(cfg)}
+    p["layers"] = stack_specs(block, cfg.n_layers)
+    if cfg.attn_every:
+        p["shared_attn"] = {"attn_norm": norm_params(cfg, cfg.d_model),
+                            "mlp_norm": norm_params(cfg, cfg.d_model),
+                            "attn": attn.attn_specs(cfg),
+                            "mlp": moe_mod.mlp_specs(cfg, d_ff=cfg.d_ff)}
+    return p
+
+
+def init_model(cfg, seed: int = 0, *,
+               compute_device: str | torch.device = "cuda") -> Params:
+    """Random parameters drawn from a ``torch.Generator`` seeded with
+    ``seed`` on ``compute_device``."""
+    dev = resolve_compute_device(compute_device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return materialize(model_specs(cfg), gen)
+
+
+def layer_params(params: Params, i: int) -> Params:
+    """Layer ``i`` of the stacked ``[L, ...]`` layer parameters (views)."""
+    return {k: (layer_params(v, i) if isinstance(v, dict) else v[i])
+            for k, v in params.items()}
+
+
+# ================================================================== prefill
+def _shared_attn_fwd(cfg, p, h, positions):
+    a_in = norm(cfg, h, p["attn_norm"])
+    a_out, kv = attn.attn_forward(cfg, p["attn"], a_in, positions,
+                                  cfg.rope_theta, -1)
+    h = h + a_out
+    m_in = norm(cfg, h, p["mlp_norm"])
+    return h + moe_mod.mlp_forward(cfg, p["mlp"], m_in), kv
+
+
+def segments(cfg) -> list[tuple[int, int]]:
+    """Layer ranges between shared-attention applications (one range for
+    the ssm family)."""
+    step = cfg.attn_every or cfg.n_layers
+    return [(s, min(s + step, cfg.n_layers))
+            for s in range(0, cfg.n_layers, step)]
+
+
+def check_params_device(params: Params, dev: torch.device) -> None:
+    if params["embed"].device.type != dev.type:
+        raise ValueError(f"parameters are on {params['embed'].device}, not "
+                         f"on compute_device {dev}")
+
+
+def forward(cfg, params: Params, batch: dict, *, mode: str = "prefill",
+            cache_len: int | None = None,
+            compute_device: str | torch.device = "cuda"):
+    """mode='prefill': returns (last_logits [B, 1, V], cache) with the
+    shared block's KV caches sized ``cache_len or S``.  ``batch["tokens"]``
+    is [B, S] (a tensor or an array).  ``mode='train'`` waits for the
+    training slice (ROADMAP)."""
+    require_ported(cfg)
+    if mode != "prefill":
+        raise NotImplementedError(
+            f"forward(mode={mode!r}) is not ported yet: the training slice "
+            "(ROADMAP.md, queue 1, item 8) brings mode='train'")
+    dev = resolve_compute_device(compute_device)
+    check_params_device(params, dev)
+    exact_fp32()
+    tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+    h = params["embed"][tokens]
+    b, s = tokens.shape
+    if cache_len is not None and cache_len < s:
+        raise ValueError(f"cache_len {cache_len} < prompt length {s}")
+    positions = torch.arange(s, device=h.device)[None].expand(b, s)
+    convs, states, kvs = [], [], []
+    for seg_start, seg_end in segments(cfg):
+        for i in range(seg_start, seg_end):
+            lp = layer_params(params["layers"], i)
+            out, conv_tail, state = ssd_mod.ssd_prefill(
+                cfg, lp["ssd"], norm(cfg, h, lp["norm"]))
+            h = h + out
+            convs.append(conv_tail)
+            states.append(state)
+        if cfg.attn_every and seg_end < cfg.n_layers:
+            h, kv = _shared_attn_fwd(cfg, params["shared_attn"], h, positions)
+            kvs.append(kv)
+
+    h = norm(cfg, h, params["final_norm"])
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = h[:, -1:] @ head
+    cache: Cache = {"conv": torch.stack(convs), "state": torch.stack(states),
+                    "pos": torch.full((1,), s, dtype=torch.int32,
+                                      device=h.device)}
+    if kvs:
+        target = cache_len or s
+        pad = (0, 0, 0, 0, 0, target - s)
+        cache["attn_k"] = torch.nn.functional.pad(
+            torch.stack([kv[0] for kv in kvs]), pad)
+        cache["attn_v"] = torch.nn.functional.pad(
+            torch.stack([kv[1] for kv in kvs]), pad)
+    return logits, cache

@@ -1,0 +1,81 @@
+"""Single-step decode and the cache constructor for the ssm and hybrid
+families — the port of ``repro/models/decode.py``.
+
+The cache layout is the reference's: ``conv [L, B, k-1, C]`` (pre-conv
+features), ``state [L, B, H, N, P]`` fp32, ``attn_k``/``attn_v``
+``[apps, B, S, Hk, Dh]`` (one per shared-attention application) and
+``pos``.  :func:`decode_step` updates the cache tensors in place (the
+reference returns updated copies) and returns a new dict holding them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.types import resolve_compute_device
+from . import attention as attn
+from . import moe as moe_mod
+from . import ssd as ssd_mod
+from .blocks import (check_params_device, exact_fp32, layer_params,
+                     require_ported, segments)
+from .common import dtype_of, norm
+
+
+def init_cache(cfg, batch: int, max_seq: int, *,
+               compute_device: str | torch.device = "cuda") -> dict:
+    require_ported(cfg)
+    dev = resolve_compute_device(compute_device)
+    dt = dtype_of(cfg)
+    cache = {
+        "conv": torch.zeros((cfg.n_layers, batch, cfg.conv_kernel - 1,
+                             ssd_mod.conv_dim(cfg)), dtype=dt, device=dev),
+        "state": torch.zeros((cfg.n_layers, batch, cfg.ssm_heads,
+                              cfg.ssm_state, cfg.ssm_head_dim),
+                             dtype=torch.float32, device=dev),
+        "pos": torch.zeros((1,), dtype=torch.int32, device=dev),
+    }
+    if cfg.attn_every:
+        n_apps = len(range(cfg.attn_every, cfg.n_layers, cfg.attn_every))
+        cache["attn_k"] = torch.zeros(
+            (n_apps, batch, max_seq, cfg.n_kv_heads, cfg.head_dim), dtype=dt,
+            device=dev)
+        cache["attn_v"] = torch.zeros_like(cache["attn_k"])
+    return cache
+
+
+def decode_step(cfg, params, tokens, pos, cache, *,
+                compute_device: str | torch.device = "cuda"):
+    """tokens: [B, 1] int; pos: [B] int write index; cache: as
+    :func:`init_cache`.  Returns (logits [B, 1, V], new_cache)."""
+    require_ported(cfg)
+    dev = resolve_compute_device(compute_device)
+    check_params_device(params, dev)
+    exact_fp32()
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    pos = torch.as_tensor(pos, device=dev).long()
+    h = params["embed"][tokens]
+    app = 0
+    for seg_start, seg_end in segments(cfg):
+        for i in range(seg_start, seg_end):
+            lp = layer_params(params["layers"], i)
+            out, conv, state = ssd_mod.ssd_decode(
+                cfg, lp["ssd"], norm(cfg, h, lp["norm"]), cache["conv"][i],
+                cache["state"][i])
+            cache["conv"][i] = conv
+            cache["state"][i] = state
+            h = h + out
+        if cfg.attn_every and seg_end < cfg.n_layers:
+            lp = params["shared_attn"]
+            a_out, _, _ = attn.attn_decode(
+                cfg, lp["attn"], norm(cfg, h, lp["attn_norm"]), pos,
+                cfg.rope_theta, -1, cache["attn_k"][app],
+                cache["attn_v"][app])
+            h = h + a_out
+            h = h + moe_mod.mlp_forward(cfg, lp["mlp"],
+                                        norm(cfg, h, lp["mlp_norm"]))
+            app += 1
+    h = norm(cfg, h, params["final_norm"])
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    new_cache = dict(cache)
+    new_cache["pos"] = cache["pos"] + 1
+    return h @ head, new_cache

@@ -1,0 +1,130 @@
+"""Mamba2 block (SSD): init, full-sequence forward, single-step decode — the
+port of ``repro/models/ssd.py``.
+
+Block anatomy (Mamba2): in_proj -> [z | x | B | C | dt]; depthwise causal
+conv over (x, B, C); SSD scan s_t = exp(dt A) s_{t-1} + dt B x^T, y = C s;
+D-skip, SiLU(z) gating, RMSNorm, out_proj.
+
+:func:`ssd_forward` follows the reference's kernel route
+(``use_pallas=True``): dt is cast to x's dtype and the scan goes through
+the ssd_scan kernel wrapper.  The final state comes from that same scan,
+which returns it beside y; the reference runs a second, sequential scan
+over L for it (``ssd_final_state``) with dt in float32.  In float32 the two
+agree to rounding; in bfloat16 the port's state sees dt rounded to bf16,
+as the reference's kernel route's y does.  :func:`ssd_prefill` gives the
+block's output, conv tail and final state from one input projection and
+one scan (the reference projects twice).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.ssd_scan import ssd_scan
+from .common import dense_spec, materialize, rms_norm
+
+
+def conv_dim(cfg) -> int:
+    return cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+
+
+def ssd_specs(cfg) -> dict:
+    d, di = cfg.d_model, cfg.d_inner
+    g, n_ = cfg.ssm_groups, cfg.ssm_state
+    nh = cfg.ssm_heads
+    dt = cfg.param_dtype
+    in_dim = 2 * di + 2 * g * n_ + nh      # z, x, B, C, dt
+    return {
+        "in_proj": dense_spec((d, in_dim), dt),
+        "conv_w": dense_spec((cfg.conv_kernel, conv_dim(cfg)), dt,
+                             scale=cfg.conv_kernel ** -0.5),
+        "conv_b": ("zeros", (conv_dim(cfg),), dt),
+        "a_log": ("zeros", (nh,), "float32"),
+        "dt_bias": ("zeros", (nh,), "float32"),
+        "d_skip": ("ones", (nh,), "float32"),
+        "ssm_norm": ("ones", (di,), dt),
+        "out_proj": dense_spec((di, d), dt),
+    }
+
+
+def init_ssd(cfg, gen: torch.Generator) -> dict:
+    return materialize(ssd_specs(cfg), gen)
+
+
+def _split_proj(cfg, zxbcdt):
+    di, nh = cfg.d_inner, cfg.ssm_heads
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di:di + conv_dim(cfg)]
+    dt = zxbcdt[..., di + conv_dim(cfg):di + conv_dim(cfg) + nh]
+    return z, xbc, dt
+
+
+def _causal_conv(cfg, p, xbc):
+    """Depthwise causal conv1d over [B, L, C]."""
+    k = cfg.conv_kernel
+    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    out = sum(pad[:, i:i + xbc.shape[1], :] * p["conv_w"][i][None, None, :]
+              for i in range(k))
+    return F.silu(out + p["conv_b"])
+
+
+def ssd_prefill(cfg, p, h):
+    """The block over a full sequence from one projection and one scan:
+    (out [B, L, D], conv_tail [B, k-1, C], state [B, H, N, P] fp32)."""
+    b, L, _ = h.shape
+    g, n_ = cfg.ssm_groups, cfg.ssm_state
+    nh, pd = cfg.ssm_heads, cfg.ssm_head_dim
+    z, xbc_raw, dt_raw = _split_proj(cfg, h @ p["in_proj"])
+    xbc = _causal_conv(cfg, p, xbc_raw)
+    x = xbc[..., :cfg.d_inner].reshape(b, L, nh, pd)
+    bm = xbc[..., cfg.d_inner:cfg.d_inner + g * n_].reshape(b, L, g, n_)
+    cm = xbc[..., cfg.d_inner + g * n_:].reshape(b, L, g, n_)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])
+    a = -torch.exp(p["a_log"])
+    y, state = ssd_scan(x, dt.to(x.dtype), a, bm, cm)
+    y = y + x * p["d_skip"][None, None, :, None].to(x.dtype)
+    y = y.reshape(b, L, cfg.d_inner)
+    y = rms_norm(y * F.silu(z), p["ssm_norm"], cfg.norm_eps)
+    conv_tail = xbc_raw[:, -(cfg.conv_kernel - 1):, :]
+    return y @ p["out_proj"], conv_tail, state
+
+
+def ssd_forward(cfg, p, h):
+    """Full-sequence forward.  h: [B, L, D] -> ([B, L, D], conv_tail)."""
+    out, conv_tail, _state = ssd_prefill(cfg, p, h)
+    return out, conv_tail
+
+
+def ssd_final_state(cfg, p, h):
+    """Final SSM state after a full sequence (for the prefill -> decode
+    handoff).  Returns [B, H, N, P] fp32."""
+    return ssd_prefill(cfg, p, h)[2]
+
+
+def ssd_decode(cfg, p, h, conv_cache, state):
+    """Single step.  h: [B, 1, D]; conv_cache: [B, k-1, conv_dim] (pre-conv
+    features); state: [B, H, N, P] fp32.  Returns (out, conv_cache, state)."""
+    b = h.shape[0]
+    g, n_ = cfg.ssm_groups, cfg.ssm_state
+    nh, pd = cfg.ssm_heads, cfg.ssm_head_dim
+    z, xbc_raw, dt_raw = _split_proj(cfg, h @ p["in_proj"])   # [B,1,*]
+    window = torch.cat([conv_cache, xbc_raw], dim=1)          # [B, k, C]
+    conv_out = torch.einsum("bkc,kc->bc", window, p["conv_w"]) + p["conv_b"]
+    xbc = F.silu(conv_out)                                    # [B, C]
+    x = xbc[..., :cfg.d_inner].reshape(b, nh, pd)
+    bm = xbc[..., cfg.d_inner:cfg.d_inner + g * n_].reshape(b, g, n_)
+    cm = xbc[..., cfg.d_inner + g * n_:].reshape(b, g, n_)
+    dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"])
+    a = -torch.exp(p["a_log"])
+    rep = nh // g
+    bf = bm.repeat_interleave(rep, dim=1)                     # [B, H, N]
+    cf = cm.repeat_interleave(rep, dim=1)
+    lam = torch.exp(dt * a[None, :])[..., None, None]         # [B, H, 1, 1]
+    state = lam * state + dt[..., None, None] * (
+        bf[..., :, None] * x[..., None, :].float())
+    y = torch.einsum("bhn,bhnp->bhp", cf.float(), state)
+    y = y.to(h.dtype) + x * p["d_skip"][None, :, None].to(h.dtype)
+    y = y.reshape(b, 1, cfg.d_inner)
+    y = rms_norm(y * F.silu(z), p["ssm_norm"], cfg.norm_eps)
+    return y @ p["out_proj"], window[:, 1:, :], state

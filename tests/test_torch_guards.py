@@ -10,7 +10,10 @@ import torch
 
 from repro_torch.bench_kv.workloads import WorkloadSpec
 from repro_torch.bench_kv.ycsb import run_ycsb
+from repro_torch.configs import get_config
 from repro_torch.core import LSMTree, Simulator, get_policy
+from repro_torch.launch import serve
+from repro_torch.models import forward, init_model
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -38,7 +41,8 @@ def test_port_imports_neither_jax_nor_reference(path):
 def test_port_covers_the_slice():
     assert len(PORT_FILES) > 20
     assert {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob(
-        "*.cu")} == {"merge_path.cu", "overlap_scan.cu", "lindley_scan.cu"}
+        "*.cu")} == {"merge_path.cu", "overlap_scan.cu", "lindley_scan.cu",
+                     "flash_attention.cu", "ssd_scan.cu"}
 
 
 def test_entry_points_default_to_cuda():
@@ -56,3 +60,23 @@ def test_entry_points_default_to_cuda():
         run_ycsb(cfg, spec, rate=1e3)
     res = run_ycsb(cfg, spec, rate=1e3, compute_device="cpu")
     assert res.sim.latency.shape == (10,)
+
+
+def test_lm_entry_points_default_to_cuda():
+    mcfg = get_config("mamba2_130m").smoke().with_(n_layers=1)
+    if torch.cuda.is_available():
+        assert init_model(mcfg)["embed"].device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="compute_device='cpu'"):
+        init_model(mcfg)
+    params = init_model(mcfg, compute_device="cpu")
+    batch = {"tokens": np.zeros((1, 4), np.int32)}
+    with pytest.raises(RuntimeError, match="compute_device='cpu'"):
+        forward(mcfg, params, batch)
+    logits, _ = forward(mcfg, params, batch, compute_device="cpu")
+    assert logits.shape == (1, 1, mcfg.vocab_size)
+    with pytest.raises(RuntimeError, match="compute_device='cpu'"):
+        serve.run("mamba2_130m", n_requests=1, decode_tokens=1)
+    out = serve.run("mamba2_130m", n_requests=1, decode_tokens=1,
+                    compute_device="cpu")
+    assert len(out["outputs"]) == 1

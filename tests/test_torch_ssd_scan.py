@@ -1,0 +1,118 @@
+"""Port of the ssd_scan kernel against the JAX reference on the CPU.
+
+The same numpy-seeded inputs go through the reference's Pallas kernel
+(interpret mode on the CPU), its sequential oracle ``ssd_scan_ref`` and the
+port's wrapper, which runs the plain chunked version for CPU tensors and
+pads L exactly as the reference's wrapper does.  Tolerances are the
+reference's own (``tests/test_kernels.py``): 2e-4 in float32 (a chunked sum
+in another order than the recurrence) and 6e-2 in bfloat16 (bf16 inputs and
+output rounding).  bf16 inputs are rounded once, in JAX, and handed to
+torch exactly through float32.
+
+The port's scan also returns the final state, which the reference's
+wrapper does not: it is held to a float64 run of the recurrence
+``s_t = exp(dt_t a) s_{t-1} + dt_t B_t x_t^T`` on the same (rounded)
+inputs, within 2e-4 in both dtypes, since the state is float32 arithmetic
+and is never rounded to bf16.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ssd_scan import ssd_scan as ref_ssd
+from repro.kernels.ssd_scan.ref import ssd_scan_ref
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+
+CASES = [  # b, L, h, g, p, n, ck, dtype
+    (1, 128, 2, 1, 64, 64, 64, "float32"),
+    (2, 256, 4, 2, 32, 16, 128, "float32"),
+    (1, 200, 2, 1, 64, 32, 64, "float32"),
+    (1, 128, 2, 1, 64, 64, 64, "bfloat16"),
+    (1, 300, 4, 2, 32, 16, 128, "float32"),     # padded to 384
+    (2, 100, 2, 1, 32, 16, 128, "float32"),     # one chunk of 100
+]
+TOL = {"float32": 2e-4, "bfloat16": 6e-2}
+
+
+def _inputs(b, L, h, g, p, n, dtype, dt_scale=0.1, dt_floor=0.01, seed=4):
+    rng = np.random.default_rng(seed)
+    dt = jnp.dtype(dtype)
+    x = jnp.asarray(rng.standard_normal((b, L, h, p)), dt)
+    dts = jnp.asarray(np.abs(rng.standard_normal((b, L, h))) * dt_scale
+                      + dt_floor, dt)
+    a = jnp.asarray(-np.abs(rng.standard_normal(h)) - 0.1, jnp.float32)
+    bb = jnp.asarray(rng.standard_normal((b, L, g, n)) * 0.3, dt)
+    cc = jnp.asarray(rng.standard_normal((b, L, g, n)) * 0.3, dt)
+    tt = getattr(torch, dtype)
+    port = [torch.from_numpy(np.array(t.astype(jnp.float32))).to(tt)
+            for t in (x, dts, a, bb, cc)]
+    port[2] = torch.from_numpy(np.array(a))       # a stays float32
+    return (x, dts, a, bb, cc), port
+
+
+def _oracle(x, dts, a, bb, cc):
+    b, L, h, p = x.shape
+    rep = h // bb.shape[2]
+    bf = jnp.repeat(bb, rep, axis=2)
+    cf = jnp.repeat(cc, rep, axis=2)
+    n = bf.shape[-1]
+    return ssd_scan_ref(
+        x.transpose(0, 2, 1, 3).reshape(b * h, L, p),
+        dts.transpose(0, 2, 1).reshape(b * h, L), jnp.tile(a, b),
+        bf.transpose(0, 2, 1, 3).reshape(b * h, L, n),
+        cf.transpose(0, 2, 1, 3).reshape(b * h, L, n),
+    ).reshape(b, h, L, p).transpose(0, 2, 1, 3)
+
+
+def _state_oracle(x, dts, a, bb) -> np.ndarray:
+    """[B, H, N, P]: the recurrence step by step in float64."""
+    x, dts, a, bb = (np.asarray(t.astype(jnp.float32), np.float64)
+                     for t in (x, dts, a, bb))
+    b, L, h, p = x.shape
+    bf = np.repeat(bb, h // bb.shape[2], axis=2)
+    s = np.zeros((b, h, bf.shape[-1], p))
+    for t in range(L):
+        s = (np.exp(dts[:, t] * a)[..., None, None] * s
+             + dts[:, t, :, None, None] * bf[:, t, :, :, None]
+             * x[:, t, :, None, :])
+    return s
+
+
+def _err(got: torch.Tensor, want) -> float:
+    return float(np.max(np.abs(got.float().numpy()
+                               - np.asarray(want.astype(jnp.float32)))))
+
+
+@pytest.mark.parametrize("b,L,h,g,p,n,ck,dtype", CASES)
+def test_ssd_matches_reference(b, L, h, g, p, n, ck, dtype):
+    ref_in, port_in = _inputs(b, L, h, g, p, n, dtype)
+    launches = ssd_scan.launches
+    got, state = ssd_scan(*port_in, ck=ck)
+    assert ssd_scan.launches == launches          # CPU: plain version only
+    assert got.dtype == port_in[0].dtype and got.shape == port_in[0].shape
+    assert _err(got, ref_ssd(*ref_in, ck=ck)) < TOL[dtype]
+    assert _err(got, _oracle(*ref_in)) < TOL[dtype]
+    assert state.dtype == torch.float32 and state.shape == (b, h, n, p)
+    assert _err(state, _state_oracle(*ref_in[:4])) < 2e-4
+
+
+@pytest.mark.parametrize("L", [1, 2, 129])
+def test_ssd_short_and_large_dt(L):
+    """dt from 1e-4 to 10: every exp() the plain version evaluates has a
+    non-positive argument (pairs j > t are never exponentiated), so the
+    output stays finite and matches the sequential oracle."""
+    ref_in, port_in = _inputs(1, L, 4, 2, 32, 16, "float32", dt_scale=5.0,
+                              dt_floor=1e-4, seed=L)
+    got, state = ssd_scan_plain(*port_in)
+    assert torch.isfinite(got).all()
+    assert _err(got, _oracle(*ref_in)) < 2e-4
+    assert _err(state, _state_oracle(*ref_in[:4])) < 2e-4
+
+
+def test_ssd_rejects_bad_shapes():
+    x = torch.zeros(1, 8, 3, 4)
+    with pytest.raises(ValueError):        # 3 heads over 2 groups
+        ssd_scan(x, torch.zeros(1, 8, 3), torch.zeros(3),
+                 torch.zeros(1, 8, 2, 4), torch.zeros(1, 8, 2, 4))
