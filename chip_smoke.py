@@ -6,40 +6,48 @@
 Phases, each of which must pass (any failure raises and exits non-zero):
 
 1. Card: prints ``nvidia-smi --query-gpu=name,power.limit`` and builds the
-   five kernels from ``src/repro_torch/csrc`` (one nvcc per source, in
+   six kernels from ``src/repro_torch/csrc`` (one nvcc per source, in
    parallel) into ``build/repro_torch/``.
 2. Kernel edge cases: every kernel against its plain PyTorch version on the
    card (merge and rank exactly, Lindley within 1e-9 s; flash_attention
-   over S 1..384, head_dim 64/128, GQA and windows, and ssd_scan's y and
-   final state over L 1..300, G < H, dt from 1e-4 to 10, every element
-   within atol + rtol * |plain| as TOL below states).
+   over S 1..384, head_dim 64/128, GQA and windows; ssd_scan's y and final
+   state over L 1..300, G < H, dt from 1e-4 to 10; paged_attention over
+   B 1-3, G 1/2/3/6/8, head_dim 64/128, page sizes 16/32, shuffled page
+   tables with repeats and garbage past the length, lengths 0, 1, PS,
+   PS+1 and MAXP*PS; every element within atol + rtol * |plain| as TOL
+   below states).
 3. Store path: ``Simulator.run`` on the card for vlsm and rocksdb at the
    paper's byte scale (64 MiB scale, ``DeviceModel.scaled(1.0)``, 200-byte
    pairs): 8,000,000 uniform keys loaded at 500,000 ops/s, a 10 s settle,
    then 2,000,000 YCSB Run A ops (50% GET / 50% update, Zipfian 0.99) at
    8,000 ops/s.  Launch counts are zeroed just before and read just after;
    merge_path, overlap_scan and lindley_scan must have launched.
-4. Serving path: ``repro_torch.launch.serve.run("zamba2_1_2b",
-   smoke=False)`` — zamba2-1.2b at full width and depth (38 Mamba2 layers,
-   d_model 2048, the shared attention block applied 6 times), bf16 weights
-   from a seeded generator, 8 requests (two shared 128-token prefixes plus
-   8-63-token tails), 16 greedy tokens each, through the vLSM prefix cache.
-   Launch counts are zeroed just before and read just after;
-   flash_attention, ssd_scan and overlap_scan must have launched.
+4. Serving paths: ``repro_torch.launch.serve.run(arch, smoke=False)`` with
+   the reference's defaults (8 requests: two shared 128-token prefixes
+   plus 8-63-token tails; 16 greedy tokens each; 32-token prefix blocks;
+   max_seq 512), bf16 weights from a seeded generator, at full width and
+   depth, for zamba2-1.2b (38 Mamba2 layers, d_model 2048, the shared
+   attention block applied 6 times) and qwen3-1.7b (28 GQA layers,
+   d_model 2048, 16 query heads over 8 kv heads of 128).  Launch counts
+   are zeroed just before each run and read just after: flash_attention,
+   overlap_scan and paged_attention (and ssd_scan for zamba2) must have
+   launched, paged_attention once per attention layer and decode step
+   (6 x 15 x 8 = 720 for zamba2, 28 x 15 x 8 = 3,360 for qwen3).
 5. Kernel timings at the main paths' shapes: kernel, plain version and
    library call — ``ms``, the median of five CUDA-event-timed trials of
    back-to-back calls, and ``device_ms``, the kernels' own device time from
    torch.profiler — beside the bound: the larger of the bytes at 3.35 TB/s
    and the operations at 989 TFLOP/s (bf16).  The LM kernels are also
-   timed at a 4,096-token prefill.
+   timed at a 4,096-token prefill, paged_attention at 8 sequences of
+   4,096 tokens over a shuffled pool.
 6. Cross-checks: the store path again with ``compute_device="cpu"`` (per-op
-   reads/probed and stall counts identical, latency within 1e-9 s); the
-   serving model in float32, full width, depth cut to 7 layers (one
-   shared-attention application), card against CPU on the first request's
-   prefill and 4 greedy decode steps (tokens identical, logits within
-   1e-3 of max(1, max|logit|)).
+   reads/probed and stall counts identical, latency within 1e-9 s); each
+   serving model in float32 at full width, depth cut (zamba2 to 7 layers,
+   one shared-attention application; qwen3 to 2), card against CPU on the
+   first request's prefill and 4 greedy decode steps (tokens identical,
+   logits within 1e-3 of max(1, max|logit|)).
 7. Where the time goes: the vlsm store path under torch.profiler and
-   cProfile; a 2-request serving run under torch.profiler.
+   cProfile; a 2-request serving run of each model under torch.profiler.
 
 Prints the card line, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  ``--out DIR`` also writes every number
@@ -62,9 +70,10 @@ BF16_FLOP_S = 989e12           # H100 SXM dense bf16 tensor-core rate
 LINDLEY_TOL_S = 1e-9
 # Kernel against plain version, element by element: |got - want| <= atol +
 # rtol * |want|.  The atols are the reference's own (tests/test_kernels.py)
-# except flash's bf16 one: both sides compute in fp32 from the same inputs
-# (the bf16 kernel keeps P to ~16 bits) and round once to bf16, so they
-# differ by at most one bf16 ulp (< 2^-7 |want|) and ~1e-4 before rounding.
+# except the bf16 ones of flash and paged_attention: both sides compute in
+# fp32 from the same inputs (the bf16 flash kernel keeps P to ~16 bits) and
+# round once to bf16, so they differ by at most one bf16 ulp (< 2^-7 |want|)
+# and ~1e-4 before rounding.
 # ssd's fp32 rtol covers its cumsums over 64- vs 128-step chunks: exponents
 # up to ~700 carry ~1e-5 relative error into y (a CPU emulation of the
 # kernel's chunking reaches a quarter of it).  The state is fp32 arithmetic
@@ -72,21 +81,33 @@ LINDLEY_TOL_S = 1e-9
 TOL = {("flash_attention", "float32"): (2e-5, 0.0),
        ("flash_attention", "bfloat16"): (1e-3, 1e-2),
        ("ssd_scan", "float32"): (2e-4, 1e-4),
-       ("ssd_scan", "bfloat16"): (6e-2, 1e-2)}
+       ("ssd_scan", "bfloat16"): (6e-2, 1e-2),
+       ("paged_attention", "float32"): (2e-5, 0.0),
+       ("paged_attention", "bfloat16"): (1e-3, 1e-2)}
 SSD_STATE_TOL = (2e-4, 1e-4)
-SERVE_ARCH = "zamba2_1_2b"
 SERVE_REQUESTS = 8             # serve.run's default, the reference's
-PROFILE_REQUESTS = 2           # the profiled serving run (phase 7)
-CROSS_LAYERS = 7               # depth of the float32 card-vs-CPU cross-check
+DECODE_TOKENS = 16             # serve.run's default, the reference's
+PROFILE_REQUESTS = 2           # the profiled serving runs (phase 7)
+# serving model -> (kernels its run must launch, depth of the float32
+# card-vs-CPU cross-check)
+SERVE_PATHS = {
+    "zamba2_1_2b": (("flash_attention", "ssd_scan", "overlap_scan",
+                     "paged_attention"), 7),
+    "qwen3_1_7b": (("flash_attention", "overlap_scan", "paged_attention"),
+                   2)}
 CROSS_TOL = 1e-3               # of max(1, max|logit|), see serve_cross_check
 LONG_PREFILL = 4096
+LONG_DECODE = (8, 4096, 2048)  # sequences, tokens each, pages in the pool
 STORE_KERNELS = ("merge_path", "overlap_scan", "lindley_scan")
-SERVE_KERNELS = ("flash_attention", "ssd_scan", "overlap_scan")
+# the serving path whose launches each LM kernel's row reports
+ROW_PATH = {"flash_attention": "zamba2_1_2b", "ssd_scan": "zamba2_1_2b",
+            "paged_attention": "qwen3_1_7b"}
 SOURCES = {"merge_path": "kernels/merge_path/kernel.py:131",
            "overlap_scan": "kernels/overlap_scan/kernel.py:63",
            "lindley_scan": "kernels/lindley_scan/kernel.py:61",
            "flash_attention": "kernels/flash_attention/kernel.py:108",
-           "ssd_scan": "kernels/ssd_scan/kernel.py:81"}
+           "ssd_scan": "kernels/ssd_scan/kernel.py:81",
+           "paged_attention": "kernels/paged_attention/kernel.py:102"}
 N_LOAD = 8_000_000             # uniform keys loaded (before de-duplication)
 N_RUN = 2_000_000              # YCSB Run A ops after the settle
 
@@ -521,32 +542,85 @@ def check_ssd(what: str, got, want) -> float:
     return check_close(what, "ssd_scan", y, y_want)
 
 
+def edge_paged(torch, np) -> float:
+    """paged_attention against its plain version: B 1-3 (cycling), G 1, 2,
+    3, 6 and 8 query heads per kv head (2 kv heads), head_dim 64 and 128,
+    page sizes 16 and 32, fp32 and bf16; page tables drawn with repeats
+    from a 3*MAXP-page pool, entries past each sequence's last page set to
+    -1 or 2**30 (never followed); lengths cycling through 0, 1, PS, PS+1
+    and MAXP*PS.  Then the serving paths' kv-head counts the same way:
+    qwen3-1.7b's 8 kv heads (G 2, D 128) and zamba2-1.2b's 32 (G 1, D 64),
+    PS 32.  Returns the largest |err|."""
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_attention, paged_attention_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    rng = np.random.default_rng(15)
+    maxp, worst, i = 5, 0.0, 0
+    cases = [(2, g, d, ps) for d in (64, 128) for g in (1, 2, 3, 6, 8)
+             for ps in (16, 32)] + [(8, 2, 128, 32), (32, 1, 64, 32)]
+    for hkv, g, d, ps in cases:
+        for dt in ("float32", "bfloat16"):
+            b = 1 + i % 3
+            edges = [0, 1, ps, ps + 1, maxp * ps]
+            lengths = [edges[(i + j) % 5] for j in range(b)]
+            i += 1
+            n_pages = 3 * maxp
+            table = rng.integers(0, n_pages, (b, maxp))
+            for row, n in enumerate(lengths):
+                table[row, -(-n // ps):] = (-1, 2 ** 30)[row % 2]
+            dtype = getattr(torch, dt)
+            q = _randn(torch, gen, (b, g * hkv, d), dtype)
+            kp = _randn(torch, gen, (n_pages, ps, hkv, d), dtype)
+            vp = _randn(torch, gen, (n_pages, ps, hkv, d), dtype)
+            pt = torch.tensor(table, dtype=torch.int32, device="cuda")
+            ln = torch.tensor(lengths, dtype=torch.int32,
+                              device="cuda")
+            got = paged_attention(q, kp, vp, pt, ln)
+            want = paged_attention_plain(q, kp, vp, pt, ln)
+            worst = max(worst, check_close(
+                f"paged_attention edge case B={b} Hkv={hkv} G={g} "
+                f"D={d} PS={ps} lengths={lengths} {dt}",
+                "paged_attention", got, want))
+    return worst
+
+
 # --------------------------------------------------------- serving path
-def serve_path(torch, np) -> dict:
-    """The serving entry point at zamba2-1.2b's full size, with the
+def attention_layers(cfg) -> int:
+    """Attention layers a decode step runs: every layer of a decoder, each
+    shared-block application of a hybrid."""
+    if cfg.family == "decoder":
+        return cfg.n_layers
+    return len(range(cfg.attn_every, cfg.n_layers, cfg.attn_every))
+
+
+def serve_path(torch, np, arch: str) -> dict:
+    """The serving entry point at ``arch``'s full size, with the
     reference's defaults (8 requests, 16 decode tokens, 32-token blocks,
     max_seq 512, 50 req/s offered, no admission limit)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     t0 = time.perf_counter()
-    out = serve.run(SERVE_ARCH, smoke=False, compute_device="cuda")
+    out = serve.run(arch, smoke=False, compute_device="cuda")
     wall = time.perf_counter() - t0
     s = out["stats"]
     lens = [len(r) for r in serve.make_requests(SERVE_REQUESTS,
                                                 cfg.vocab_size)]
     outs = out["outputs"]
     if not (len(outs) == s["requests_admitted"] == SERVE_REQUESTS
-            and all(len(o) == 16 and all(0 <= t < cfg.vocab_size for t in o)
+            and all(len(o) == DECODE_TOKENS
+                    and all(0 <= t < cfg.vocab_size for t in o)
                     for o in outs)):
-        fail("serving path: every request must get 16 tokens in the vocab")
+        fail(f"serving path {arch}: every request must get {DECODE_TOKENS} "
+             "tokens in the vocab")
     # two shared 128-token prefixes: every request after the first two
     # finds its prefix (four 32-token blocks) in the vLSM index
     if s["prefix_hits"] != SERVE_REQUESTS - 2 \
             or s["tokens_reused"] != 128 * (SERVE_REQUESTS - 2):
-        fail(f"serving path: prefix hits {s['prefix_hits']}, reused "
+        fail(f"serving path {arch}: prefix hits {s['prefix_hits']}, reused "
              f"{s['tokens_reused']}")
-    decoded = (16 - 1) * len(outs)
+    steps = DECODE_TOKENS - 1
     return {
         "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
         "param_dtype": cfg.param_dtype, "params": cfg.param_count(),
@@ -559,27 +633,26 @@ def serve_path(torch, np) -> dict:
         "prefill_tok_s": sum(lens) / (sum(s["prefill_ms"]) / 1e3),
         "prefill_tok_s_after_first": sum(lens[1:])
         / (sum(s["prefill_ms"][1:]) / 1e3),
-        "decode_tok_s": decoded / (sum(s["decode_ms"]) / 1e3),
+        "decode_tok_s": steps * len(outs) / (sum(s["decode_ms"]) / 1e3),
         "decode_ms_per_token_after_first": sum(s["decode_ms"][1:])
-        / (15 * (len(outs) - 1)),
+        / (steps * (len(outs) - 1)),
+        "paged_launches_expected": attention_layers(cfg) * steps * len(outs),
         "prefix_cache": s["prefix_cache"], "outputs": outs,
     }
 
 
-def serve_cross_check(torch, np) -> dict:
-    """The serving model in float32 at full width, depth cut to
-    CROSS_LAYERS (7 keeps one shared-attention application), card against
-    the CPU tier
-    with the same weights: the first request's prefill and 4 greedy decode
-    steps.  Tokens must be identical and logits within CROSS_TOL of
-    max(1, max|logit|): fp32 sums over 2048-8192 terms taken in another
-    order on each side (the smoke-size CPU parity, 128 wide, measured
-    3.5e-6), while a wrong kernel moves logits by O(0.1)."""
+def serve_cross_check(torch, np, arch: str, layers: int) -> dict:
+    """The serving model ``arch`` in float32 at full width, depth cut to
+    ``layers`` (zamba2's 7 keep one shared-attention application), card
+    against the CPU tier with the same weights: the first request's
+    prefill and 4 greedy decode steps.  Tokens must be identical and logits
+    within CROSS_TOL of max(1, max|logit|): fp32 sums over 2048-8192 terms
+    taken in another order on each side (the smoke-size CPU parity, 128
+    wide, measured 3.5e-6), while a wrong kernel moves logits by O(0.1)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import decode_step, forward, init_model
-    cfg = get_config(SERVE_ARCH).with_(n_layers=CROSS_LAYERS,
-                                       param_dtype="float32")
+    cfg = get_config(arch).with_(n_layers=layers, param_dtype="float32")
     params = init_model(cfg, 0, compute_device="cuda")
 
     def to_cpu(tree):
@@ -608,18 +681,32 @@ def serve_cross_check(torch, np) -> dict:
     errs = [float((a - b).abs().max()) for a, b in zip(c_steps, h_steps)]
     scale = max(1.0, max(float(b.abs().max()) for b in h_steps))
     if c_toks != h_toks or max(errs) > CROSS_TOL * scale:
-        fail(f"serving cross-check: tokens {c_toks} vs {h_toks}, logits "
-             f"max |err| per step {errs} (scale {scale})")
-    return {"layers": CROSS_LAYERS, "prompt_tokens": len(tokens),
+        fail(f"serving cross-check {arch}: tokens {c_toks} vs {h_toks}, "
+             f"logits max |err| per step {errs} (scale {scale})")
+    return {"layers": layers, "prompt_tokens": len(tokens),
             "tokens": c_toks, "max_abs_logit_err": errs,
             "max_abs_logit": scale, "card_s": c_wall, "cpu_s": h_wall}
 
 
 # ----------------------------------------------------- LM kernel timings
-def flash_bound(bh: int, s: int, d: int, nbytes_el: int = 2):
-    """q, k, v read and o written once; 4*D operations per unmasked
-    (query, key) pair, S(S+1)/2 pairs per head (causal)."""
-    return roofline(4 * bh * s * d * nbytes_el, 2 * d * s * (s + 1) * bh)
+def flash_bound(bh: int, s: int, d: int, bkv: int | None = None,
+                nbytes_el: int = 2):
+    """q, k, v read and o written once (k and v of ``bkv`` heads); 4*D
+    operations per unmasked (query, key) pair, S(S+1)/2 pairs per head
+    (causal)."""
+    bkv = bh if bkv is None else bkv
+    return roofline((2 * bh + 2 * bkv) * s * d * nbytes_el,
+                    2 * d * s * (s + 1) * bh)
+
+
+def paged_bound(b: int, hq: int, hkv: int, d: int, length: int,
+                maxp: int, nbytes_el: int = 2):
+    """q read and o written once, the K and V rows of each sequence's
+    ``length`` live tokens read once, the page table and lengths read once;
+    4*D operations per (query head, live token)."""
+    nbytes = nbytes_el * (2 * b * hq * d + 2 * b * length * hkv * d) \
+        + 4 * b * (maxp + 1)
+    return roofline(nbytes, 4 * d * b * hq * length)
 
 
 def ssd_bound(b: int, L: int, h: int, g: int, n: int, p: int,
@@ -632,25 +719,109 @@ def ssd_bound(b: int, L: int, h: int, g: int, n: int, p: int,
     return roofline(nbytes, 4 * n * p * L * b * h)
 
 
-def time_flash(torch, s: int, reps: int) -> dict:
-    """zamba2-1.2b's shared attention prefill: B 1, 32 heads (kv 32), D 64,
-    bf16, causal, at S tokens (seeded random inputs)."""
+def time_flash(torch, s: int, reps: int, hq: int = 32, hkv: int = 32,
+               d: int = 64) -> dict:
+    """A serving model's attention prefill, B 1, bf16, causal, at S tokens
+    (seeded random inputs): zamba2-1.2b's shared block by default (32 heads
+    of 64, kv 32), qwen3-1.7b's with hq 16, hkv 8, d 128."""
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_plain)
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda")
     gen.manual_seed(13)
-    q, k, v = (_randn(torch, gen, (1, 32, s, 64), torch.bfloat16)
-               for _ in range(3))
-    err = check_close(f"flash_attention at S={s}", "flash_attention",
-                      flash_attention(q, k, v), flash_attention_plain(q, k, v))
-    bound, by = flash_bound(32, s, 64)
-    return {"shape": f"BH 32, S {s}, D 64, bf16, causal",
+    q = _randn(torch, gen, (1, hq, s, d), torch.bfloat16)
+    k, v = (_randn(torch, gen, (1, hkv, s, d), torch.bfloat16)
+            for _ in range(2))
+    err = check_close(f"flash_attention at S={s} H={hq}/{hkv} D={d}",
+                      "flash_attention", flash_attention(q, k, v),
+                      flash_attention_plain(q, k, v))
+    bound, by = flash_bound(hq, s, d, hkv)
+    return {"shape": f"BH {hq} (kv {hkv}), S {s}, D {d}, bf16, causal",
             "max_abs_err": err, "bound_ms": bound, "bound_by": by,
             **time_all(torch, lambda: flash_attention(q, k, v),
                        lambda: flash_attention_plain(q, k, v),
                        lambda: F.scaled_dot_product_attention(
-                           q, k, v, is_causal=True), reps)}
+                           q, k, v, is_causal=True, enable_gqa=hq != hkv),
+                       reps)}
+
+
+def time_paged(torch, length: int, reps: int, hq: int = 16, hkv: int = 8,
+               d: int = 128) -> dict:
+    """A serving model's decode attention as its serving path calls it:
+    B 1, bf16, the 512-token decode cache viewed as 16 pages of 32 through
+    the identity table, ``length`` live tokens (seeded random cache):
+    qwen3-1.7b's by default (16 query heads over 8 kv heads of 128),
+    zamba2-1.2b's shared block with hq 32, hkv 32, d 64.  Library: SDPA
+    over the dense cache with a length mask, transposes included (the same
+    function only because the table is the identity)."""
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_attention, paged_attention_plain)
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    smax, ps = 512, 32
+    bf = torch.bfloat16
+    q = _randn(torch, gen, (1, hq, d), bf)
+    kc, vc = (_randn(torch, gen, (1, smax, hkv, d), bf) for _ in range(2))
+    kp, vp = (c.view(smax // ps, ps, hkv, d) for c in (kc, vc))
+    pt = torch.arange(smax // ps, dtype=torch.int32,
+                      device="cuda").view(1, -1)
+    ln = torch.tensor([length], dtype=torch.int32, device="cuda")
+    mask = (torch.arange(smax, device="cuda") < length).view(1, 1, 1, smax)
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+            attn_mask=mask, enable_gqa=hq != hkv)[:, :, 0]
+    got = paged_attention(q, kp, vp, pt, ln)
+    err = check_close(f"paged_attention at length {length} H={hq}/{hkv} "
+                      f"D={d}",
+                      "paged_attention", got,
+                      paged_attention_plain(q, kp, vp, pt, ln))
+    bound, by = paged_bound(1, hq, hkv, d, length, smax // ps)
+    return {"shape": f"B 1, H {hq} (kv {hkv}), D {d}, PS {ps}, MAXP "
+                     f"{smax // ps}, length {length}, bf16, identity table",
+            "max_abs_err": err, "bound_ms": bound, "bound_by": by,
+            "library_max_abs_err": float((library() - got).float().abs()
+                                         .max()),
+            **time_all(torch, lambda: paged_attention(q, kp, vp, pt, ln),
+                       lambda: paged_attention_plain(q, kp, vp, pt, ln),
+                       library, reps)}
+
+
+def time_paged_long(torch, reps: int) -> dict:
+    """Long decode: LONG_DECODE sequences of 4,096 tokens each over a pool
+    of 2,048 pages of 32 (H 16 over kv 8, D 128, bf16), the sequences'
+    pages drawn without repeats from a shuffled pool.  Library: SDPA over
+    the same KV laid out contiguously (gathered outside the timing)."""
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_attention, paged_attention_plain)
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    b, length, n_pages = LONG_DECODE
+    hq, hkv, d, ps = 16, 8, 128, 32
+    maxp = length // ps
+    bf = torch.bfloat16
+    q = _randn(torch, gen, (b, hq, d), bf)
+    kp, vp = (_randn(torch, gen, (n_pages, ps, hkv, d), bf)
+              for _ in range(2))
+    pt = torch.randperm(n_pages, generator=gen, device="cuda")[:b * maxp] \
+        .view(b, maxp).to(torch.int32)
+    ln = torch.full((b,), length, dtype=torch.int32, device="cuda")
+    kc, vc = (x[pt.long()].view(b, length, hkv, d).transpose(1, 2)
+              .contiguous() for x in (kp, vp))
+    got = paged_attention(q, kp, vp, pt, ln)
+    err = check_close("paged_attention, long decode", "paged_attention",
+                      got, paged_attention_plain(q, kp, vp, pt, ln))
+    bound, by = paged_bound(b, hq, hkv, d, length, maxp)
+    return {"shape": f"B {b}, H {hq} (kv {hkv}), D {d}, PS {ps}, length "
+                     f"{length}, shuffled table over {n_pages} pages, bf16",
+            "max_abs_err": err, "bound_ms": bound, "bound_by": by,
+            **time_all(torch, lambda: paged_attention(q, kp, vp, pt, ln),
+                       lambda: paged_attention_plain(q, kp, vp, pt, ln),
+                       lambda: F.scaled_dot_product_attention(
+                           q[:, :, None], kc, vc, enable_gqa=True), reps)}
 
 
 def time_ssd(torch, L: int, reps: int) -> dict:
@@ -679,16 +850,16 @@ def time_ssd(torch, L: int, reps: int) -> dict:
                        reps)}
 
 
-def profile_serve(torch, np) -> dict:
-    """A 2-request full-size serving run under torch.profiler: the
-    device's busy time by kernel against the run's wall time."""
+def profile_serve(torch, np, arch: str) -> dict:
+    """A 2-request full-size serving run of ``arch`` under torch.profiler:
+    the device's busy time by kernel against the run's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import serve
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve.run(SERVE_ARCH, smoke=False, n_requests=PROFILE_REQUESTS,
+        serve.run(arch, smoke=False, n_requests=PROFILE_REQUESTS,
                   compute_device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -731,12 +902,14 @@ def main() -> int:
                 "overlap_scan": edge_rank(torch, np, rng),
                 "lindley_scan": edge_lindley(torch, np, rng),
                 "flash_attention": edge_flash(torch),
-                "ssd_scan": edge_ssd(torch)}
+                "ssd_scan": edge_ssd(torch),
+                "paged_attention": edge_paged(torch, np)}
     torch.cuda.synchronize()
     print("kernel edge cases: merge_path and overlap_scan exact, "
           f"lindley_scan max |err| {edge_err['lindley_scan']:.3e} s, "
           f"flash_attention {edge_err['flash_attention']:.3e}, "
-          f"ssd_scan {edge_err['ssd_scan']:.3e}", flush=True)
+          f"ssd_scan {edge_err['ssd_scan']:.3e}, "
+          f"paged_attention {edge_err['paged_attention']:.3e}", flush=True)
 
     trace = ycsb_trace(np, N_LOAD, N_RUN)
     kernels.reset_launch_counts()
@@ -760,18 +933,25 @@ def main() -> int:
             fail(f"{policy}: a kernel never launched on the store path")
     total = kernels.launch_counts()
 
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    srv = serve_path(torch, np)
-    serve_launches = kernels.launch_counts()
-    srv["launches"] = serve_launches
-    srv["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    report["serve"] = srv
-    print("serving path: " + json.dumps(
-        {k: v for k, v in srv.items() if k != "outputs"}), flush=True)
-    if min(serve_launches[k] for k in SERVE_KERNELS) <= 0:
-        fail(f"serving path: a kernel never launched: {serve_launches}")
+    serve_launches = {}
+    for arch, (must_launch, _) in SERVE_PATHS.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        srv = serve_path(torch, np, arch)
+        counts = serve_launches[arch] = kernels.launch_counts()
+        srv["launches"] = counts
+        srv["max_memory_allocated_gb"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+        report[f"serve_{arch}"] = srv
+        print(f"serving path {arch}: " + json.dumps(
+            {k: v for k, v in srv.items() if k != "outputs"}), flush=True)
+        if min(counts[k] for k in must_launch) <= 0:
+            fail(f"serving path {arch}: a kernel never launched: {counts}")
+        if counts["paged_attention"] != srv["paged_launches_expected"]:
+            fail(f"serving path {arch}: paged_attention launched "
+                 f"{counts['paged_attention']} times, not "
+                 f"{srv['paged_launches_expected']}")
     torch.cuda.empty_cache()
 
     sim, res = runs["vlsm"]
@@ -779,25 +959,46 @@ def main() -> int:
                "overlap_scan": time_rank(torch, np, sim, trace),
                "lindley_scan": time_lindley(torch, np, sim, res)}
     del runs, sim, res
-    s_serve = max(srv["prompt_tokens"])
+    s_serve = max(report["serve_zamba2_1_2b"]["prompt_tokens"])
     timings["flash_attention"] = time_flash(torch, s_serve, 40)
     timings["ssd_scan"] = time_ssd(torch, s_serve, 40)
+    timings["paged_attention"] = time_paged(
+        torch, max(report["serve_qwen3_1_7b"]["prompt_tokens"])
+        + DECODE_TOKENS - 1, 200)
+    report["qwen3_prefill_flash"] = time_flash(torch, s_serve, 40, 16, 8, 128)
+    report["zamba2_decode_paged"] = time_paged(
+        torch, s_serve + DECODE_TOKENS - 1, 200, 32, 32, 64)
+    edge_err["flash_attention"] = max(
+        edge_err["flash_attention"],
+        report["qwen3_prefill_flash"]["max_abs_err"])
+    edge_err["paged_attention"] = max(
+        edge_err["paged_attention"],
+        report["zamba2_decode_paged"]["max_abs_err"])
     for name, err in edge_err.items():
         timings[name]["max_abs_err"] = max(timings[name]["max_abs_err"], err)
     report["long_prefill"] = {
         "flash_attention": time_flash(torch, LONG_PREFILL, 10),
         "ssd_scan": time_ssd(torch, LONG_PREFILL, 10)}
+    report["long_decode"] = {"paged_attention": time_paged_long(torch, 20)}
     for name, t in timings.items():
         print(f"timing {name}: " + json.dumps(t), flush=True)
+    print("timing flash_attention at qwen3's prefill shape: "
+          + json.dumps(report["qwen3_prefill_flash"]), flush=True)
+    print("timing paged_attention at zamba2's decode shape: "
+          + json.dumps(report["zamba2_decode_paged"]), flush=True)
     for name, t in report["long_prefill"].items():
         print(f"timing {name} at {LONG_PREFILL} tokens: " + json.dumps(t),
               flush=True)
+    print("timing paged_attention, long decode: "
+          + json.dumps(report["long_decode"]["paged_attention"]), flush=True)
     torch.cuda.empty_cache()
 
-    cross = serve_cross_check(torch, np)
-    report["cross_serve"] = cross
-    print("cross-check serving (float32, " f"{cross['layers']} layers): "
-          + json.dumps(cross), flush=True)
+    for arch, (_, layers) in SERVE_PATHS.items():
+        cross = serve_cross_check(torch, np, arch, layers)
+        report[f"cross_serve_{arch}"] = cross
+        print(f"cross-check serving {arch} (float32, {layers} layers): "
+              + json.dumps(cross), flush=True)
+        torch.cuda.empty_cache()
 
     for policy in ("vlsm", "rocksdb"):
         reads, probed, latency, n_stalls = card_runs.pop(policy)
@@ -821,22 +1022,25 @@ def main() -> int:
           f"{prof['device_busy_ms']:.1f} ms of {prof['profiled_wall_s']:.2f} s "
           f"wall ({100 * prof['device_busy_share']:.2f}%)", flush=True)
 
-    sprof = profile_serve(torch, np)
-    report["profile_serve"] = sprof
-    print("profile serving (2 requests): device busy "
-          f"{sprof['device_busy_ms']:.1f} ms of {sprof['profiled_wall_s']:.2f}"
-          f" s wall ({100 * sprof['device_busy_share']:.2f}%)", flush=True)
+    for arch in SERVE_PATHS:
+        sprof = profile_serve(torch, np, arch)
+        report[f"profile_serve_{arch}"] = sprof
+        print(f"profile serving {arch} ({PROFILE_REQUESTS} requests): device "
+              f"busy {sprof['device_busy_ms']:.1f} ms of "
+              f"{sprof['profiled_wall_s']:.2f} s wall "
+              f"({100 * sprof['device_busy_share']:.2f}%)", flush=True)
+        torch.cuda.empty_cache()
 
     rows = []
     for name, t in timings.items():
         # launches: each kernel's count on its own main path (store kernels
-        # on the store path, the LM kernels on the serving path)
+        # on the store path, each LM kernel on the serving path of ROW_PATH)
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": f"src/repro/{SOURCES[name]}",
             "launches": (total if name in STORE_KERNELS
-                         else serve_launches)[name],
+                         else serve_launches[ROW_PATH[name]])[name],
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t.get("bound_by", "bytes"),

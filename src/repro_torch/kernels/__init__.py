@@ -10,6 +10,8 @@ PyTorch versions and launch counters.
                        (csrc/flash_attention.cu)
     ssd_scan         — the Mamba2 SSD chunked scan of the LM prefill
                        (csrc/ssd_scan.cu)
+    paged_attention  — single-token attention of every LM decode step,
+                       through a page table (csrc/paged_attention.cu)
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs the plain
 version for CPU tensors; its ``launches`` attribute counts kernel launches
@@ -20,12 +22,13 @@ from .flash_attention.ops import flash_attention
 from .lindley_scan.ops import lindley_batch
 from .merge_path.ops import merge_two_runs
 from .overlap_scan.ops import fence_rank
+from .paged_attention.ops import paged_attention
 from .ssd_scan.ops import ssd_scan
 
 #: kernel name -> wrapper that counts its launches
 WRAPPERS = {"merge_path": merge_two_runs, "overlap_scan": fence_rank,
             "lindley_scan": lindley_batch, "flash_attention": flash_attention,
-            "ssd_scan": ssd_scan}
+            "ssd_scan": ssd_scan, "paged_attention": paged_attention}
 
 
 def launch_counts() -> dict[str, int]:
@@ -38,5 +41,5 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["WRAPPERS", "fence_rank", "flash_attention", "launch_counts",
-           "lindley_batch", "merge_two_runs", "reset_launch_counts",
-           "ssd_scan"]
+           "lindley_batch", "merge_two_runs", "paged_attention",
+           "reset_launch_counts", "ssd_scan"]

@@ -1,0 +1,130 @@
+"""Single-token attention over a page pool through a page table — the port
+of the paged_attention TPU kernel (``repro/kernels/paged_attention/
+kernel.py``: ``_paged_kernel`` / ``paged_attention_call``, wrapper
+``ops.py``, oracle ``ref.py``).
+
+:func:`paged_attention` takes the reference wrapper's ungrouped
+``[B, Hq, D]`` API.  On a CUDA tensor it launches the kernel in
+``csrc/paged_attention.cu``; on a CPU tensor it runs
+:func:`paged_attention_plain`.  The semantics are the TPU kernel's: the
+query heads of one kv head form a group (``h // (Hq / Hkv)``), sequence
+``b`` attends the first ``lengths[b]`` tokens of the pages
+``page_table[b, 0..]`` (token ``t`` lies in page ``t // PS`` at row
+``t % PS``), at most ``MAXP * PS`` of them; logits are fp32 scaled by
+``D ** -0.5`` unless given, masked logits are ``-1e30``, masked
+probabilities are zeroed and the denominator is clamped at 1e-30, so a
+length of 0 gives zeros.
+
+Page-table entries of pages past a sequence's length are never read, and
+neither are the rows of a page past the length: callers may leave garbage
+there.  The lengths are not checked on the host (that would synchronise on
+every call).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+
+NEG_INF = -1e30
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 128)
+MAX_GROUP = 8
+
+
+def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, page_table: torch.Tensor,
+                          lengths: torch.Tensor, *,
+                          scale: float | None = None) -> torch.Tensor:
+    """The kernel's function in plain torch, fp32 throughout: gather every
+    sequence's pages (entries past its length read page 0 instead), then
+    one masked softmax per query head."""
+    b, hq, d = q.shape
+    _, ps, hkv, _ = k_pages.shape
+    maxp = page_table.shape[1]
+    g = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    lengths = lengths.long().clamp(min=0)
+    n_pages = (lengths + ps - 1) // ps
+    live = torch.arange(maxp, device=q.device)[None, :] < n_pages[:, None]
+    pt = torch.where(live, page_table.long(), 0)
+    t = maxp * ps
+    mask = torch.arange(t, device=q.device)[None, :] < lengths[:, None]
+    k = k_pages[pt].reshape(b, t, hkv, d).float()
+    v = v_pages[pt].reshape(b, t, hkv, d).float()
+    v = torch.where(mask[:, :, None, None], v, 0.0)
+    logits = torch.einsum("bhgd,bthd->bhgt", q.reshape(b, hkv, g, d).float(),
+                          k) * scale
+    mask = mask[:, None, None, :]
+    logits = torch.where(mask, logits, NEG_INF)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(logits - m), 0.0)
+    out = torch.einsum("bhgt,bthd->bhgd", p, v)
+    out = out / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, page_table: torch.Tensor,
+                    lengths: torch.Tensor, *,
+                    scale: float | None = None) -> torch.Tensor:
+    """q: [B, Hq, D]; k_pages, v_pages: [NP, PS, Hkv, D] with Hq % Hkv == 0;
+    page_table: [B, MAXP] int32; lengths: [B] int32.  Returns [B, Hq, D] in
+    q's dtype."""
+    b, hq, d = q.shape
+    n_pages, ps, hkv = k_pages.shape[:3]
+    maxp = page_table.shape[1] if page_table.dim() == 2 else -1
+    if (k_pages.shape != (n_pages, ps, hkv, d) or v_pages.shape !=
+            k_pages.shape or hkv == 0 or hq % hkv or page_table.shape !=
+            (b, maxp) or lengths.shape != (b,) or n_pages == 0):
+        raise ValueError(
+            f"bad shapes q {tuple(q.shape)}, pages {tuple(k_pages.shape)} / "
+            f"{tuple(v_pages.shape)}, page_table {tuple(page_table.shape)}, "
+            f"lengths {tuple(lengths.shape)}")
+    if not (q.dtype == k_pages.dtype == v_pages.dtype):
+        raise TypeError("q and the pages must have one dtype")
+    if not (q.device == k_pages.device == v_pages.device == page_table.device
+            == lengths.device):
+        raise ValueError("all arguments must be on one device")
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pages, v_pages, page_table,
+                                     lengths, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"paged_attention kernel takes float32 or bfloat16, "
+                        f"not {q.dtype}")
+    if d not in HEAD_DIMS or hq // hkv > MAX_GROUP:
+        raise ValueError(f"paged_attention kernel takes head_dim in "
+                         f"{HEAD_DIMS} and at most {MAX_GROUP} query heads "
+                         f"per kv head, not {d} and {hq // hkv}")
+    if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError("page_table and lengths must be int32")
+    # the kernel reads 16-byte vectors: rows must start 16-byte aligned
+    q, k_pages, v_pages, page_table, lengths = (
+        t.contiguous() for t in (q, k_pages, v_pages, page_table, lengths))
+    q, k_pages, v_pages = (t if t.data_ptr() % 16 == 0 else t.clone()
+                           for t in (q, k_pages, v_pages))
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    fn = _build.load("paged_attention", "paged_attention_launch",
+                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_int, ctypes.c_void_p])
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+             b, hq, hkv, d, ps, maxp,
+             float(scale if scale is not None else d ** -0.5),
+             _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "paged_attention")
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0

@@ -4,13 +4,16 @@ for step.
 
 Every admitted prompt first consults the PrefixCache (a vLSM-indexed
 ``LSMTree`` whose GETs run the overlap_scan kernel), which counts the
-reused prefix; the full prompt is then prefilled (the ssd_scan and
-flash_attention kernels) and decoded greedily.  Admission is a token
+reused prefix; the full prompt is then prefilled (the flash_attention
+kernel, and ssd_scan for the ssm and hybrid families) and decoded greedily,
+every decode attention through the paged_attention kernel over the dense
+cache.  As in the reference, the page pool's own pages are allocated and
+registered with the prefix cache but not read.  Admission is a token
 bucket on a seeded Poisson timeline, so the admitted/rejected split is
 deterministic per (seed, rate, limit).  Runs on the card unless
 ``compute_device="cpu"``:
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_1_2b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_1_7b \\
         --requests 8 --decode 16
 """
 
@@ -116,7 +119,7 @@ def run(arch: str, *, smoke: bool = True, n_requests: int = 8,
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="zamba2_1_2b")
+    ap.add_argument("--arch", default="qwen3_1_7b")
     ap.add_argument("--smoke", action="store_true",
                     help="the reduced same-family config")
     ap.add_argument("--requests", type=int, default=8)

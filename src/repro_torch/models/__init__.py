@@ -1,5 +1,5 @@
-"""The language-model stack of the port (ssm and hybrid families): the
-counterpart of ``repro/models``."""
+"""The language-model stack of the port (decoder, ssm and hybrid
+families): the counterpart of ``repro/models``."""
 
 from .blocks import forward, init_model, model_specs
 from .decode import decode_step, init_cache

@@ -3,20 +3,28 @@
 
 :func:`attn_forward` (full-sequence causal attention) always goes through
 the flash_attention kernel wrapper: the reference's ``use_pallas`` switch
-has no counterpart, and its plain ``_sdpa`` stays for the bidirectional
-callers.  :func:`attn_decode` is plain torch, as in the reference, which
-has no kernel there.  A window of -1 (or None) means global.
+has no counterpart.  :func:`attn_decode` runs the paged_attention kernel wrapper over
+the dense decode cache: ``[B, Smax, Hk, Dh]`` viewed as ``B * Smax / PS``
+pages of PS tokens (a view, not a copy) through an identity page table,
+with ``lengths = pos + 1``.  That is the reference's ``attn_decode``
+exactly for a global window; the kernel visits only the ``pos + 1`` live
+tokens.  A window of -1 (or None) means global; decode with a sliding
+window (gemma3's local layers) waits for its slice (ROADMAP).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..kernels.flash_attention import flash_attention
+from ..kernels.paged_attention import paged_attention
 from .common import (apply_rope, dense_spec, materialize, norm, norm_params,
                      rms_norm)
 
-NEG_INF = -1e30
+#: tokens per page of the decode cache's page view (the serving block)
+PAGE_TOKENS = 32
 
 
 def attn_specs(cfg) -> dict:
@@ -50,31 +58,6 @@ def _project_qkv(cfg, p, x, positions, theta):
     return q, k, v
 
 
-def _window_mask(qi: torch.Tensor, kj: torch.Tensor, window) -> torch.Tensor:
-    if window is None or window < 0:
-        return torch.ones_like(qi - kj, dtype=torch.bool)
-    return (qi - kj) < window
-
-
-def _sdpa(q, k, v, *, causal: bool, window=-1, q_offset: int = 0):
-    """Plain masked softmax attention.  q: [B,S,H,Dh]; k,v: [B,T,Hk,Dh]."""
-    b, s, h, dh = q.shape
-    t, hk = k.shape[1], k.shape[2]
-    g = h // hk
-    qg = q.reshape(b, s, hk, g, dh)
-    logits = torch.einsum("bshgd,bthd->bhgst", qg.float(),
-                          k.float()) * (dh ** -0.5)
-    qi = (torch.arange(s, device=q.device) + q_offset)[:, None]
-    kj = torch.arange(t, device=q.device)[None, :]
-    mask = _window_mask(qi, kj, window)
-    if causal:
-        mask = mask & (kj <= qi)
-    logits = torch.where(mask, logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgst,bthd->bshgd", probs, v.float())
-    return out.reshape(b, s, h, dh).to(q.dtype)
-
-
 def attn_forward(cfg, p, x, positions, theta, window):
     """Full-sequence causal attention (prefill) through the flash_attention
     kernel.  Returns (out [B,S,D], (k, v) for the cache)."""
@@ -87,11 +70,36 @@ def attn_forward(cfg, p, x, positions, theta, window):
     return out, (k, v)
 
 
-def attn_decode(cfg, p, x, pos, theta, window, k_cache, v_cache):
+@functools.lru_cache(maxsize=16)
+def _identity_table(b: int, maxp: int, device: torch.device) -> torch.Tensor:
+    """[B, MAXP] int32: sequence b owns pages b * MAXP .. (b + 1) * MAXP - 1
+    in order.  Read-only: every step of one shape shares it."""
+    return torch.arange(b * maxp, dtype=torch.int32,
+                        device=device).reshape(b, maxp)
+
+
+def decode_pages(pos: torch.Tensor, max_seq: int) -> tuple:
+    """The page view of a ``[B, max_seq, Hk, Dh]`` decode cache for a step
+    at ``pos`` [B]: ``(page_size, page_table [B, max_seq / page_size] int32,
+    lengths = pos + 1 int32)``.  Pages are PAGE_TOKENS long where that
+    divides ``max_seq``, else one page holds the whole cache.  Built once
+    per decode step and shared by its layers."""
+    ps = PAGE_TOKENS if max_seq % PAGE_TOKENS == 0 else max_seq
+    table = _identity_table(pos.shape[0], max_seq // ps, pos.device)
+    return ps, table, (pos + 1).to(torch.int32)
+
+
+def attn_decode(cfg, p, x, pos, theta, window, k_cache, v_cache, pages):
     """Single-step decode.  x: [B,1,D]; pos: [B] current index;
     k_cache/v_cache: [B, Smax, Hk, Dh], written in place at ``pos`` (the
-    reference returns updated copies).  Returns (out, k_cache, v_cache)."""
-    b = x.shape[0]
+    reference returns updated copies); ``pages``: :func:`decode_pages` of
+    this step.  Attention runs through the paged_attention kernel wrapper.
+    Returns (out, k_cache, v_cache)."""
+    if window is not None and window >= 0:
+        raise NotImplementedError(
+            "decode with a sliding window is not ported yet: see ROADMAP.md, "
+            "queue 1, item 8 (gemma3)")
+    b, smax = x.shape[0], k_cache.shape[1]
     positions = pos[:, None]                                   # [B,1]
     if cfg.mrope_sections:
         positions = positions[..., None].expand(b, 1, 3)
@@ -99,17 +107,12 @@ def attn_decode(cfg, p, x, pos, theta, window, k_cache, v_cache):
     rows = torch.arange(b, device=x.device)
     k_cache[rows, pos] = k[:, 0]
     v_cache[rows, pos] = v[:, 0]
-    t = k_cache.shape[1]
-    hk, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(b, 1, hk, g, cfg.head_dim)
-    logits = torch.einsum("bshgd,bthd->bhgst", qg.float(),
-                          k_cache.float()) * (cfg.head_dim ** -0.5)
-    kj = torch.arange(t, device=x.device)[None, :]
-    mask = (kj <= pos[:, None]) & _window_mask(pos[:, None], kj, window)
-    logits = torch.where(mask[:, None, None, None, :], logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1)
-    o = torch.einsum("bhgst,bthd->bshgd", probs, v_cache.float()).to(x.dtype)
-    out = o.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    ps, table, lengths = pages
+    hk, dh = cfg.n_kv_heads, cfg.head_dim
+    o = paged_attention(q[:, 0], k_cache.view(b * smax // ps, ps, hk, dh),
+                        v_cache.view(b * smax // ps, ps, hk, dh), table,
+                        lengths)
+    out = o.reshape(b, 1, cfg.n_heads * dh) @ p["wo"]
     return out, k_cache, v_cache
 
 

@@ -1,16 +1,20 @@
-"""Model assembly: init and prefill for the ssm and hybrid families — the
-port of ``repro/models/blocks.py``.
+"""Model assembly: init and prefill for the decoder, ssm and hybrid
+families — the port of ``repro/models/blocks.py``.
 
 Parameters are plain dicts with the reference's keys and its stacked
 ``[L, ...]`` layer layout; the layer stack runs as a Python loop where the
 reference scans.
 
 Families:
+  decoder — GQA attention × dense SwiGLU MLP (qwen3, llama3.2, yi,
+            qwen2-vl's backbone) with global attention on every layer;
+            sliding windows (gemma3), MLA and MoE routing (deepseek-v2)
+            are not ported yet (ROADMAP queue 1, item 8).
   ssm     — pure Mamba2 (SSD) stack.
   hybrid  — Mamba2 backbone with ONE shared attention block applied after
             every full ``attn_every``-layer segment (zamba2), each
             application with its own KV cache.
-  decoder, encdec — not ported yet (ROADMAP queue 1, item 8).
+  encdec  — not ported yet (ROADMAP queue 1, item 8).
 
 Every entry point takes ``compute_device`` (default ``"cuda"``, which
 raises without a GPU; ``"cpu"`` runs the kernels' plain versions) and runs
@@ -29,7 +33,7 @@ from .common import dense_spec, materialize, norm, norm_params, stack_specs
 
 Params = dict
 Cache = dict
-PORTED_FAMILIES = ("ssm", "hybrid")
+PORTED_FAMILIES = ("decoder", "ssm", "hybrid")
 
 
 def exact_fp32() -> None:
@@ -40,11 +44,20 @@ def exact_fp32() -> None:
 
 
 def require_ported(cfg) -> None:
+    what = None
     if cfg.family not in PORTED_FAMILIES:
+        what = f"family {cfg.family!r}"
+    elif cfg.family == "decoder" and cfg.attn_kind != "gqa":
+        what = f"attention {cfg.attn_kind!r}"
+    elif cfg.family == "decoder" and (cfg.mlp_kind == "moe"
+                                      or cfg.first_dense_layers):
+        what = "MoE routing"
+    elif cfg.family == "decoder" and cfg.window is not None:
+        what = "sliding-window attention"
+    if what is not None:
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: see "
-            "ROADMAP.md, queue 1, item 8 (decoder-family serving slice, "
-            "then MLA/MoE, encdec)")
+            f"{what} ({cfg.name}) is not ported yet: see ROADMAP.md, queue "
+            "1, item 8 (gemma3's windows, then MLA/MoE, encdec)")
 
 
 # ===================================================================== init
@@ -58,6 +71,11 @@ def model_specs(cfg) -> dict:
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_spec((cfg.d_model, cfg.vocab_size),
                                   cfg.param_dtype)
+    if cfg.family == "decoder":
+        block = {**attn.block_norm_specs(cfg), "attn": attn.attn_specs(cfg),
+                 "mlp": moe_mod.mlp_specs(cfg, d_ff=cfg.d_ff)}
+        p["layers"] = stack_specs(block, cfg.n_layers)
+        return p
     block = {"norm": norm_params(cfg, cfg.d_model),
              "ssd": ssd_mod.ssd_specs(cfg)}
     p["layers"] = stack_specs(block, cfg.n_layers)
@@ -86,6 +104,76 @@ def layer_params(params: Params, i: int) -> Params:
 
 
 # ================================================================== prefill
+def layer_meta(cfg) -> list[tuple[float, int]]:
+    """Per-layer (rope theta, window) as Python values (the reference's
+    ``_layer_meta`` without tracers); a window of -1 means global."""
+    out = []
+    for w in cfg.layer_windows():
+        theta = cfg.rope_theta
+        if w < 0 and cfg.rope_theta_global is not None:
+            theta = cfg.rope_theta_global
+        out.append((theta, w))
+    return out
+
+
+def scale_embeds(cfg, h: torch.Tensor) -> torch.Tensor:
+    """gemma multiplies its input embeddings by sqrt(d_model), rounded to
+    their dtype as in the reference."""
+    if cfg.name.startswith("gemma"):
+        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype)
+    return h
+
+
+def mlp_step(cfg, p, h):
+    """The residual MLP half of a decoder block (the reference's
+    ``_mlp_step`` for a dense MLP)."""
+    m_out = moe_mod.mlp_forward(cfg, p["mlp"], norm(cfg, h, p["mlp_norm"]))
+    if cfg.post_norm:
+        m_out = norm(cfg, m_out, p["post_mlp_norm"])
+    return h + m_out
+
+
+def _decoder_block_fwd(cfg, p, h, positions, theta, window):
+    a_out, kv = attn.attn_forward(cfg, p["attn"],
+                                  norm(cfg, h, p["attn_norm"]), positions,
+                                  theta, window)
+    if cfg.post_norm:
+        a_out = norm(cfg, a_out, p["post_attn_norm"])
+    return mlp_step(cfg, p, h + a_out), kv
+
+
+def _decoder_forward(cfg, params, batch, dev, cache_len):
+    tokens = batch.get("tokens")
+    if tokens is not None:
+        h = params["embed"][torch.as_tensor(tokens, device=dev).long()]
+    else:
+        h = torch.as_tensor(batch["embeds"], device=dev)
+    h = scale_embeds(cfg, h)
+    b, s = h.shape[0], h.shape[1]
+    if cache_len is not None and cache_len < s:
+        raise ValueError(f"cache_len {cache_len} < prompt length {s}")
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(s, device=dev)[None].expand(b, s)
+        if cfg.mrope_sections:
+            positions = positions[..., None].expand(b, s, 3)
+    else:
+        positions = torch.as_tensor(positions, device=dev)
+    ks, vs = [], []
+    for i, (theta, window) in enumerate(layer_meta(cfg)):
+        h, (k, v) = _decoder_block_fwd(cfg, layer_params(params["layers"], i),
+                                       h, positions, theta, window)
+        ks.append(k)
+        vs.append(v)
+    h = norm(cfg, h, params["final_norm"])
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    pad = (0, 0, 0, 0, 0, (cache_len or s) - s)
+    cache: Cache = {"k": torch.nn.functional.pad(torch.stack(ks), pad),
+                    "v": torch.nn.functional.pad(torch.stack(vs), pad),
+                    "pos": torch.full((1,), s, dtype=torch.int32, device=dev)}
+    return h[:, -1:] @ head, cache
+
+
 def _shared_attn_fwd(cfg, p, h, positions):
     a_in = norm(cfg, h, p["attn_norm"])
     a_out, kv = attn.attn_forward(cfg, p["attn"], a_in, positions,
@@ -112,10 +200,13 @@ def check_params_device(params: Params, dev: torch.device) -> None:
 def forward(cfg, params: Params, batch: dict, *, mode: str = "prefill",
             cache_len: int | None = None,
             compute_device: str | torch.device = "cuda"):
-    """mode='prefill': returns (last_logits [B, 1, V], cache) with the
-    shared block's KV caches sized ``cache_len or S``.  ``batch["tokens"]``
-    is [B, S] (a tensor or an array).  ``mode='train'`` waits for the
-    training slice (ROADMAP)."""
+    """mode='prefill': returns (last_logits [B, 1, V], cache) with the KV
+    caches (the decoder's ``k``/``v`` [L, B, S, Hk, Dh], the hybrid shared
+    block's ``attn_k``/``attn_v``) sized ``cache_len or S``.
+    ``batch["tokens"]`` is [B, S] (a tensor or an array); the decoder
+    family also takes ``batch["embeds"]`` [B, S, D] in its place and
+    ``batch["positions"]`` ([B, S], or [B, S, 3] for M-RoPE).
+    ``mode='train'`` waits for the training slice (ROADMAP)."""
     require_ported(cfg)
     if mode != "prefill":
         raise NotImplementedError(
@@ -124,6 +215,8 @@ def forward(cfg, params: Params, batch: dict, *, mode: str = "prefill",
     dev = resolve_compute_device(compute_device)
     check_params_device(params, dev)
     exact_fp32()
+    if cfg.family == "decoder":
+        return _decoder_forward(cfg, params, batch, dev, cache_len)
     tokens = torch.as_tensor(batch["tokens"], device=dev).long()
     h = params["embed"][tokens]
     b, s = tokens.shape

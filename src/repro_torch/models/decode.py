@@ -1,11 +1,14 @@
-"""Single-step decode and the cache constructor for the ssm and hybrid
-families — the port of ``repro/models/decode.py``.
+"""Single-step decode and the cache constructor for the decoder, ssm and
+hybrid families — the port of ``repro/models/decode.py``.
 
-The cache layout is the reference's: ``conv [L, B, k-1, C]`` (pre-conv
-features), ``state [L, B, H, N, P]`` fp32, ``attn_k``/``attn_v``
-``[apps, B, S, Hk, Dh]`` (one per shared-attention application) and
-``pos``.  :func:`decode_step` updates the cache tensors in place (the
-reference returns updated copies) and returns a new dict holding them.
+The cache layout is the reference's: the decoder's ``k``/``v``
+``[L, B, S, Hk, Dh]``; the ssm and hybrid families' ``conv [L, B, k-1, C]``
+(pre-conv features), ``state [L, B, H, N, P]`` fp32 and ``attn_k``/
+``attn_v`` ``[apps, B, S, Hk, Dh]`` (one per shared-attention
+application); and ``pos``.  :func:`decode_step` updates the cache tensors
+in place (the reference returns updated copies) and returns a new dict
+holding them.  Every attention layer of a step runs the paged_attention
+kernel over its cache through one page table (``attention.decode_pages``).
 """
 
 from __future__ import annotations
@@ -16,8 +19,9 @@ from ..core.types import resolve_compute_device
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssd as ssd_mod
-from .blocks import (check_params_device, exact_fp32, layer_params,
-                     require_ported, segments)
+from .blocks import (check_params_device, exact_fp32, layer_meta,
+                     layer_params, mlp_step, require_ported, scale_embeds,
+                     segments)
 from .common import dtype_of, norm
 
 
@@ -26,6 +30,11 @@ def init_cache(cfg, batch: int, max_seq: int, *,
     require_ported(cfg)
     dev = resolve_compute_device(compute_device)
     dt = dtype_of(cfg)
+    if cfg.family == "decoder":
+        shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev),
+                "pos": torch.zeros((1,), dtype=torch.int32, device=dev)}
     cache = {
         "conv": torch.zeros((cfg.n_layers, batch, cfg.conv_kernel - 1,
                              ssd_mod.conv_dim(cfg)), dtype=dt, device=dev),
@@ -53,7 +62,34 @@ def decode_step(cfg, params, tokens, pos, cache, *,
     exact_fp32()
     tokens = torch.as_tensor(tokens, device=dev).long()
     pos = torch.as_tensor(pos, device=dev).long()
-    h = params["embed"][tokens]
+    h = scale_embeds(cfg, params["embed"][tokens])
+    if cfg.family == "decoder":
+        h = _decode_decoder(cfg, params, h, pos, cache)
+    else:
+        h = _decode_ssm(cfg, params, h, pos, cache)
+    h = norm(cfg, h, params["final_norm"])
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    new_cache = dict(cache)
+    new_cache["pos"] = cache["pos"] + 1
+    return h @ head, new_cache
+
+
+def _decode_decoder(cfg, params, h, pos, cache):
+    pages = attn.decode_pages(pos, cache["k"].shape[2])
+    for i, (theta, window) in enumerate(layer_meta(cfg)):
+        lp = layer_params(params["layers"], i)
+        a_out, _, _ = attn.attn_decode(
+            cfg, lp["attn"], norm(cfg, h, lp["attn_norm"]), pos, theta,
+            window, cache["k"][i], cache["v"][i], pages)
+        if cfg.post_norm:
+            a_out = norm(cfg, a_out, lp["post_attn_norm"])
+        h = mlp_step(cfg, lp, h + a_out)
+    return h
+
+
+def _decode_ssm(cfg, params, h, pos, cache):
+    pages = (attn.decode_pages(pos, cache["attn_k"].shape[2])
+             if cfg.attn_every else None)
     app = 0
     for seg_start, seg_end in segments(cfg):
         for i in range(seg_start, seg_end):
@@ -69,13 +105,9 @@ def decode_step(cfg, params, tokens, pos, cache, *,
             a_out, _, _ = attn.attn_decode(
                 cfg, lp["attn"], norm(cfg, h, lp["attn_norm"]), pos,
                 cfg.rope_theta, -1, cache["attn_k"][app],
-                cache["attn_v"][app])
+                cache["attn_v"][app], pages)
             h = h + a_out
             h = h + moe_mod.mlp_forward(cfg, lp["mlp"],
                                         norm(cfg, h, lp["mlp_norm"]))
             app += 1
-    h = norm(cfg, h, params["final_norm"])
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    new_cache = dict(cache)
-    new_cache["pos"] = cache["pos"] + 1
-    return h @ head, new_cache
+    return h

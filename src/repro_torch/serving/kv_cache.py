@@ -3,9 +3,11 @@
 
 Pages are fixed-size token blocks ([PS, Hkv, Dh] per layer) held on the
 compute device; sequences own page lists.  The LSM-backed prefix cache
-(``prefix_cache.py``) pins shared pages.  The paged decode that would read
-them (the paged_attention kernel) is not on any reference path yet
-(ROADMAP).
+(``prefix_cache.py``) pins shared pages.  As in the reference's serve loop,
+these pages are allocated and registered but not read: decode runs the
+paged_attention kernel over each request's dense decode cache, viewed as
+pages through an identity page table (``models.attention.attn_decode``),
+not over this pool.
 """
 
 from __future__ import annotations

@@ -124,7 +124,7 @@ def test_seeded_init_matches_the_layout(pair):
 
 
 def test_unported_families_raise():
-    for arch in ("qwen3_1_7b", "whisper_tiny"):
+    for arch in ("gemma3_1b", "deepseek_v2_lite", "whisper_tiny"):
         cfg = port_configs.get_config(arch).smoke()
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             init_model(cfg, compute_device="cpu")

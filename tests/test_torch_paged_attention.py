@@ -1,0 +1,140 @@
+"""Port of the paged_attention kernel against the JAX reference on the CPU.
+
+The port's wrapper gets CPU tensors, so it runs its plain version
+(``paged_attention_plain``); the reference runs its Pallas kernel in
+interpret mode (``repro.kernels.paged_attention.paged_attention``) and its
+``ref.py`` oracle on the same numpy-seeded inputs.  Tolerance: the
+reference's own (``tests/test_kernels.py``), 2e-5 for fp32 and 5e-2 for
+bf16 (both compute in fp32 and round once to bf16, so they may differ by
+one bf16 ulp of an output of a few units).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.paged_attention import paged_attention as ref_paged
+from repro.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels import paged_attention
+from repro_torch.kernels.paged_attention import paged_attention_plain
+
+TOL = {"float32": 2e-5, "bfloat16": 5e-2}
+
+
+def _inputs(b, hq, hkv, d, npg, ps, maxp, dtype, seed=7, lengths=None,
+            table=None):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hq, d)).astype(np.float32)
+    kp = rng.standard_normal((npg, ps, hkv, d)).astype(np.float32)
+    vp = rng.standard_normal((npg, ps, hkv, d)).astype(np.float32)
+    if table is None:
+        table = rng.integers(0, npg, (b, maxp))
+    if lengths is None:
+        lengths = rng.integers(1, maxp * ps + 1, (b,))
+    return (q, kp, vp, np.asarray(table, np.int32),
+            np.asarray(lengths, np.int32), dtype)
+
+
+def _port(q, kp, vp, pt, ln, dtype):
+    dt = getattr(torch, dtype)
+    args = [torch.from_numpy(x).to(dt) for x in (q, kp, vp)]
+    args += [torch.from_numpy(pt), torch.from_numpy(ln)]
+    return paged_attention(*args).float().numpy()
+
+
+def _reference(q, kp, vp, pt, ln, dtype):
+    dt = jnp.dtype(dtype)
+    args = [jnp.asarray(x, dt) for x in (q, kp, vp)]
+    args += [jnp.asarray(pt), jnp.asarray(ln)]
+    return (np.asarray(ref_paged(*args).astype(jnp.float32)),
+            np.asarray(paged_attention_ref(*args).astype(jnp.float32)))
+
+
+def _check(inputs):
+    got = _port(*inputs)
+    kernel, oracle = _reference(*inputs)
+    tol = TOL[inputs[-1]]
+    assert got.shape == kernel.shape and np.all(np.isfinite(got))
+    assert np.max(np.abs(got - kernel)) < tol
+    assert np.max(np.abs(got - oracle)) < tol
+    return got
+
+
+# (b, hq, hkv, d, n_pages, page_size, max_pages, dtype)
+CASES = {
+    # the reference test's three cases (tests/test_kernels.py)
+    "ref-gqa2": (2, 4, 2, 64, 16, 16, 4, "float32"),
+    "ref-g8": (1, 8, 1, 128, 32, 32, 8, "float32"),
+    "ref-bf16": (3, 4, 4, 64, 8, 16, 3, "bfloat16"),
+    # groups that are not powers of two
+    "g3": (2, 6, 2, 64, 12, 16, 5, "float32"),
+    "g6-bf16": (2, 12, 2, 128, 12, 32, 4, "bfloat16"),
+    # the serving shapes: qwen3 (G 2, D 128) and zamba2 (G 1, D 64)
+    "qwen3": (1, 16, 8, 128, 16, 32, 16, "bfloat16"),
+    "zamba2": (1, 32, 32, 64, 16, 32, 16, "float32"),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES), ids=list(CASES))
+def test_paged_attention_matches_reference(case):
+    _check(_inputs(*CASES[case]))
+
+
+def test_repeated_page_ids():
+    """Several page-table entries of one sequence, and of two sequences,
+    name the same page."""
+    table = [[3, 3, 1, 3], [1, 3, 0, 0]]
+    _check(_inputs(2, 4, 2, 64, 4, 16, 4, "float32", lengths=[64, 50],
+                   table=table))
+
+
+def test_garbage_past_the_length():
+    """Entries past a sequence's last page are never followed: random
+    in-range ids agree with the reference, and ids no pool holds (-1,
+    2**30) give the same result as any valid ones."""
+    b, hq, hkv, d, npg, ps, maxp = 3, 4, 2, 64, 8, 16, 6
+    lengths = [17, 1, 40]          # 2, 1 and 3 live pages
+    table = np.random.default_rng(3).integers(0, npg, (b, maxp))
+    want = _check(_inputs(b, hq, hkv, d, npg, ps, maxp, "float32",
+                          lengths=lengths, table=table))
+    for fill in (-1, 2 ** 30):
+        bad = table.copy()
+        for i, n in enumerate((2, 1, 3)):
+            bad[i, n:] = fill
+        got = _port(*_inputs(b, hq, hkv, d, npg, ps, maxp, "float32",
+                             lengths=lengths, table=bad))
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lengths_at_the_edges(dtype):
+    """Lengths 0 (zeros, not NaN), 1, PS, PS+1, MAXP*PS, and past MAXP*PS
+    (clamped to the table's pages, as the reference's grid and mask are)."""
+    ps, maxp = 16, 4
+    lengths = [0, 1, ps, ps + 1, maxp * ps, maxp * ps + 7]
+    got = _check(_inputs(len(lengths), 6, 2, 64, 10, ps, maxp, dtype,
+                         lengths=lengths))
+    assert np.all(got[0] == 0.0)
+
+
+def test_kernel_launch_count_and_bad_arguments():
+    inputs = _inputs(2, 4, 2, 64, 4, 16, 2, "float32")
+    before = paged_attention.launches
+    _port(*inputs)
+    assert paged_attention.launches == before     # CPU: the plain version
+    q, kp, vp = (torch.from_numpy(x) for x in inputs[:3])
+    pt, ln = torch.from_numpy(inputs[3]), torch.from_numpy(inputs[4])
+    torch.testing.assert_close(paged_attention(q, kp, vp, pt, ln),
+                               paged_attention_plain(q, kp, vp, pt, ln),
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match="bad shapes"):
+        paged_attention(q[:, :3], kp, vp, pt, ln)          # 3 % 2 != 0
+    with pytest.raises(ValueError, match="bad shapes"):
+        paged_attention(q, kp, vp[:, :8], pt, ln)
+    with pytest.raises(ValueError, match="bad shapes"):
+        paged_attention(q, kp, vp, pt[:1], ln)
+    with pytest.raises(ValueError, match="bad shapes"):
+        paged_attention(q, kp, vp, pt, ln[:1])
+    with pytest.raises(TypeError, match="one dtype"):
+        paged_attention(q.double(), kp, vp, pt, ln)

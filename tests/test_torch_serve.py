@@ -1,12 +1,13 @@
 """Port of the serving path (``launch/serve.py`` and ``serving/``) against
 the JAX reference on the CPU.
 
-Both packages serve the same seeded requests of zamba2-1.2b at smoke size
-with the same parameters (the reference's ``init_model`` for the seed,
+Both packages serve the same seeded requests of zamba2-1.2b and of
+qwen3-1.7b at smoke size with the same parameters (the reference's ``init_model`` for the seed,
 carried across with ``params_from_jax``).  Greedy outputs, admission
 counts and the prefix cache's hits, reuse and stats must be identical: the
 prefix cache is a real LSM store in both (the port's GETs run the
-overlap_scan wrapper).
+overlap_scan wrapper), and every decode attention of the port runs the
+paged_attention wrapper.
 """
 
 import jax
@@ -32,20 +33,23 @@ KEYS = ("requests_offered", "requests_admitted", "requests_rejected",
         "prefix_hits", "tokens_reused", "tokens_prefilled", "prefix_cache")
 
 
-@pytest.mark.parametrize("limit,burst", [(0.0, 4.0), (5.0, 1.0)],
-                         ids=["open", "limited"])
-def test_serve_matches_reference(limit, burst):
+@pytest.mark.parametrize("arch,limit,burst", [
+    pytest.param("zamba2_1_2b", 0.0, 4.0, id="open"),
+    pytest.param("zamba2_1_2b", 5.0, 1.0, id="limited"),
+    pytest.param("qwen3_1_7b", 0.0, 4.0, id="qwen3_1_7b-open"),
+    pytest.param("qwen3_1_7b", 5.0, 1.0, id="qwen3_1_7b-limited")])
+def test_serve_matches_reference(arch, limit, burst):
     """The open case serves all 4 requests (2 prefix hits); the limited
     one admits 1 and rejects 3."""
     kw = dict(smoke=True, n_requests=4, decode_tokens=8, seed=0,
               limit_ops_s=limit, burst_ops=burst)
-    want = ref_serve.run("zamba2_1_2b", **kw)
-    cfg = get_config("zamba2_1_2b").smoke()
+    want = ref_serve.run(arch, **kw)
+    cfg = get_config(arch).smoke()
     params = params_from_jax(
-        port_configs.get_config("zamba2_1_2b").smoke(),
+        port_configs.get_config(arch).smoke(),
         jax.tree.map(np.asarray, ref_init(cfg, jax.random.PRNGKey(0))),
         compute_device="cpu")
-    got = serve.run("zamba2_1_2b", compute_device="cpu", params=params, **kw)
+    got = serve.run(arch, compute_device="cpu", params=params, **kw)
     assert got["outputs"] == want["outputs"]
     for k in KEYS:
         assert got["stats"][k] == want["stats"][k], k
