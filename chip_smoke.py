@@ -10,12 +10,16 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    parallel) into ``build/repro_torch/``.
 2. Kernel edge cases: every kernel against its plain PyTorch version on the
    card (merge and rank exactly, Lindley within 1e-9 s; flash_attention
-   over S 1..384, head_dim 64/128, GQA and windows; ssd_scan's y and final
-   state over L 1..300, G < H, dt from 1e-4 to 10; paged_attention over
-   B 1-3, G 1/2/3/6/8, head_dim 64/128, page sizes 16/32, shuffled page
-   tables with repeats and garbage past the length, lengths 0, 1, PS,
-   PS+1 and MAXP*PS; every element within atol + rtol * |plain| as TOL
-   below states).
+   over S 1..384 and 63/64/65, head_dim 64/128, GQA and windows, S 4,096
+   with a 128-token window and with GQA rep 2 at D 128, and B 8 grids at
+   ragged S 777 and 1,000; ssd_scan's y
+   and final state over L 1..300, G < H, dt from 1e-4 to 10;
+   paged_attention over B 1-3, G 1/2/3/6/8, head_dim 64/128, page sizes
+   16/32, shuffled page tables with repeats and garbage past the length,
+   lengths 0, 1, PS, PS+1 and MAXP*PS, then lengths at the boundaries of
+   the kernel's split over blocks, an all-empty batch and a B 1 x 4,096
+   decode; every element within atol + rtol * |plain| as TOL below
+   states).
 3. Store path: ``Simulator.run`` on the card for vlsm and rocksdb at the
    paper's byte scale (64 MiB scale, ``DeviceModel.scaled(1.0)``, 200-byte
    pairs): 8,000,000 uniform keys loaded at 500,000 ops/s, a 10 s settle,
@@ -38,8 +42,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    back-to-back calls, and ``device_ms``, the kernels' own device time from
    torch.profiler — beside the bound: the larger of the bytes at 3.35 TB/s
    and the operations at 989 TFLOP/s (bf16).  The LM kernels are also
-   timed at a 4,096-token prefill, paged_attention at 8 sequences of
-   4,096 tokens over a shuffled pool.
+   timed at a 4,096-token prefill (flash_attention at zamba2's and at
+   qwen3-1.7b's heads), paged_attention at 8 sequences and at 1 sequence
+   of 4,096 tokens over a shuffled pool.
 6. Cross-checks: the store path again with ``compute_device="cpu"`` (per-op
    reads/probed and stall counts identical, latency within 1e-9 s); each
    serving model in float32 at full width, depth cut (zamba2 to 7 layers,
@@ -478,30 +483,43 @@ def check_close(what: str, kernel: str, got, want, tol=None) -> float:
 
 
 def edge_flash(torch) -> float:
-    """flash_attention against its plain version: S 1, 127, 128, 130, 384;
-    head_dim 64 and 128; GQA rep 1 and 2; window None and 128; fp32 and
-    bf16; plus a non-causal case.  Returns the largest |err|."""
+    """flash_attention against its plain version: S 1, 63, 64, 65, 127,
+    128, 130, 384; head_dim 64 and 128; GQA rep 1 and 2; window None and
+    128; fp32 and bf16; plus two non-causal cases and two at S 4,096 (a
+    128-token window at D 64, GQA rep 2 at D 128).  Then, in bf16, B 8 grids
+    of 512 to 1,024 blocks: ragged S 777 and 1,000, windows, GQA and a
+    non-causal case.  Returns the largest |err|."""
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_plain)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(11)
     worst = 0.0
     cases = [(s, d, rep, win, dt, True)
-             for s in (1, 127, 128, 130, 384) for d in (64, 128)
+             for s in (1, 63, 64, 65, 127, 128, 130, 384) for d in (64, 128)
              for rep in (1, 2) for win in (None, 128)
              for dt in ("float32", "bfloat16")]
     cases += [(130, 64, 2, None, "float32", False),
-              (384, 128, 1, 128, "bfloat16", False)]
-    for s, d, rep, win, dt, causal in cases:
+              (384, 128, 1, 128, "bfloat16", False),
+              (LONG_PREFILL, 64, 1, 128, "bfloat16", True),
+              (LONG_PREFILL, 128, 2, None, "bfloat16", True)]
+    cases = [(2, 2 * rep, 2, s, d, win, dt, causal)
+             for s, d, rep, win, dt, causal in cases]
+    cases += [(8, hq, hkv, s, d, win, "bfloat16", causal)
+              for hq, hkv, s, d, win, causal in (
+                  (16, 8, 1000, 128, None, True), (16, 8, 1000, 128, 128, True),
+                  (8, 8, 777, 64, 128, True), (8, 8, 1000, 64, None, False))]
+    for b, hq, hkv, s, d, win, dt, causal in cases:
         dtype = getattr(torch, dt)
-        q = _randn(torch, gen, (2, 2 * rep, s, d), dtype)
-        k = _randn(torch, gen, (2, 2, s, d), dtype)
-        v = _randn(torch, gen, (2, 2, s, d), dtype)
+        rep = hq // hkv
+        q = _randn(torch, gen, (b, hq, s, d), dtype)
+        k = _randn(torch, gen, (b, hkv, s, d), dtype)
+        v = _randn(torch, gen, (b, hkv, s, d), dtype)
         got = flash_attention(q, k, v, causal=causal, window=win)
         want = flash_attention_plain(q, k, v, causal=causal, window=win)
         worst = max(worst, check_close(
-            f"flash_attention edge case S={s} D={d} rep={rep} window={win} "
-            f"{dt} causal={causal}", "flash_attention", got, want))
+            f"flash_attention edge case B={b} S={s} D={d} rep={rep} "
+            f"window={win} {dt} causal={causal}", "flash_attention", got,
+            want))
     return worst
 
 
@@ -550,9 +568,13 @@ def edge_paged(torch, np) -> float:
     -1 or 2**30 (never followed); lengths cycling through 0, 1, PS, PS+1
     and MAXP*PS.  Then the serving paths' kv-head counts the same way:
     qwen3-1.7b's 8 kv heads (G 2, D 128) and zamba2-1.2b's 32 (G 1, D 64),
-    PS 32.  Returns the largest |err|."""
+    PS 32.  Then the kernel's split of a sequence over blocks: lengths
+    split-1, split, split+1 and 2*split (qwen3's heads, MAXP*PS 4,096), an
+    all-empty batch, and one sequence of 4,096 tokens over a shuffled
+    pool, each of which must take more than one split.  Returns the
+    largest |err|."""
     from repro_torch.kernels.paged_attention.ops import (
-        paged_attention, paged_attention_plain)
+        paged_attention, paged_attention_plain, split_plan)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(15)
     rng = np.random.default_rng(15)
@@ -581,6 +603,36 @@ def edge_paged(torch, np) -> float:
             worst = max(worst, check_close(
                 f"paged_attention edge case B={b} Hkv={hkv} G={g} "
                 f"D={d} PS={ps} lengths={lengths} {dt}",
+                "paged_attention", got, want))
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    per = split_plan(128 * 32, 4, 8, n_sm)[1]
+    split_cases = [  # (hkv, g, d, ps, maxp, pool pages, lengths, dtypes)
+        (8, 2, 128, 32, 128, 600, [per - 1, per, per + 1, 2 * per],
+         ("float32", "bfloat16")),
+        (2, 3, 64, 16, 40, 120, [0, 0, 0], ("float32", "bfloat16")),
+        (8, 2, 128, 32, 128, 2048, [4096], ("bfloat16",))]
+    for hkv, g, d, ps, maxp, n_pages, lengths, dts in split_cases:
+        b = len(lengths)
+        ns, per = split_plan(maxp * ps, b, hkv, n_sm)
+        if ns < 2 or (max(lengths) > 0 and -(-max(lengths) // per) < 2):
+            fail(f"paged_attention split case lengths={lengths}: the plan "
+                 f"({ns} x {per} tokens) does not split it")
+        pt = torch.randperm(n_pages, generator=gen, device="cuda")[
+            :b * maxp].view(b, maxp).to(torch.int32)
+        ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        for dt in dts:
+            dtype = getattr(torch, dt)
+            q = _randn(torch, gen, (b, g * hkv, d), dtype)
+            kp = _randn(torch, gen, (n_pages, ps, hkv, d), dtype)
+            vp = _randn(torch, gen, (n_pages, ps, hkv, d), dtype)
+            got = paged_attention(q, kp, vp, pt, ln)
+            want = paged_attention_plain(q, kp, vp, pt, ln)
+            if max(lengths) == 0 and bool(got.any()):
+                fail("paged_attention: an all-empty batch must give zeros")
+            worst = max(worst, check_close(
+                f"paged_attention split case B={b} Hkv={hkv} G={g} D={d} "
+                f"PS={ps} lengths={lengths} ({ns} splits of {per}) {dt}",
                 "paged_attention", got, want))
     return worst
 
@@ -789,17 +841,18 @@ def time_paged(torch, length: int, reps: int, hq: int = 16, hkv: int = 8,
                        library, reps)}
 
 
-def time_paged_long(torch, reps: int) -> dict:
-    """Long decode: LONG_DECODE sequences of 4,096 tokens each over a pool
-    of 2,048 pages of 32 (H 16 over kv 8, D 128, bf16), the sequences'
-    pages drawn without repeats from a shuffled pool.  Library: SDPA over
-    the same KV laid out contiguously (gathered outside the timing)."""
+def time_paged_long(torch, reps: int, b: int = LONG_DECODE[0]) -> dict:
+    """Long decode: ``b`` sequences (LONG_DECODE's 8 by default) of 4,096
+    tokens each over a pool of 2,048 pages of 32 (H 16 over kv 8, D 128,
+    bf16), the sequences' pages drawn without repeats from a shuffled pool.
+    Library: SDPA over the same KV laid out contiguously (gathered outside
+    the timing)."""
     from repro_torch.kernels.paged_attention.ops import (
         paged_attention, paged_attention_plain)
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda")
     gen.manual_seed(17)
-    b, length, n_pages = LONG_DECODE
+    _, length, n_pages = LONG_DECODE
     hq, hkv, d, ps = 16, 8, 128, 32
     maxp = length // ps
     bf = torch.bfloat16
@@ -978,8 +1031,12 @@ def main() -> int:
         timings[name]["max_abs_err"] = max(timings[name]["max_abs_err"], err)
     report["long_prefill"] = {
         "flash_attention": time_flash(torch, LONG_PREFILL, 10),
+        "flash_attention_qwen3": time_flash(torch, LONG_PREFILL, 10, 16, 8,
+                                            128),
         "ssd_scan": time_ssd(torch, LONG_PREFILL, 10)}
-    report["long_decode"] = {"paged_attention": time_paged_long(torch, 20)}
+    report["long_decode"] = {
+        "paged_attention": time_paged_long(torch, 20),
+        "paged_attention_b1": time_paged_long(torch, 40, 1)}
     for name, t in timings.items():
         print(f"timing {name}: " + json.dumps(t), flush=True)
     print("timing flash_attention at qwen3's prefill shape: "
@@ -989,8 +1046,8 @@ def main() -> int:
     for name, t in report["long_prefill"].items():
         print(f"timing {name} at {LONG_PREFILL} tokens: " + json.dumps(t),
               flush=True)
-    print("timing paged_attention, long decode: "
-          + json.dumps(report["long_decode"]["paged_attention"]), flush=True)
+    for name, t in report["long_decode"].items():
+        print(f"timing {name}, long decode: " + json.dumps(t), flush=True)
     torch.cuda.empty_cache()
 
     for arch, (_, layers) in SERVE_PATHS.items():

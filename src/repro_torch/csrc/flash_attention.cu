@@ -8,25 +8,51 @@
 // in VMEM scratch.  Here one thread block owns one (bh, 64-row q tile) and
 // loops over 64-key tiles itself, keeping the running max m, sum l and the
 // fp32 accumulator in registers.  Tiles that no query row of the block can
-// see are skipped with the reference's test (k_start <= q_end for causal,
-// k_end > q_start - window for a window).  Semantics are the reference's:
-// masked logits are -1e30, masked probabilities are zeroed, the output is
-// acc / max(l, 1e-30), so a fully masked row gives 0.  GQA maps query head
-// h to kv head h / (Hq / Hkv); keys past S are masked here, so S needs no
-// padding.
+// see are never visited, by the reference's test (k_start <= q_end for
+// causal, k_end > q_start - window for a window).  Semantics are the
+// reference's: masked logits are -1e30, masked probabilities are zeroed,
+// the output is acc / max(l, 1e-30), so a fully masked row gives 0.  GQA
+// maps query head h to kv head h / (Hq / Hkv); keys past S are masked
+// here, so S needs no padding.
 //
-// Bound on the H100: at the serving shapes (S of a few hundred) the bytes of
-// q, k, v and o (memory); from S of a few thousand the 2*S^2*D operations
-// per head (tensor-core rate for bf16).  Two kernels, chosen by dtype:
-// bf16 inputs run both products on the tensor cores (mma.sync, fp32
-// accumulators; P is split into two bf16 halves so that P.V keeps the
-// reference's fp32 probabilities); fp32 inputs run them on the CUDA cores
-// in fp32 (4 threads per query row: each scores a quarter of the tile's
-// keys and accumulates a quarter of the output columns), which the
-// reference's fp32 tolerance needs.  Neither pipelines its loads (no
-// cp.async/TMA) or uses wgmma yet.
+// Bound on the H100: at the serving shapes (S of a few hundred) the bytes
+// of q, k, v and o (memory); from S of a few thousand the 2*S^2*D
+// operations per head (tensor-core rate for bf16).  Two kernels, chosen by
+// dtype:
+//
+// * bf16 (flash_fwd_wgmma): one warpgroup per 64 query rows runs Q.K^T as
+//   wgmma m64n64k16 from shared memory and P.V as wgmma with P from
+//   registers and V through the descriptor's transpose, so no element-wise
+//   transpose and no fragment loads.  The reference multiplies fp32
+//   probabilities by V, so P is split into two bf16 halves and P.V is two
+//   wgmmas per 16 keys: that split makes P.V's tensor work twice Q.K^T's,
+//   which only wgmma's rate leaves room for.  K and V tiles arrive through
+//   a ring of cp.async 16-byte copies written straight into the 128-byte
+//   XOR swizzle the wgmma descriptors name; each thread fences its copies
+//   into the async proxy (fence.proxy.async) before the barrier that
+//   precedes the wgmmas.  At D 64 the ring has two stages (tile t+1 in
+//   flight while t is computed) so that four blocks of 128 registers share
+//   an SM; at D 128, three (tiles t+1 and t+2), two blocks.  The grid is
+//   (bh, q tile) with the q tiles in reverse order on blockIdx.y, so the
+//   longest causal rows start first and the short ones fill in behind;
+//   64-row blocks keep 96 blocks at zamba2's serving prefill (S 189, 32
+//   heads) where 128-row blocks would give 64.  The softmax runs in the
+//   exp2 domain (scale * log2 e folded into the logits, ex2.approx.ftz),
+//   which changes nothing beyond fp32 rounding, and compiles its mask tests
+//   only into the tiles that need them.  What still separates it from its
+//   bound: each warpgroup waits for its own wgmmas, so the tensor cores
+//   idle during a block's softmax unless a co-resident block fills them
+//   (overlapping the next tile's Q.K^T with the softmax inside a block
+//   took a second score set, 250 registers at D 128, and measured slower),
+//   and the softmax and the P split run on the CUDA cores, ~12
+//   instructions per score.
+// * fp32 (flash_fwd): both products on the CUDA cores in fp32 (4 threads
+//   per query row: each scores a quarter of the tile's keys and
+//   accumulates a quarter of the output columns), which the reference's
+//   fp32 tolerance needs; no bf16 or TF32 operand meets it.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -38,13 +64,7 @@ constexpr int kThreads = 256;   // 4 threads per query row
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -173,10 +193,6 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ uint32_t pack(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
@@ -190,183 +206,392 @@ __device__ __forceinline__ void split(float p0, float p1, uint32_t& hi,
   lo = pack(__floats2bfloat162_rn(p0 - __low2float(h), p1 - __high2float(h)));
 }
 
-// D (16x8, fp32) += A (16x16, bf16, row) * B (16x8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// 16-byte global -> shared copy; src_bytes 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// this thread's finished generic-proxy (cp.async) writes to shared memory
+// become visible to the async proxy that wgmma reads through
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// 2^x on the special-function unit, subnormal results flushed to zero (a
+// probability below 2^-126 of the row's largest adds nothing to a sum >= 1)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pins registers' values at this point of the instruction stream: reads
+// and writes of them stay on their side of a wgmma's launch and wait.
+__device__ __forceinline__ void fence_reg(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+__device__ __forceinline__ void fence_reg(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+template <typename R, int N>
+__device__ __forceinline__ void fence_regs(R (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_reg(r[i]);
+}
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled tile (layout type
+// 1 in bits 62-63): start address, leading and stride byte offsets, all in
+// 16-byte units.  Tiles start 1024-byte aligned, so the base offset is 0.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// Byte offset of 16-byte chunk c (8 bf16) of row r in a tile of `rows` rows
+// of D bf16, in the 128-byte swizzle the descriptors name: 64-column blocks
+// of rows * 128 bytes one after another, 128 bytes per row, and chunk c & 7
+// of a row at c & 7 ^ r & 7.  Q and K (K-major operands) and V (the
+// MN-major B of P.V) all use it.
+__device__ __forceinline__ uint32_t swz(int r, int c, int rows) {
+  return (uint32_t)((c >> 3) * rows * 128 + r * 128 +
+                    (((c & 7) ^ (r & 7)) << 4));
+}
+
+// d (64 x 64, fp32) (+)= A (64 x 16, bf16, shared, K-major) * B (16 x 64,
+// bf16, shared, K-major); scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                              uint64_t db, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-constexpr int kMmaThreads = 128;  // 4 warps, 16 query rows each
-
-template <int D>
-constexpr size_t mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) *
-         (size_t)(kBQ * (D + 8) + kBK * (D + 8) + D * (kBK + 8));
+// d (64 x 64, fp32) += A (64 x 16, bf16, registers) * B (16 x 64, bf16,
+// shared, MN-major: the descriptor's transpose).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// bf16 inputs: Q.K^T and P.V on the tensor cores (mma.sync m16n8k16, fp32
-// accumulators).  Each warp owns 16 query rows of the block's 64; a thread
-// holds, per 8-key tile, the scores of two rows (g and g + 8) and two keys,
-// which is also the A-fragment layout of P for the P.V product, so P never
-// leaves registers.  V is stored transposed in shared memory so that its
-// B fragments are 32-bit loads.
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v,
-              __nv_bfloat16* __restrict__ o, int hq, int hkv, int s,
-              int causal, int window, float scale) {
-  constexpr int LDK = D + 8;    // bf16 row stride of the Q and K tiles
-  constexpr int LDV = kBK + 8;  // bf16 row stride of the transposed V tile
-  constexpr int KS = D / 16;    // k-steps of Q.K^T
-  constexpr int NT = kBK / 8;   // 8-key tiles per 64-key tile
-  constexpr int DT = D / 8;     // 8-column tiles of the output
-  constexpr int C8 = D / 8;     // 16-byte chunks per row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sk = sq + kBQ * LDK;   // [kBK][LDK]
-  __nv_bfloat16* svt = sk + kBK * LDK;  // [D][LDV]
+// d (64 x 128, fp32) += A (64 x 16, bf16, registers) * B (16 x 128, bf16,
+// shared, MN-major: the descriptor's transpose).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
 
-  const int bh = blockIdx.y;
+constexpr int kWgThreads = 128;   // one warpgroup: 64 query rows
+
+template <int D>
+struct WCfg {
+  // K/V ring depth and blocks per SM: at D 64, two stages (41 KB) let four
+  // blocks of <= 128 registers share an SM; at D 128, three (113 KB), two
+  static constexpr int NS = D == 64 ? 2 : 3;
+  static constexpr int MIN_BLOCKS = D == 64 ? 4 : 2;
+  static constexpr int Q_BYTES = kBQ * D * 2;
+  static constexpr int T_BYTES = kBK * D * 2;     // one K or V tile
+  static constexpr int STAGE = 2 * T_BYTES;       // K tile then V tile
+  // + 1024 to align the tiles to the swizzle's 1024-byte period
+  static constexpr size_t SMEM = 1024 + Q_BYTES + NS * STAGE;
+};
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&acc)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (D == 64)
+    wgmma_rs_n64(acc, a, db);
+  else
+    wgmma_rs_n128(acc, a, db);
+}
+
+// bf16 inputs: Q.K^T and P.V on the tensor cores with wgmma (fp32
+// accumulators).  One warpgroup owns 64 query rows; warp w of it holds rows
+// 16w..16w+15 of every accumulator, and a thread the same elements as in an
+// mma.sync C fragment, repeated across N: per 8-key group the scores of
+// rows g and g + 8 and keys 2t, 2t + 1, which is also P's A fragment for
+// the P.V wgmma, so P goes from the score registers to the tensor cores
+// without shared memory.  Q.K^T reads Q and K from shared memory (both
+// K-major); P.V reads V through the descriptor's transpose (MN-major B).
+// K and V tiles arrive through an NS-stage ring of cp.async copies made by
+// the same threads, NS - 1 tiles ahead of the one being computed.
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, WCfg<D>::MIN_BLOCKS)
+flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
+                const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v,
+                __nv_bfloat16* __restrict__ o, int hq, int hkv, int s,
+                int causal, int window, float scale2) {
+  using C = WCfg<D>;
+  constexpr int NS = C::NS;
+  constexpr int KS = D / 16;     // k-steps of Q.K^T
+  constexpr int NT = kBK / 8;    // 8-key groups of a tile
+  constexpr int DT = D / 8;      // 8-column groups of the output
+  constexpr int CPR = D / 8;     // 16-byte chunks per row
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t sq =
+      (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u) &
+      ~1023u;
+  const uint32_t skv = sq + C::Q_BYTES;
+
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;   // longest causal tiles first
   const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = qt * kBQ;
   const __nv_bfloat16* qg = q + (size_t)bh * s * D;
   const __nv_bfloat16* kg = k + (size_t)kvh * s * D;
   const __nv_bfloat16* vg = v + (size_t)kvh * s * D;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
-  const int r0 = warp * 16;
-  const int qa = q0 + r0 + g, qb = qa + 8;  // this thread's two query rows
+  const int qa = q0 + warp * 16 + g, qb = qa + 8;  // this thread's rows
   const int q_last = min(q0 + kBQ - 1, s - 1);
+  // the key tiles some row of the block can see (the reference's test)
+  const int n_kt = (s + kBK - 1) / kBK;
+  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
+  const int kt_hi = causal ? min(n_kt, q_last / kBK + 1) : n_kt;
+  const int n_tiles = max(0, kt_hi - kt_lo);
 
-  for (int idx = tid; idx < kBQ * C8; idx += kMmaThreads) {
-    const int row = idx / C8, c = (idx % C8) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + row < s)
-      val = *reinterpret_cast<const uint4*>(qg + (size_t)(q0 + row) * D + c);
-    *reinterpret_cast<uint4*>(&sq[row * LDK + c]) = val;
+  for (int idx = tid; idx < kBQ * CPR; idx += kWgThreads) {
+    const int r = idx / CPR, c = idx % CPR;
+    const bool in = q0 + r < s;
+    cp_async16(sq + swz(r, c, kBQ),
+               in ? qg + (size_t)(q0 + r) * D + c * 8 : qg, in ? 16 : 0);
   }
-  __syncthreads();
-  uint32_t qf[KS][4];
+  cp_async_commit();
+  auto load_tile = [&](int i) {
+    const int k0 = (kt_lo + i) * kBK;
+    const uint32_t base = skv + (i % NS) * C::STAGE;
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const __nv_bfloat16* base = &sq[(r0 + g) * LDK + ks * 16 + tq * 2];
-    qf[ks][0] = ld32(base);
-    qf[ks][1] = ld32(base + 8 * LDK);
-    qf[ks][2] = ld32(base + 8);
-    qf[ks][3] = ld32(base + 8 * LDK + 8);
+    for (int j = 0; j < 2 * kBK * CPR / kWgThreads; ++j) {
+      const int idx = tid + j * kWgThreads;
+      const int kv = idx / (kBK * CPR);
+      const int r = (idx / CPR) % kBK, c = idx % CPR;
+      const bool in = k0 + r < s;
+      const __nv_bfloat16* src = kv ? vg : kg;
+      cp_async16(base + kv * C::T_BYTES + swz(r, c, kBK),
+                 in ? src + (size_t)(k0 + r) * D + c * 8 : kg, in ? 16 : 0);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {
+    if (i < n_tiles) load_tile(i);
+    cp_async_commit();
   }
-  float acc[DT][4];
+
+  float acc[DT * 4];
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  for (int i = 0; i < DT * 4; ++i) acc[i] = 0.f;
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
 
-  const int n_kt = (s + kBK - 1) / kBK;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kBK;
-    if (causal && k0 > q_last) break;                        // above diagonal
-    if (window > 0 && k0 + kBK - 1 <= q0 - window) continue; // out of window
-    __syncthreads();  // the previous tile's reads of sk/svt are done
-    for (int idx = tid; idx < kBK * C8; idx += kMmaThreads) {
-      const int row = idx / C8, c = (idx % C8) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (k0 + row < s) {
-        const size_t off = (size_t)(k0 + row) * D + c;
-        kv = *reinterpret_cast<const uint4*>(kg + off);
-        vv = *reinterpret_cast<const uint4*>(vg + off);
-      }
-      *reinterpret_cast<uint4*>(&sk[row * LDK + c]) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) svt[(c + e) * LDV + row] = ve[e];
-    }
-    __syncthreads();
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<NS - 2>();   // Q and tile i have landed (this thread's)
+    fence_proxy_async();
+    __syncthreads();                // ... everyone's; tile i - 1 is done
+    if (i + NS - 1 < n_tiles) load_tile(i + NS - 1);
+    cp_async_commit();
 
-    float sc[NT][4];
+    const int k0 = (kt_lo + i) * kBK;
+    const uint32_t sk = skv + (i % NS) * C::STAGE;
+    const uint32_t sv = sk + C::T_BYTES;
+    float sc[NT * 4];   // the first k-step overwrites it (scale_d 0)
+    fence_regs(sc);
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        const __nv_bfloat16* kb = &sk[(nt * 8 + g) * LDK + ks * 16 + tq * 2];
-        mma_bf16(sc[nt], qf[ks], ld32(kb), ld32(kb + 8));
-      }
+    for (int ks = 0; ks < KS; ++ks) {
+      const uint32_t off = (ks & 3) * 32;   // 16 columns = 32 bytes
+      wgmma_ss_n64(sc,
+                   smem_desc(sq + (ks >> 2) * kBQ * 128 + off, 16, 1024),
+                   smem_desc(sk + (ks >> 2) * kBK * 128 + off, 16, 1024),
+                   ks > 0);
     }
-    unsigned ok = 0;  // bit 4*nt + e: row g (e < 2) or g + 8 (e >= 2)
-    float mx_a = kNegInf, mx_b = kNegInf;
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    float mn_a, mn_b, sum_a = 0.f, sum_b = 0.f;
+    // the softmax of the tile, with the mask tests compiled in only for
+    // tiles where some element is masked (diagonal, window edge, ragged S)
+    auto softmax = [&](auto masked_t) {
+      constexpr bool kMasked = decltype(masked_t)::value;
+      unsigned ok = 0xffffffffu;  // bit 4*nt + e: row g (e < 2) or g + 8
+      float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kj = k0 + nt * 8 + tq * 2 + e;
-        const bool keep_a = kj < s && (!causal || kj <= qa) &&
-                            (window <= 0 || qa - kj < window);
-        const bool keep_b = kj < s && (!causal || kj <= qb) &&
-                            (window <= 0 || qb - kj < window);
-        ok |= ((unsigned)keep_a << (4 * nt + e)) |
-              ((unsigned)keep_b << (4 * nt + 2 + e));
-        sc[nt][e] = keep_a ? sc[nt][e] * scale : kNegInf;
-        sc[nt][2 + e] = keep_b ? sc[nt][2 + e] * scale : kNegInf;
-        mx_a = fmaxf(mx_a, sc[nt][e]);
-        mx_b = fmaxf(mx_b, sc[nt][2 + e]);
+        for (int e = 0; e < 2; ++e) {
+          float& xa = sc[nt * 4 + e];
+          float& xb = sc[nt * 4 + 2 + e];
+          xa *= scale2;
+          xb *= scale2;
+          if constexpr (kMasked) {
+            const int kj = k0 + nt * 8 + tq * 2 + e;
+            const bool keep_a = kj < s && (!causal || kj <= qa) &&
+                                (window <= 0 || qa - kj < window);
+            const bool keep_b = kj < s && (!causal || kj <= qb) &&
+                                (window <= 0 || qb - kj < window);
+            if (!keep_a) {
+              xa = kNegInf;
+              ok &= ~(1u << (4 * nt + e));
+            }
+            if (!keep_b) {
+              xb = kNegInf;
+              ok &= ~(1u << (4 * nt + 2 + e));
+            }
+          }
+          mx_a = fmaxf(mx_a, xa);
+          mx_b = fmaxf(mx_b, xb);
+        }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
       }
+      mn_a = fmaxf(m_a, mx_a);
+      mn_b = fmaxf(m_b, mx_b);
 #pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
-    }
-    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-    float sum_a = 0.f, sum_b = 0.f;
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float mn = e < 2 ? mn_a : mn_b;
-        const float p = ((ok >> (4 * nt + e)) & 1u) ? expf(sc[nt][e] - mn)
-                                                   : 0.f;
-        sc[nt][e] = p;
-        if (e < 2) sum_a += p; else sum_b += p;
-      }
+        for (int e = 0; e < 4; ++e) {
+          float p = ex2(sc[nt * 4 + e] - (e < 2 ? mn_a : mn_b));
+          if constexpr (kMasked)
+            p = ((ok >> (4 * nt + e)) & 1u) ? p : 0.f;
+          sc[nt * 4 + e] = p;
+          if (e < 2) sum_a += p; else sum_b += p;
+        }
+    };
+    const bool masked = k0 + kBK > s || (causal && k0 + kBK - 1 > q0) ||
+                        (window > 0 && q0 + kBQ - 1 - k0 >= window);
+    if (masked)
+      softmax(std::true_type{});
+    else
+      softmax(std::false_type{});
 #pragma unroll
     for (int off = 1; off <= 2; off <<= 1) {
       sum_a += __shfl_xor_sync(0xffffffffu, sum_a, off);
       sum_b += __shfl_xor_sync(0xffffffffu, sum_b, off);
     }
-    const float al_a = expf(m_a - mn_a), al_b = expf(m_b - mn_b);
+    const float al_a = ex2(m_a - mn_a), al_b = ex2(m_b - mn_b);
     l_a = al_a * l_a + sum_a;
     l_b = al_b * l_b + sum_b;
     m_a = mn_a;
     m_b = mn_b;
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt) {
-      acc[dt][0] *= al_a;
-      acc[dt][1] *= al_a;
-      acc[dt][2] *= al_b;
-      acc[dt][3] *= al_b;
+      acc[dt * 4 + 0] *= al_a;
+      acc[dt * 4 + 1] *= al_a;
+      acc[dt * 4 + 2] *= al_b;
+      acc[dt * 4 + 3] *= al_b;
     }
+    uint32_t ph[kBK / 16][4], pl[kBK / 16][4];
 #pragma unroll
     for (int j = 0; j < kBK / 16; ++j) {
-      uint32_t ph[4], pl[4];
-      split(sc[2 * j][0], sc[2 * j][1], ph[0], pl[0]);
-      split(sc[2 * j][2], sc[2 * j][3], ph[1], pl[1]);
-      split(sc[2 * j + 1][0], sc[2 * j + 1][1], ph[2], pl[2]);
-      split(sc[2 * j + 1][2], sc[2 * j + 1][3], ph[3], pl[3]);
+      split(sc[8 * j + 0], sc[8 * j + 1], ph[j][0], pl[j][0]);
+      split(sc[8 * j + 2], sc[8 * j + 3], ph[j][1], pl[j][1]);
+      split(sc[8 * j + 4], sc[8 * j + 5], ph[j][2], pl[j][2]);
+      split(sc[8 * j + 6], sc[8 * j + 7], ph[j][3], pl[j][3]);
+    }
+    fence_regs(acc);
 #pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        const __nv_bfloat16* vb = &svt[(dt * 8 + g) * LDV + j * 16 + tq * 2];
-        const uint32_t b0 = ld32(vb), b1 = ld32(vb + 8);
-        mma_bf16(acc[dt], ph, b0, b1);
-        mma_bf16(acc[dt], pl, b0, b1);
-      }
+    for (int j = 0; j < kBK / 16; ++j) {
+      fence_regs(ph[j]);
+      fence_regs(pl[j]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kBK / 16; ++j) {
+      // keys 16j..16j+15: two 8-key groups of 1024 bytes; the 64-column
+      // blocks of V lie kBK * 128 bytes apart
+      const uint64_t db = smem_desc(sv + j * 2048, kBK * 128, 1024);
+      wgmma_pv<D>(acc, ph[j], db);
+      wgmma_pv<D>(acc, pl[j], db);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int j = 0; j < kBK / 16; ++j) {
+      fence_regs(ph[j]);
+      fence_regs(pl[j]);
     }
   }
+  cp_async_wait<0>();
 
   const float den_a = fmaxf(l_a, 1e-30f), den_b = fmaxf(l_b, 1e-30f);
   __nv_bfloat16* og = o + (size_t)bh * s * D;
@@ -375,32 +600,37 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
     const int col = dt * 8 + tq * 2;
     if (qa < s)
       *reinterpret_cast<__nv_bfloat162*>(&og[(size_t)qa * D + col]) =
-          __floats2bfloat162_rn(acc[dt][0] / den_a, acc[dt][1] / den_a);
+          __floats2bfloat162_rn(acc[dt * 4 + 0] / den_a,
+                                acc[dt * 4 + 1] / den_a);
     if (qb < s)
       *reinterpret_cast<__nv_bfloat162*>(&og[(size_t)qb * D + col]) =
-          __floats2bfloat162_rn(acc[dt][2] / den_b, acc[dt][3] / den_b);
+          __floats2bfloat162_rn(acc[dt * 4 + 2] / den_b,
+                                acc[dt * 4 + 3] / den_b);
   }
 }
 
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int b,
-               int hq, int hkv, int s, int causal, int window, float scale,
-               cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b,
+                 int hq, int hkv, int s, int causal, int window, float scale,
+                 cudaStream_t stream) {
+  using C = WCfg<D>;
   static bool configured = false;
-  const size_t smem = mma_smem_bytes<D>();
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(C::SMEM));
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
-  dim3 grid((s + kBQ - 1) / kBQ, b * hq);
-  flash_fwd_mma<D><<<grid, kMmaThreads, smem, stream>>>(
+  const int n_qt = (s + kBQ - 1) / kBQ;
+  if (n_qt > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(b * hq, n_qt);
+  // exp(x * scale - m) computed as exp2(x * scale * log2(e) - m')
+  flash_fwd_wgmma<D><<<grid, kWgThreads, C::SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      hq, hkv, s, causal, window, scale);
+      hq, hkv, s, causal, window, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -435,7 +665,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int window, float scale, int dtype,
                                       void* stream) {
   if (s <= 0 || b * hq <= 0) return 0;
-  if (hkv <= 0 || hq % hkv != 0 || b * hq > 65535)
+  if (hkv <= 0 || hq % hkv != 0 || (dtype == 0 && b * hq > 65535))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && d == 64)
@@ -445,10 +675,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return launch<float, 128>(q, k, v, o, b, hq, hkv, s, causal, window,
                               scale, st);
   if (dtype == 1 && d == 64)
-    return launch_mma<64>(q, k, v, o, b, hq, hkv, s, causal, window, scale,
-                          st);
+    return launch_wgmma<64>(q, k, v, o, b, hq, hkv, s, causal, window,
+                            scale, st);
   if (dtype == 1 && d == 128)
-    return launch_mma<128>(q, k, v, o, b, hq, hkv, s, causal, window, scale,
-                           st);
+    return launch_wgmma<128>(q, k, v, o, b, hq, hkv, s, causal, window,
+                             scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

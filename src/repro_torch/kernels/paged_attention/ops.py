@@ -19,11 +19,17 @@ Page-table entries of pages past a sequence's length are never read, and
 neither are the rows of a page past the length: callers may leave garbage
 there.  The lengths are not checked on the host (that would synchronise on
 every call).
+
+The kernel splits each sequence's tokens over several blocks and combines
+their partial softmaxes (flash-decoding); :func:`split_plan` picks the
+split on the host from the capacity ``MAXP * PS``, ``B * Hkv`` and the
+card's SM count, never from the device-side lengths.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -33,6 +39,53 @@ NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 8
+TILE_TOKENS = 32        # the kernel's tile (kTK): splits are whole tiles
+MIN_BLOCKS_PER_SM = 2   # the split gives every SM at least this many blocks
+RESIDENT_BLOCKS_PER_SM = 4   # bf16, D 128: 53 KB of shared memory a block
+_sm_counts: dict[int, int] = {}
+# per (device, stream): fp32 scratch for the splits' partials.  Reused only
+# on its own stream, where a call's split kernel runs after the previous
+# call's combine has read the buffer.
+_scratch: dict[tuple[int, int], torch.Tensor] = {}
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(capacity: int, b: int, hkv: int,
+               n_sm: int) -> tuple[int, int]:
+    """(splits, tokens per split) for sequences of up to ``capacity`` tokens
+    over a grid of ``b * hkv`` (sequence, kv head) pairs on ``n_sm`` SMs.
+
+    Enough splits that the grid gives every SM ``MIN_BLOCKS_PER_SM`` blocks,
+    or as many as fit ``RESIDENT_BLOCKS_PER_SM`` per SM in one wave if that
+    is more; never a split shorter than one tile.  Each split is a whole
+    number of tiles and split ``z`` covers tokens ``[z * per, min((z + 1) *
+    per, capacity))``, so the splits cover the capacity exactly, the last
+    one possibly short.  One split means no combine pass."""
+    tiles = max(1, -(-capacity // TILE_TOKENS))
+    pairs = max(1, b * hkv)
+    want = max(-(-MIN_BLOCKS_PER_SM * n_sm // pairs),
+               RESIDENT_BLOCKS_PER_SM * n_sm // pairs)
+    n = max(1, min(want, tiles))
+    per = -(-tiles // n) * TILE_TOKENS
+    return max(1, -(-capacity // per)), per
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]
+
+
+def _partials(device: torch.device, stream: int, numel: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < numel:
+        buf = _scratch[key] = torch.empty(numel, dtype=torch.float32,
+                                          device=device)
+    return buf
 
 
 def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
@@ -111,17 +164,23 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    ns, per = split_plan(maxp * ps, b, hkv, _sm_count(q.device))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    # per split and output row: m and l, then the unnormalised acc
+    part = _partials(q.device, stream, b * hq * ns * (d + 2)) \
+        if ns > 1 else None
     fn = _build.load("paged_attention", "paged_attention_launch",
                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_int, ctypes.c_int, ctypes.c_float,
                       ctypes.c_int, ctypes.c_void_p])
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             b, hq, hkv, d, ps, maxp,
-             float(scale if scale is not None else d ** -0.5),
-             _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+             None if part is None else part.data_ptr(), b, hq, hkv, d, ps,
+             maxp, ns, per, float(scale if scale is not None else d ** -0.5),
+             _DTYPES[q.dtype], stream)
     _build.check(err, "paged_attention")
     paged_attention.launches += 1
     return out

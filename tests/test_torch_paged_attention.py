@@ -138,3 +138,128 @@ def test_kernel_launch_count_and_bad_arguments():
         paged_attention(q, kp, vp, pt, ln[:1])
     with pytest.raises(TypeError, match="one dtype"):
         paged_attention(q.double(), kp, vp, pt, ln)
+
+
+# --------------------------------------------------------------------------
+# The kernel's split over blocks (flash-decoding): the wrapper's plan, and a
+# torch mirror of the split/combine arithmetic held against the plain
+# version and the reference's oracle.
+
+from repro_torch.kernels.paged_attention.ops import (  # noqa: E402
+    MIN_BLOCKS_PER_SM, RESIDENT_BLOCKS_PER_SM, TILE_TOKENS, split_plan)
+
+
+def _ranges(capacity, n, per):
+    return [(z * per, min((z + 1) * per, capacity)) for z in range(n)]
+
+
+@pytest.mark.parametrize("capacity,b,hkv,n_sm,want", [
+    (512, 1, 8, 132, (16, 32)),        # qwen3 decode: one tile per split
+    (512, 1, 32, 132, (16, 32)),       # zamba2 decode
+    (4096, 8, 8, 132, (8, 512)),       # long decode: 512 blocks, one wave
+    (4096, 1, 8, 132, (64, 64)),       # B 1 x 4,096
+    (4096, 64, 8, 132, (1, 4096)),     # 512 pairs fill the card: no split
+    (0, 1, 1, 132, (1, 32)),           # MAXP 0: one empty split
+    (100, 3, 2, 132, (4, 32)),         # capacity not a multiple of a tile
+])
+def test_split_plan(capacity, b, hkv, n_sm, want):
+    n, per = split_plan(capacity, b, hkv, n_sm)
+    assert (n, per) == want
+    assert per % TILE_TOKENS == 0
+    if capacity:
+        spans = _ranges(capacity, n, per)
+        assert spans[0][0] == 0 and spans[-1][1] == capacity
+        assert all(lo < hi for lo, hi in spans)     # no split is empty
+        assert all(a[1] == b_[0] for a, b_ in zip(spans, spans[1:]))
+
+
+def test_split_plan_covers_every_capacity():
+    """Splits tile the capacity exactly, each a whole number of tiles, as
+    short as the wanted count of splits allows (at least MIN_BLOCKS_PER_SM
+    blocks per SM, or RESIDENT_BLOCKS_PER_SM if that is more), and never
+    more of them than wanted."""
+    rng = np.random.default_rng(5)
+    for _ in range(400):
+        capacity = int(rng.integers(1, 20000))
+        b, hkv = int(rng.integers(1, 17)), int(rng.choice([1, 2, 8, 32]))
+        n_sm = int(rng.choice([1, 8, 132]))
+        n, per = split_plan(capacity, b, hkv, n_sm)
+        tiles = -(-capacity // TILE_TOKENS)
+        assert per % TILE_TOKENS == 0 and 1 <= n <= tiles
+        assert (n - 1) * per < capacity <= n * per
+        wanted = max(-(-MIN_BLOCKS_PER_SM * n_sm // (b * hkv)),
+                     RESIDENT_BLOCKS_PER_SM * n_sm // (b * hkv), 1)
+        assert per == -(-tiles // min(wanted, tiles)) * TILE_TOKENS
+        assert n <= wanted
+
+
+def _split_mirror(q, kp, vp, pt, ln, ns, per, scale=None):
+    """The kernel's arithmetic in torch, fp32: each split's partial (m, l,
+    unnormalised acc) over its own tokens, an empty split (m -1e30, l 0),
+    then the combine in split order.  Only page-table entries of live
+    tokens are read."""
+    b, hq, d = q.shape
+    _, ps, hkv, _ = kp.shape
+    g = hq // hkv
+    cap = pt.shape[1] * ps
+    scale = scale if scale is not None else d ** -0.5
+    out = torch.zeros((b, hq, d), dtype=torch.float32)
+    for bi in range(b):
+        n_tok = max(0, min(int(ln[bi]), cap))
+        parts = []
+        for z in range(ns):
+            lo, hi = z * per, min((z + 1) * per, n_tok)
+            if lo >= hi:
+                parts.append((torch.full((hq,), -1e30), torch.zeros(hq),
+                              torch.zeros((hq, d))))
+                continue
+            tok = torch.arange(lo, hi)
+            rows = pt[bi, tok // ps].long() * ps + tok % ps
+            k = kp.reshape(-1, hkv, d)[rows].float()      # [t, hkv, d]
+            v = vp.reshape(-1, hkv, d)[rows].float()
+            s = torch.einsum("hgd,thd->hgt",
+                             q[bi].float().reshape(hkv, g, d), k) * scale
+            m = s.amax(-1)
+            p = torch.exp(s - m[..., None])
+            parts.append((m.reshape(hq), p.sum(-1).reshape(hq),
+                          torch.einsum("hgt,thd->hgd", p, v).reshape(hq, d)))
+        mx = torch.full((hq,), -1e30)
+        for m, l, _ in parts:
+            mx = torch.where(l > 0, torch.maximum(mx, m), mx)
+        num, den = torch.zeros((hq, d)), torch.zeros(hq)
+        for m, l, acc in parts:                           # in split order
+            w = torch.where(l > 0, torch.exp(m - mx), 0.0)
+            num = num + w[:, None] * acc
+            den = den + w * l
+        out[bi] = num / torch.clamp(den, min=1e-30)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("n_sm", [132, 8])
+def test_split_combine_mirror(n_sm):
+    """The split/combine arithmetic against the plain version and the
+    reference's ref.py on numpy-seeded inputs: lengths 0, 1, split-1,
+    split, split+1 and MAXP*PS, with repeated page ids and garbage ids
+    (-1, 2**30) past each length.  Tolerance: the reference's fp32 2e-5."""
+    hq, hkv, d, ps, maxp = 4, 2, 64, 16, 12
+    cap = maxp * ps
+    ns, per = split_plan(cap, 6, hkv, n_sm)
+    assert ns > 1
+    lengths = [0, 1, per - 1, per, per + 1, cap]
+    rng = np.random.default_rng(11)
+    npg = 5                                    # 12 slots over 5 pages
+    table = rng.integers(0, npg, (len(lengths), maxp))
+    for i, n in enumerate(lengths):
+        table[i, -(-n // ps):] = (-1, 2 ** 30)[i % 2]
+    q, kp, vp, pt, ln, _ = _inputs(len(lengths), hq, hkv, d, npg, ps, maxp,
+                                   "float32", lengths=lengths, table=table)
+    tq, tk, tv, tpt, tln = (torch.from_numpy(x) for x in (q, kp, vp, pt, ln))
+    got = _split_mirror(tq, tk, tv, tpt, tln, ns, per).numpy()
+    assert np.all(got[0] == 0.0) and np.all(np.isfinite(got))
+    plain = paged_attention_plain(tq, tk, tv, tpt, tln).numpy()
+    assert np.max(np.abs(got - plain)) < TOL["float32"]
+    safe = np.where(table < 0, 0, np.where(table >= npg, 0, table))
+    oracle = np.asarray(paged_attention_ref(
+        *(jnp.asarray(x) for x in (q, kp, vp)), jnp.asarray(safe, jnp.int32),
+        jnp.asarray(ln)).astype(jnp.float32))
+    assert np.max(np.abs(got - oracle)) < TOL["float32"]
