@@ -9,11 +9,15 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    six kernels from ``src/repro_torch/csrc`` (one nvcc per source, in
    parallel) into ``build/repro_torch/``.
 2. Kernel edge cases: every kernel against its plain PyTorch version on the
-   card (merge and rank exactly, Lindley within 1e-9 s; flash_attention
+   card (merge and rank exactly, Lindley within 1e-9 s; the rank also
+   against np.searchsorted at 4,094-4,097 and 6,143-6,145 fences, 1, 255,
+   257 and 3,007 keys, strided keys and on a side stream; flash_attention
    over S 1..384 and 63/64/65, head_dim 64/128, GQA and windows, S 4,096
    with a 128-token window and with GQA rep 2 at D 128, and B 8 grids at
-   ragged S 777 and 1,000; ssd_scan's y
-   and final state over L 1..300, G < H, dt from 1e-4 to 10;
+   ragged S 777 and 1,000; ssd_scan's y and final state over L 1..300,
+   63/64/65 and 189, G < H, dt from 1e-4 to 10, contiguous inputs and
+   strided views of one xbc buffer, and L 4,096 at B 2 and at zamba2's
+   64 heads;
    paged_attention over B 1-3, G 1/2/3/6/8, head_dim 64/128, page sizes
    16/32, shuffled page tables with repeats and garbage past the length,
    lengths 0, 1, PS, PS+1 and MAXP*PS, then lengths at the boundaries of
@@ -25,7 +29,10 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    pairs): 8,000,000 uniform keys loaded at 500,000 ops/s, a 10 s settle,
    then 2,000,000 YCSB Run A ops (50% GET / 50% update, Zipfian 0.99) at
    8,000 ops/s.  Launch counts are zeroed just before and read just after;
-   merge_path, overlap_scan and lindley_scan must have launched.
+   merge_path, overlap_scan and lindley_scan must have launched.  The
+   (keys, fences) sizes of every rank call are counted on the way (by
+   wrapping the name in the store's modules, not in the package) and must
+   add up to overlap_scan's launches.
 4. Serving paths: ``repro_torch.launch.serve.run(arch, smoke=False)`` with
    the reference's defaults (8 requests: two shared 128-token prefixes
    plus 8-63-token tails; 16 greedy tokens each; 32-token prefix blocks;
@@ -41,7 +48,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    library call — ``ms``, the median of five CUDA-event-timed trials of
    back-to-back calls, and ``device_ms``, the kernels' own device time from
    torch.profiler — beside the bound: the larger of the bytes at 3.35 TB/s
-   and the operations at 989 TFLOP/s (bf16).  The LM kernels are also
+   and the operations at 989 TFLOP/s (bf16).  overlap_scan is also timed,
+   beside torch.searchsorted, at the store's commonest call shape from
+   phase 3.  The LM kernels are also
    timed at a 4,096-token prefill (flash_attention at zamba2's and at
    qwen3-1.7b's heads), paged_attention at 8 sequences and at 1 sequence
    of 4,096 tokens over a shuffled pool.
@@ -63,6 +72,7 @@ sees no CUDA device.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import subprocess
 import sys
@@ -211,6 +221,46 @@ def distinct_probes(torch, fences, keys, side: str) -> int:
     return int(torch.unique(torch.cat(seen)).numel())
 
 
+class RankShapes:
+    """Counts the (keys, fences) sizes of every card call of fence_rank
+    that launches (keys > 0), by wrapping the name in the store's modules
+    that imported it; the package itself is left as it is."""
+
+    MODULES = ("lsm", "sst", "level_index", "memtable", "vsst")
+
+    def __init__(self):
+        self.counts: collections.Counter = collections.Counter()
+        self._patched: list = []
+
+    def __enter__(self):
+        import importlib
+
+        from repro_torch.kernels.overlap_scan import ops
+        orig, counts = ops.fence_rank, self.counts
+
+        def recorded(fences, keys, side="right"):
+            if keys.is_cuda and keys.numel():
+                counts[(int(keys.numel()), int(fences.shape[0]))] += 1
+            return orig(fences, keys, side)
+        for name in self.MODULES:
+            mod = importlib.import_module(f"repro_torch.core.{name}")
+            if mod.fence_rank is orig:
+                mod.fence_rank = recorded
+                self._patched.append(mod)
+        self._orig = orig
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self._patched:
+            mod.fence_rank = self._orig
+
+    def report(self) -> dict:
+        return {"calls": sum(self.counts.values()),
+                "distinct_shapes": len(self.counts),
+                "top": [[m, n, c] for (m, n), c in
+                        self.counts.most_common(12)]}
+
+
 def bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
@@ -314,27 +364,53 @@ def edge_merge(torch, np, rng) -> int:
 
 
 def edge_rank(torch, np, rng) -> int:
+    """overlap_scan against its plain version and np.searchsorted, exactly:
+    empty, duplicate and INT64_MIN/MAX fences, random fences around 2^12 - 1
+    (4,094-4,097: where a search staging the top of the tree in shared
+    memory would change paths), 6,143-6,145 (a former shared-memory path's
+    limit) and 7,000; 1, 255,
+    257 and 3,007 keys (partial blocks); non-contiguous keys; and a call on
+    a side stream."""
     from repro_torch.kernels.overlap_scan.ops import (fence_rank,
                                                       fence_rank_plain)
     lo, hi = -2 ** 63, 2 ** 63 - 1
     fence_sets = [np.array([], np.int64), np.array([3, 3, 3, 9, 9]),
                   np.array([lo, 0, hi]),
-                  np.sort(rng.integers(-50, 50, 7000)),        # global path
-                  np.sort(rng.integers(-50, 50, 6144))]        # shared path
+                  np.sort(rng.integers(-50, 50, 7000)),
+                  np.sort(rng.integers(-50, 50, 6144))]
     keys = np.concatenate([[lo, hi, lo + 1, hi - 1, 0, 3, 9],
                            rng.integers(-60, 60, 3000)]).astype(np.int64)
-    k = torch.tensor(keys, device="cuda")
+    sizes = np.random.default_rng(21)       # rng's draws stay as they were
+    fence_sets += [np.sort(sizes.integers(-50, 50, n))
+                   for n in (4094, 4095, 4096, 4097, 6143, 6145)]
+    fence_sets.append(np.array([lo] * 40 + [3] * 5000 + [hi] * 90, np.int64))
+    k_all = torch.tensor(keys, device="cuda")
     err = 0
     for fences in fence_sets:
         f = torch.tensor(np.asarray(fences, np.int64), device="cuda")
-        for side in ("right", "left"):
-            got = fence_rank(f, k, side)
-            want = torch.from_numpy(np.searchsorted(fences, keys, side)
-                                    .astype(np.int64)).to("cuda")
-            err = max(err, check_equal(
-                torch, f"overlap_scan edge case ({side})", [got, got],
-                [fence_rank_plain(f, k, side), want]))
-    return err
+        for m in (1, 255, 257, keys.size):
+            k = k_all[:m]
+            for side in ("right", "left"):
+                got = fence_rank(f, k, side)
+                want = torch.from_numpy(np.searchsorted(
+                    fences, keys[:m], side).astype(np.int64)).to("cuda")
+                err = max(err, check_equal(
+                    torch, f"overlap_scan edge case n={fences.size} m={m} "
+                    f"({side})", [got, got],
+                    [fence_rank_plain(f, k, side), want]))
+    f = torch.tensor(fence_sets[3], device="cuda")
+    strided = k_all[1::2]
+    want = torch.from_numpy(np.searchsorted(fence_sets[3], keys[1::2],
+                                            "left").astype(np.int64))
+    err = max(err, check_equal(torch, "overlap_scan, strided keys",
+                               [fence_rank(f, strided, "left").cpu()], [want]))
+    side_stream = torch.cuda.Stream()
+    side_stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side_stream):
+        got = fence_rank(f, strided, "left")
+    side_stream.synchronize()
+    return max(err, check_equal(torch, "overlap_scan on a side stream",
+                                [got.cpu()], [want]))
 
 
 def edge_lindley(torch, np, rng) -> float:
@@ -403,6 +479,33 @@ def time_rank(torch, np, sim, trace) -> dict:
         **time_all(torch, lambda: fence_rank(fences, k, "left"),
                    lambda: fence_rank_plain(fences, k, "left"),
                    lambda: torch.searchsorted(fences, k, side="left"), 40)}
+
+
+def time_rank_at(torch, np, trace, m: int, n: int) -> dict:
+    """overlap_scan at the store's commonest call shape (m keys over n
+    fences): n of the loaded keys, evenly spaced (sorted, unique), and the
+    run's first m GET keys."""
+    from repro_torch.kernels.overlap_scan.ops import (fence_rank,
+                                                      fence_rank_plain)
+    ops, keys, _, n_load = trace
+    pos = np.linspace(0, n_load - 1, n).astype(np.int64)
+    fences = torch.from_numpy(np.ascontiguousarray(keys[:n_load][pos])) \
+        .to("cuda")
+    gets = keys[n_load:][ops[n_load:] == 1][:m]
+    k = torch.from_numpy(np.ascontiguousarray(gets)).to("cuda")
+    got = fence_rank(fences, k, "left")
+    err = check_equal(torch, f"overlap_scan at {m} keys over {n}",
+                      [got, got], [fence_rank_plain(fences, k, "left"),
+                                   torch.searchsorted(fences, k,
+                                                      side="left")])
+    return {
+        "shape": f"{m} GET keys over {n} fences (the store's commonest call)",
+        "max_abs_err": err,
+        "bound_ms": bound_ms(16 * m + 8 * distinct_probes(torch, fences, k,
+                                                          "left")),
+        **time_all(torch, lambda: fence_rank(fences, k, "left"),
+                   lambda: fence_rank_plain(fences, k, "left"),
+                   lambda: torch.searchsorted(fences, k, side="left"), 200)}
 
 
 def time_lindley(torch, np, sim, res) -> dict:
@@ -523,32 +626,68 @@ def edge_flash(torch) -> float:
     return worst
 
 
+def ssd_inputs(torch, gen, b, L, h, g, n, p, dtype, strided=False,
+               dt_range=(-4, 1)):
+    """x, dt, a, B, C for ssd_scan (seeded); strided: x, B and C are views
+    of one [b, L, h*p + 2*g*n] buffer, as ``models/ssd.py`` cuts ``xbc``;
+    dt log-uniform over 10**dt_range."""
+    di = h * p
+    if strided:
+        xbc = torch.randn((b, L, di + 2 * g * n), generator=gen,
+                          device="cuda")
+        xbc[..., di:] *= 0.3
+        xbc = xbc.to(dtype)
+        x = xbc[..., :di].reshape(b, L, h, p)
+    else:
+        x = _randn(torch, gen, (b, L, h, p), dtype)
+    lo, hi = dt_range
+    dt = (10.0 ** (torch.rand((b, L, h), generator=gen, device="cuda")
+                   * (hi - lo) + lo)).to(dtype)
+    a = -(torch.rand(h, generator=gen, device="cuda") + 0.1)
+    if strided:
+        bm = xbc[..., di:di + g * n].reshape(b, L, g, n)
+        cm = xbc[..., di + g * n:].reshape(b, L, g, n)
+    else:
+        bm = _randn(torch, gen, (b, L, g, n), dtype, 0.3)
+        cm = _randn(torch, gen, (b, L, g, n), dtype, 0.3)
+    return x, dt, a, bm, cm
+
+
 def edge_ssd(torch) -> float:
     """ssd_scan against its plain version, y and final state: L 1, 100,
-    128, 300 (padded as the reference pads); H 4 over G 1 and 2; (N, P)
-    (64, 64), (128, 64), (16, 32) and (64, 48) (two, one and one column
-    blocks per head); fp32 and bf16; dt log-uniform from 1e-4 to 10.
+    128, 300; H 4 over G 1 and 2; (N, P) (64, 64), (128, 64), (16, 32) and
+    (64, 48); fp32 and bf16; dt log-uniform from 1e-4 to 10.  Then the
+    chunk edges and the serving length, L 63, 64, 65 and 189, with (N, P)
+    (64, 64) and (16, 32), contiguous and as strided views of one xbc
+    buffer; and L 4,096 strided, at B 2 x H 4 and at zamba2-1.2b's B 1 x
+    H 64 (bf16, dt in the softplus range).  All at B 2 unless said.
     Returns the largest |err| of y."""
     from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
     gen = torch.Generator(device="cuda")
     gen.manual_seed(12)
     worst = 0.0
-    cases = [(L, g, n, p, dt) for L in (1, 100, 128, 300) for g in (1, 2)
+    cases = [(2, L, 4, g, n, p, dt, False)
+             for L in (1, 100, 128, 300) for g in (1, 2)
              for n, p in ((64, 64), (128, 64), (16, 32), (64, 48))
              for dt in ("float32", "bfloat16")]
-    for L, g, n, p, dt_name in cases:
-        dtype = getattr(torch, dt_name)
-        b, h = 2, 4
-        x = _randn(torch, gen, (b, L, h, p), dtype)
-        dt = (10.0 ** (torch.rand((b, L, h), generator=gen, device="cuda")
-                       * 5 - 4)).to(dtype)
-        a = -(torch.rand(h, generator=gen, device="cuda") + 0.1)
-        bm = _randn(torch, gen, (b, L, g, n), dtype, 0.3)
-        cm = _randn(torch, gen, (b, L, g, n), dtype, 0.3)
+    cases += [(2, L, 4, g, n, p, dt, strided)
+              for L in (63, 64, 65, 189) for g in (1, 2)
+              for n, p in ((64, 64), (16, 32))
+              for dt in ("float32", "bfloat16") for strided in (False, True)]
+    cases += [(2, LONG_PREFILL, 4, 1, 64, 64, dt, True)
+              for dt in ("float32", "bfloat16")]
+    for b, L, h, g, n, p, dt_name, strided in cases:
+        args = ssd_inputs(torch, gen, b, L, h, g, n, p,
+                          getattr(torch, dt_name), strided)
         worst = max(worst, check_ssd(
-            f"ssd_scan edge case L={L} G={g} N={n} P={p} {dt_name}",
-            ssd_scan(x, dt, a, bm, cm), ssd_scan_plain(x, dt, a, bm, cm)))
-    return worst
+            f"ssd_scan edge case B={b} L={L} H={h} G={g} N={n} P={p} "
+            f"{dt_name} strided={strided}",
+            ssd_scan(*args), ssd_scan_plain(*args)))
+    args = ssd_inputs(torch, gen, 1, LONG_PREFILL, 64, 1, 64, 64,
+                      torch.bfloat16, True, (-1, 0.5))
+    return max(worst, check_ssd(
+        f"ssd_scan edge case zamba2 heads, L={LONG_PREFILL}, strided",
+        ssd_scan(*args), ssd_scan_plain(*args)))
 
 
 def check_ssd(what: str, got, want) -> float:
@@ -879,24 +1018,27 @@ def time_paged_long(torch, reps: int, b: int = LONG_DECODE[0]) -> dict:
 
 def time_ssd(torch, L: int, reps: int) -> dict:
     """zamba2-1.2b's Mamba2 prefill: B 1, 64 heads of P 64, one group of
-    N 64, bf16, at L tokens (padded by the wrapper as the reference pads;
-    seeded random inputs, dt in the softplus range)."""
-    from repro_torch.kernels.ssd_scan.ops import (DEFAULT_CK, _chunk,
-                                                  ssd_scan, ssd_scan_plain)
+    N 64, bf16, at L tokens, x, B and C as strided views of one xbc buffer
+    as ``models/ssd.py`` passes them (seeded random inputs, dt in the
+    softplus range); the kernel pads nothing."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
     gen = torch.Generator(device="cuda")
     gen.manual_seed(14)
     bf = torch.bfloat16
-    x = _randn(torch, gen, (1, L, 64, 64), bf)
+    xbc = torch.randn((1, L, 64 * 64 + 2 * 64), generator=gen,
+                      device="cuda")
+    xbc[..., 64 * 64:] *= 0.3
+    xbc = xbc.to(bf)
+    x = xbc[..., :64 * 64].reshape(1, L, 64, 64)
+    bm = xbc[..., 64 * 64:64 * 64 + 64].reshape(1, L, 1, 64)
+    cm = xbc[..., 64 * 64 + 64:].reshape(1, L, 1, 64)
     dt = torch.nn.functional.softplus(
         torch.randn((1, L, 64), generator=gen, device="cuda")).to(bf)
     a = -torch.ones(64, device="cuda")
-    bm = _randn(torch, gen, (1, L, 1, 64), bf, 0.3)
-    cm = _randn(torch, gen, (1, L, 1, 64), bf, 0.3)
     err = check_ssd(f"ssd_scan at L={L}", ssd_scan(x, dt, a, bm, cm),
                     ssd_scan_plain(x, dt, a, bm, cm))
     bound, by = ssd_bound(1, L, 64, 1, 64, 64)
-    ckk, pad = _chunk(L, DEFAULT_CK)
-    return {"shape": f"BH 64, L {L} (padded {L + pad}), P 64, N 64, bf16",
+    return {"shape": f"BH 64, L {L}, P 64, N 64, bf16, strided xbc views",
             "max_abs_err": err, "bound_ms": bound, "bound_by": by,
             **time_all(torch, lambda: ssd_scan(x, dt, a, bm, cm),
                        lambda: ssd_scan_plain(x, dt, a, bm, cm), None,
@@ -970,7 +1112,9 @@ def main() -> int:
     before = kernels.launch_counts()
     for policy in ("vlsm", "rocksdb"):
         torch.cuda.reset_peak_memory_stats()
-        sim, res, wall = run_main_path(torch, np, policy, trace, "cuda")
+        with RankShapes() as shapes:
+            sim, res, wall = run_main_path(torch, np, policy, trace, "cuda")
+        report[f"rank_shapes_{policy}"] = shapes.report()
         after = kernels.launch_counts()
         launches[policy] = {k: after[k] - before[k] for k in after}
         before = after
@@ -984,7 +1128,16 @@ def main() -> int:
         print(f"main path {policy}: " + json.dumps(row), flush=True)
         if min(launches[policy][k] for k in STORE_KERNELS) <= 0:
             fail(f"{policy}: a kernel never launched on the store path")
+        if shapes.report()["calls"] != launches[policy]["overlap_scan"]:
+            fail(f"{policy}: {shapes.report()['calls']} recorded rank calls, "
+                 f"{launches[policy]['overlap_scan']} launches")
+        print(f"rank shapes {policy}: " + json.dumps(shapes.report()),
+              flush=True)
     total = kernels.launch_counts()
+    common = collections.Counter()
+    for policy in ("vlsm", "rocksdb"):
+        for m, n, c in report[f"rank_shapes_{policy}"]["top"]:
+            common[(m, n)] += c
 
     serve_launches = {}
     for arch, (must_launch, _) in SERVE_PATHS.items():
@@ -1011,6 +1164,11 @@ def main() -> int:
     timings = {"merge_path": time_merge(torch, sim),
                "overlap_scan": time_rank(torch, np, sim, trace),
                "lindley_scan": time_lindley(torch, np, sim, res)}
+    report["rank_common"] = time_rank_at(torch, np, trace,
+                                         *common.most_common(1)[0][0])
+    timings["overlap_scan"]["max_abs_err"] = max(
+        timings["overlap_scan"]["max_abs_err"],
+        report["rank_common"]["max_abs_err"])
     del runs, sim, res
     s_serve = max(report["serve_zamba2_1_2b"]["prompt_tokens"])
     timings["flash_attention"] = time_flash(torch, s_serve, 40)
@@ -1043,6 +1201,8 @@ def main() -> int:
           + json.dumps(report["qwen3_prefill_flash"]), flush=True)
     print("timing paged_attention at zamba2's decode shape: "
           + json.dumps(report["zamba2_decode_paged"]), flush=True)
+    print("timing overlap_scan at the store's commonest shape: "
+          + json.dumps(report["rank_common"]), flush=True)
     for name, t in report["long_prefill"].items():
         print(f"timing {name} at {LONG_PREFILL} tokens: " + json.dumps(t),
               flush=True)

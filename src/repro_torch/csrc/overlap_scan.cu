@@ -6,16 +6,21 @@
 // every 128-key tile against every 128-fence tile (O(m*n) work, no
 // gathers), which suits the VPU; fences there are split into int32 planes.
 //
-// Bound on the H100: memory.  The function has to read m keys and n fences
-// and write m ranks, (8m + 8n + 8m) bytes, against 3.35 TB/s; the
-// O(m log n) compares are negligible.  Design: one thread per key, a
-// binary search with native int64 compares.  When the fences fit in 48 KB
-// (6144 entries; LevelIndex fence arrays, memtables of the test scale)
-// every block stages them in shared memory first, so the log n dependent
-// probes hit shared memory; larger arrays (flat levels of millions of
-// keys) are searched in global memory, where the top of the search tree
-// stays in L2 across threads.  The strict rank is computed directly, so
-// neither INT64_MIN nor INT64_MAX keys need the reference's special cases.
+// Bound on the H100: dependent, divergent loads.  The bytes the function
+// must move are the keys, the ranks and the fence entries the searches
+// touch (a few MB at most), but a binary search over a flat level of
+// millions of fences is a chain of ~23 dependent loads per key, each warp
+// load below the shared top levels touching 32 different sectors.  Design:
+// one thread per key, a binary search in global memory with native int64
+// compares and 32-bit indices where the array allows (fewer instructions
+// per step).  All keys share the top levels of the search, which L1 and L2
+// serve; measured on the H100, staging those levels in shared memory
+// (2^levels - 1 sampled fences, or the whole array when it fits in 48 KB,
+// as an earlier version did up to 6,144 fences), smaller blocks, 2-4 keys
+// per thread and a final 16-fence scan were all as fast or slower at the
+// store's shapes, since every block pays for its staging (PERF.md).  The
+// strict rank is computed directly, so neither INT64_MIN nor INT64_MAX
+// keys need the reference's special cases.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -23,55 +28,44 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int64_t kSharedFences = 6144;  // 48 KB of int64
 
-__device__ __forceinline__ int64_t rank_of(const int64_t* __restrict__ f,
-                                           int64_t n, int64_t v, int right) {
-  int64_t lo = 0, hi = n;
+template <typename I>
+__global__ void __launch_bounds__(kThreads)
+rank_kernel(const int64_t* __restrict__ f, I n,
+            const int64_t* __restrict__ keys, int64_t m,
+            int64_t* __restrict__ out, int right) {
+  const int64_t i = blockIdx.x * (int64_t)kThreads + threadIdx.x;
+  if (i >= m) return;
+  const int64_t v = keys[i];
+  I lo = 0, hi = n;
   while (lo < hi) {
-    int64_t mid = (lo + hi) >> 1;
-    int64_t x = f[mid];
-    bool go_right = right ? (x <= v) : (x < v);
-    if (go_right) lo = mid + 1; else hi = mid;
+    const I mid = (lo + hi) >> 1;  // lo + hi < 2^32 for 32-bit indices
+    const int64_t x = f[mid];
+    if (right ? x <= v : x < v) lo = mid + 1; else hi = mid;
   }
-  return lo;
-}
-
-__global__ void rank_global(const int64_t* __restrict__ fences, int64_t n_f,
-                            const int64_t* __restrict__ keys, int64_t n_k,
-                            int64_t* __restrict__ out, int right) {
-  int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (i < n_k) out[i] = rank_of(fences, n_f, keys[i], right);
-}
-
-__global__ void rank_shared(const int64_t* __restrict__ fences, int64_t n_f,
-                            const int64_t* __restrict__ keys, int64_t n_k,
-                            int64_t* __restrict__ out, int right) {
-  extern __shared__ int64_t sf[];
-  for (int64_t j = threadIdx.x; j < n_f; j += blockDim.x) sf[j] = fences[j];
-  __syncthreads();
-  int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-  if (i < n_k) out[i] = rank_of(sf, n_f, keys[i], right);
+  out[i] = static_cast<int64_t>(lo);
 }
 
 }  // namespace
 
+// fences: [n_f] sorted int64; keys, out: [n_k] int64; all contiguous.
+// right: 1 for #{fence <= key}, 0 for #{fence < key}.
 extern "C" int fence_rank_launch(const void* fences, int64_t n_f,
                                  const void* keys, int64_t n_k, void* out,
                                  int right, void* stream) {
   if (n_k == 0) return 0;
-  const int64_t blocks = (n_k + kThreads - 1) / kThreads;
+  if (n_f < 0 || n_k < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks =
+      static_cast<unsigned>((n_k + kThreads - 1) / kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t* f = static_cast<const int64_t*>(fences);
   const int64_t* k = static_cast<const int64_t*>(keys);
   int64_t* o = static_cast<int64_t*>(out);
-  if (n_f <= kSharedFences) {
-    size_t smem = static_cast<size_t>(n_f > 0 ? n_f : 1) * sizeof(int64_t);
-    rank_shared<<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
-        f, n_f, k, n_k, o, right);
-  } else {
-    rank_global<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        f, n_f, k, n_k, o, right);
-  }
+  if (n_f < (int64_t(1) << 31))
+    rank_kernel<uint32_t><<<blocks, kThreads, 0, s>>>(
+        f, static_cast<uint32_t>(n_f), k, n_k, o, right);
+  else
+    rank_kernel<int64_t><<<blocks, kThreads, 0, s>>>(f, n_f, k, n_k, o,
+                                                     right);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,32 +1,57 @@
 // Mamba2 SSD scan: s_t = exp(dt_t a) s_{t-1} + dt_t B_t x_t^T, y_t = C_t s_t
-// per head, computed chunk by chunk with the [N, P] state carried across
-// chunks, for bf16 or fp32 x/dt/B/C (a in fp32), fp32 arithmetic.  Writes
-// y and the final state s_L (fp32), which a prefill hands to decode.
+// per head, for bf16 or fp32 x/dt/B/C (a in fp32), fp32 arithmetic.
+// Writes y and the final state s_L (fp32), which a prefill hands to decode.
 //
 // Replaces the ssd_scan TPU kernel: src/repro/kernels/ssd_scan/kernel.py,
 // _ssd_kernel / ssd_scan_call (wrapper ops.py).  There the grid is
 // (BH, chunks) with the chunk sweep as the sequential minor dimension and
-// the state in VMEM scratch.  Here one thread block owns one head (bh), or
-// a group of its state columns, and loops over the sequence itself,
-// holding the state in shared memory, in sub-chunks of up to 64 steps (the
-// math is exact for any chunking; the wrapper still pads L as the
-// reference's ops.py does).  Per sub-chunk, with a_cs = a * cumsum(dt):
-//   y_t  = exp(a_cs_t) C_t S_prev + sum_{j<=t} exp(a_cs_t - a_cs_j) dt_j
-//          (C_t . B_j) x_j
-//   S    = exp(a_cs_last) S_prev + sum_j exp(a_cs_last - a_cs_j) dt_j B_j x_j^T
-// exp(a_cs_t - a_cs_j) is evaluated only for j <= t, where its argument is
-// <= 0; the TPU kernel evaluates every pair and masks afterwards, which can
-// overflow to inf before the mask.  B and C are read per group (head h
-// uses group h / (H / G)), so the wrapper does not repeat them.
+// the state in VMEM scratch.  On the H100 a block per head walking the
+// sequence leaves most SMs idle and waits on every load, so the sequence
+// is split over blocks in Mamba2's own chunked form, three passes over
+// chunks of 64 steps (a_cs = a * inclusive cumsum(dt) within a chunk):
 //
-// Bound on the H100: memory — the function reads x, dt, B, C and writes y
-// once, and its 4*N*P operations per step are far below the tensor-core
-// rate.  The products run on the CUDA cores in fp32, register-tiled 4x4
-// out of shared memory.  The state's P columns are independent, so a head
-// of P = 64 runs as two blocks of 32 columns (each recomputes the chunk's
-// C.B products): 128 blocks for zamba2-1.2b at batch 1, near the 132 SMs.
-// Splitting the sequence across blocks needs a second pass over the chunk
-// states and is later work.
+//   chunk_state  grid (chunk, head): the chunk's own end state
+//                S_own = sum_j exp(a_cs_last - a_cs_j) dt_j B_j x_j^T and
+//                its decay a_cs_last, to fp32 scratch;
+//   state_pass   grid (N*P / 1024, head): sequential over chunks, parallel
+//                over the state, S_in(c) = exp(a_last(c-1)) S_in(c-1) +
+//                S_own(c-1), written over S_own (fp32) or as bf16 hi and
+//                lo planes (bf16 inputs); the last one is s_L;
+//   chunk_out    grid (chunk, head): y_t = exp(a_cs_t) C_t S_in(c) +
+//                sum_{j<=t} (C_t . B_j) exp(a_cs_t - a_cs_j) dt_j x_j;
+//                eight warps instead of four (two per 16 rows, each half
+//                of y's columns) when the grid fills at most 4 blocks per
+//                SM, as at a serving prefill, where a block's latency sets
+//                the kernel's time.
+//
+// Fusing the first two passes (each block walking the chunks in order for
+// 16 state rows, the next chunks' tiles in a cp.async ring) was measured
+// slower on the H100 at 189 and 4,096 steps: its per-chunk step is a
+// serial chain, while chunk_state runs every chunk at once (PERF.md).
+//
+// exp(a_cs_t - a_cs_j) is evaluated only for j <= t, where its argument is
+// <= 0; the TPU kernel evaluates every pair and masks afterwards, which
+// can overflow to inf before the mask.  The kernels read the model's
+// layout through strides (x [B, L, H, P], B and C [B, L, G, N] read per
+// group, dt [B, L, H]; each row contiguous and 16-byte aligned) and write
+// y [B, L, H, P] in place, so the wrapper makes no padding or transposing
+// copy: a chunk's rows past L are zero-filled in shared memory, with
+// dt = 0, which leaves y and the state as they are.
+//
+// Bound on the H100: memory.  The function reads x, dt, B, C and writes y
+// once (~3 MB at zamba2-1.2b's prefill of 189 tokens); its 4*N*P
+// operations per step and head are far below the tensor-core rate.  Every
+// chunk's x, B and C tiles arrive by cp.async, 16 bytes a thread.  bf16
+// inputs run all four products on the tensor cores (mma.sync m16n8k16,
+// fp32 accumulators): C.B^T from the bf16 inputs, whose products are exact
+// in fp32, and the three products with an fp32 operand (the decayed C.B^T
+// times X, (B * w)^T times X, C times S_in) with that operand split into
+// bf16 hi + lo halves (~16 significant bits); the state pass writes S_in
+// already split, so chunk_out loads it by cp.async like its other tiles.
+// So the final state of bf16 inputs carries ~16 significant bits of each
+// chunk's (B * w)^T X: ~2e-5 from the plain version's fp32 state at
+// zamba2-1.2b's shapes (PERF.md), inside the 2e-4 the state is held to.
+// fp32 inputs run the same passes on the CUDA cores in fp32.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -34,236 +59,569 @@
 
 namespace {
 
-constexpr int kKC = 64;          // steps per sub-chunk
-constexpr int kLD = kKC + 4;     // padded row stride of the transposed tiles
-constexpr int kThreads = 128;
+constexpr int kQ = 64;             // steps per chunk
+constexpr int kThreads = 128;      // 4 warps; warp w owns rows 16w..16w+15
+constexpr int kStateThreads = 256;
+constexpr int kStateDepth = 8;     // chunks a state-pass thread loads at once
+constexpr size_t kMaxSmem = 232448;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+struct Strides {  // in elements; the innermost dimension is contiguous
+  int64_t b, l, h;
+};
+
+struct Args {
+  const void* x;
+  const void* dt;
+  const float* a;
+  const void* bm;
+  const void* cm;
+  void* y;
+  float* state;    // [B*H, N, P]
+  float* chunk_s;  // [B*H, chunks, N, P]: S_own (fp32 path: then S_in)
+  void* s_in16;    // bf16 path: [B*H, chunks, 2, N, P] S_in as hi, lo
+  float* chunk_a;  // [B*H, chunks]: a_cs at the chunk's last step
+  Strides sx, sdt, sb, sc, sy;
+  int h, g, L, n, p, nc;
+};
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
 }
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float v0,
+                                       float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
 }
 
-// Columns of the state (and of x and y) handled by one block.
-int cols_per_block(int p) { return p % 32 == 0 ? 32 : p; }
-
-size_t smem_floats(int n, int pp) {
-  return (size_t)n * pp             // state S [n][pp]
-         + (size_t)kKC * pp         // x [KC][pp]
-         + 2 * (size_t)n * kLD      // B^T, C^T [n][LD]
-         + (size_t)kKC * kLD        // W^T [KC][LD]: W^T[j][t] = W[t][j]
-         + 3 * (size_t)kKC;         // dt, a_cs, w_j
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
 }
 
-// One block per (head, group of pp state columns): the columns of S, x
-// and y are independent, so heads of P = 64 run as two blocks each.
-// Within a sub-chunk every product is register-tiled: a thread owns a 4x4
-// output tile and reads float4 rows of shared memory.
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+__device__ __forceinline__ uint32_t pack(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// B fragments of the two 8-column tiles n0 and n0 + 8, k rows k0..k0+15,
+// of a row-major [k][ld] bf16 tile in shared memory, by one ldmatrix.trans:
+// {b[0], b[1]} for tile n0, {b[2], b[3]} for tile n0 + 8.
+__device__ __forceinline__ void ld_b_pair(const __nv_bfloat16* tile, int ld,
+                                          int k0, int n0, uint32_t (&b)[4]) {
+  const int lane = threadIdx.x & 31;
+  const __nv_bfloat16* row =
+      tile + (k0 + (lane & 15)) * ld + n0 + (lane >> 4) * 8;
+  const uint32_t at = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+      : "r"(at)
+      : "memory");
+}
+// v ~= hi + lo with both halves in bf16: ~16 significant bits.
+__device__ __forceinline__ void split(float v0, float v1, uint32_t& hi,
+                                      uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  hi = pack(h);
+  lo = pack(__floats2bfloat162_rn(v0 - __low2float(h), v1 - __high2float(h)));
+}
+// D (16x8, fp32) += A (16x16, bf16, row) * B (16x8, bf16, col).  A: a[0]
+// rows g, k 2q..2q+1; a[1] rows g + 8; a[2], a[3] the same at k + 8.  B:
+// b0 k 2q..2q+1, b1 k + 8, column g.  D: d[0..1] row g, columns 2q..2q+1;
+// d[2..3] row g + 8 (g = lane / 4, q = lane % 4).
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Rows [0, rows) of a `tile_rows`-row tile (kQ by default) of `cols`
+// elements into shared memory (row stride ld) by cp.async; rows past
+// `rows` are zero-filled unread.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ssd_fwd(const T* __restrict__ x, const T* __restrict__ dt,
-        const float* __restrict__ a, const T* __restrict__ bmat,
-        const T* __restrict__ cmat, T* __restrict__ y,
-        float* __restrict__ s_out, int h, int g, int L, int n, int p,
-        int pp) {
-  extern __shared__ __align__(16) float smem[];
-  float* st = smem;                  // [n][pp]
-  float* xs = st + n * pp;           // [KC][pp]
-  float* bT = xs + kKC * pp;         // [n][LD]
-  float* cT = bT + n * kLD;          // [n][LD]
-  float* wT = cT + n * kLD;          // [KC][LD]
-  float* dts = wT + kKC * kLD;       // [KC]
-  float* acs = dts + kKC;            // [KC]
-  float* wj = acs + kKC;             // [KC]
+__device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
+                                          int64_t row_stride, int rows,
+                                          int cols, int tile_rows = kQ) {
+  constexpr int E = 16 / sizeof(T);
+  const int cpr = cols / E;
+  const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  for (int i = threadIdx.x; i < tile_rows * cpr; i += blockDim.x) {
+    const int r = i / cpr, c = (i - r * cpr) * E;
+    const bool in = r < rows;
+    cp_async16(base + static_cast<uint32_t>((r * ld + c) * sizeof(T)),
+               in ? src + r * row_stride + c : src, in ? 16 : 0);
+  }
+}
 
-  const int bh = blockIdx.x;
-  const int p0 = blockIdx.y * pp;
-  const int bg = (bh / h) * g + (bh % h) / (h / g);
-  const float av = a[bh];
-  const T* xg = x + (size_t)bh * L * p;
-  const T* dg = dt + (size_t)bh * L;
-  const T* bgp = bmat + (size_t)bg * L * n;
-  const T* cgp = cmat + (size_t)bg * L * n;
-  T* yg = y + (size_t)bh * L * p;
+// dt of steps 2l and 2l + 1 of the chunk for lane l of warp 0 (0 past
+// its rows), loaded early so the load overlaps the others in flight.
+template <typename T>
+__device__ __forceinline__ float2 load_dt(const Args& A, int b, int h,
+                                          int t0, int rows) {
+  float2 v = make_float2(0.f, 0.f);
+  const int i0 = 2 * threadIdx.x;
+  if (threadIdx.x < 32) {
+    const T* dtp = static_cast<const T*>(A.dt) + b * A.sdt.b + h * A.sdt.h;
+    if (i0 < rows) v.x = to_f(dtp[(int64_t)(t0 + i0) * A.sdt.l]);
+    if (i0 + 1 < rows) v.y = to_f(dtp[(int64_t)(t0 + i0 + 1) * A.sdt.l]);
+  }
+  return v;
+}
+
+// dt into shared memory and a_cs = a * inclusive cumsum(dt), by warp 0
+// from load_dt's values; ends in a barrier.
+__device__ __forceinline__ void chunk_decay(float av, float2 v, float* dts,
+                                            float* acs) {
   const int tid = threadIdx.x;
-  const int pq = pp / 4;
-
-  for (int i = tid; i < n * pp; i += kThreads) st[i] = 0.f;
-
-  for (int t0 = 0; t0 < L; t0 += kKC) {
-    const int T_ = min(kKC, L - t0);
-    const int tq = (T_ + 3) / 4;   // 4-row tiles; rows past T_ are zero
-    const int T4 = 4 * tq;
-    __syncthreads();  // the previous sub-chunk's reads are done
-    for (int i = tid; i < T4 * pp; i += kThreads) {
-      const int t = i / pp, c = i % pp;
-      xs[i] = t < T_ ? to_f(xg[(size_t)(t0 + t) * p + p0 + c]) : 0.f;
+  if (tid < 32) {
+    float run = v.x + v.y;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float o = __shfl_up_sync(0xffffffffu, run, off);
+      if (tid >= off) run += o;
     }
-    for (int i = tid; i < T4 * n; i += kThreads) {
-      const int t = i / n, c = i % n;
-      const bool in = t < T_;
-      bT[c * kLD + t] = in ? to_f(bgp[(size_t)(t0 + t) * n + c]) : 0.f;
-      cT[c * kLD + t] = in ? to_f(cgp[(size_t)(t0 + t) * n + c]) : 0.f;
-    }
-    for (int i = tid; i < kKC; i += kThreads)
-      dts[i] = i < T_ ? to_f(dg[t0 + i]) : 0.f;
-    __syncthreads();
-    if (tid < 32) {  // a_cs = a * inclusive cumsum(dt): a warp scan
-      const float v0 = dts[2 * tid], v1 = dts[2 * tid + 1];
-      float run = v0 + v1;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float o = __shfl_up_sync(0xffffffffu, run, off);
-        if (tid >= off) run += o;
-      }
-      float before = __shfl_up_sync(0xffffffffu, run, 1);
-      if (tid == 0) before = 0.f;
-      acs[2 * tid] = av * (before + v0);
-      acs[2 * tid + 1] = av * (before + v0 + v1);
-    }
-    __syncthreads();
-    const float a_last = acs[T_ - 1];
-    for (int i = tid; i < kKC; i += kThreads)  // 0 past T_ (dt = 0 there)
-      wj[i] = expf(a_last - acs[i]) * dts[i];
-    // W[t][j] = (C_t . B_j) * exp(a_cs_t - a_cs_j) * dt_j for j <= t, else 0
-    for (int i = tid; i < tq * tq; i += kThreads) {
-      const int tb = i / tq, jb = i % tq;
-      float acc[4][4] = {};
-      if (jb <= tb) {
-        for (int c = 0; c < n; ++c) {
-          const float4 cv = ld4(&cT[c * kLD + 4 * tb]);
-          const float4 bv = ld4(&bT[c * kLD + 4 * jb]);
-          const float cr[4] = {cv.x, cv.y, cv.z, cv.w};
-          const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int s = 0; s < 4; ++s) acc[r][s] += cr[r] * br[s];
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          const int t = 4 * tb + r, j = 4 * jb + s;
-          wT[j * kLD + t] =
-              j <= t ? acc[r][s] * expf(acs[t] - acs[j]) * dts[j] : 0.f;
-        }
-    }
-    __syncthreads();
-    // y_t = exp(a_cs_t) C_t S_prev + sum_{j<=t} W[t][j] x_j
-    for (int i = tid; i < tq * pq; i += kThreads) {
-      const int tb = i / pq, pb = i % pq;
-      float inter[4][4] = {}, intra[4][4] = {};
-      for (int e = 0; e < n; ++e) {
-        const float4 cv = ld4(&cT[e * kLD + 4 * tb]);
-        const float4 sv = ld4(&st[e * pp + 4 * pb]);
-        const float cr[4] = {cv.x, cv.y, cv.z, cv.w};
-        const float sr[4] = {sv.x, sv.y, sv.z, sv.w};
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int s = 0; s < 4; ++s) inter[r][s] += cr[r] * sr[s];
-      }
-      for (int j = 0; j < 4 * tb + 4; ++j) {
-        const float4 wv = ld4(&wT[j * kLD + 4 * tb]);
-        const float4 xv = ld4(&xs[j * pp + 4 * pb]);
-        const float wr[4] = {wv.x, wv.y, wv.z, wv.w};
-        const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int s = 0; s < 4; ++s) intra[r][s] += wr[r] * xr[s];
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int t = 4 * tb + r;
-        if (t >= T_) continue;
-        const float decay = expf(acs[t]);
-        T* out = &yg[(size_t)(t0 + t) * p + p0 + 4 * pb];
-#pragma unroll
-        for (int s = 0; s < 4; ++s)
-          store(&out[s], decay * inter[r][s] + intra[r][s]);
-      }
-    }
-    __syncthreads();  // every read of S_prev is done
-    // S = exp(a_cs_last) S_prev + sum_j (B_j w_j) x_j^T
-    const float lam = expf(a_last);
-    for (int i = tid; i < (n / 4) * pq; i += kThreads) {
-      const int eb = i / pq, pb = i % pq;
-      float acc[4][4] = {};
-      for (int j = 0; j < T4; ++j) {
-        const float w = wj[j];
-        const float4 xv = ld4(&xs[j * pp + 4 * pb]);
-        const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float bw = bT[(4 * eb + r) * kLD + j] * w;
-#pragma unroll
-          for (int s = 0; s < 4; ++s) acc[r][s] += bw * xr[s];
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          float* sp = &st[(4 * eb + r) * pp + 4 * pb + s];
-          *sp = lam * *sp + acc[r][s];
-        }
-    }
+    float before = __shfl_up_sync(0xffffffffu, run, 1);
+    if (tid == 0) before = 0.f;
+    dts[2 * tid] = v.x;
+    dts[2 * tid + 1] = v.y;
+    acs[2 * tid] = av * (before + v.x);
+    acs[2 * tid + 1] = av * (before + v.x + v.y);
   }
   __syncthreads();
-  float* sg = s_out + (size_t)bh * n * p + p0;  // this block's columns
-  for (int i = tid; i < n * pp; i += kThreads)
-    sg[(size_t)(i / pp) * p + i % pp] = st[i];
 }
 
 template <typename T>
-int launch(const void* x, const void* dt, const void* a, const void* b,
-           const void* c, void* y, void* s_out, int bh, int h, int g, int L,
-           int n, int p, cudaStream_t stream) {
-  const int pp = cols_per_block(p);
-  const size_t smem = smem_floats(n, pp) * sizeof(float);
+__host__ __device__ constexpr int pad() { return 16 / sizeof(T); }
+
+template <typename T>
+size_t state_smem(int n, int p) {
+  return sizeof(T) * (size_t)kQ * (n + pad<T>() + p + pad<T>()) +
+         sizeof(float) * 3 * kQ;
+}
+
+template <typename T>
+size_t out_smem(int n, int p) {
+  const size_t tiles = sizeof(T) * (size_t)kQ * (2 * (n + pad<T>()) + p +
+                                                 pad<T>());
+  const size_t s_in = sizeof(T) == 2
+                          ? 2 * sizeof(T) * (size_t)n * (p + pad<T>())
+                          : sizeof(float) * ((size_t)n * p + kQ * kQ);
+  return tiles + s_in + sizeof(float) * 2 * kQ;
+}
+
+// Pass 1: S_own[n][p] = sum_j B[j][n] w_j X[j][p], w_j = exp(a_last -
+// a_cs_j) dt_j, and a_last, for chunk blockIdx.x of head blockIdx.y.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) chunk_state(Args A) {
+  constexpr int E = pad<T>();
+  const int c = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / A.h, h = bh % A.h, grp = h / (A.h / A.g);
+  const int t0 = c * kQ, rows = min(kQ, A.L - t0);
+  const int n = A.n, p = A.p, ldn = n + E, ldp = p + E;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sB = reinterpret_cast<T*>(smem);  // [kQ][ldn]
+  T* sX = sB + kQ * ldn;               // [kQ][ldp]
+  float* dts = reinterpret_cast<float*>(sX + kQ * ldp);
+  float* acs = dts + kQ;
+  float* wj = acs + kQ;
+  load_tile(sB, ldn,
+            static_cast<const T*>(A.bm) + b * A.sb.b + (int64_t)t0 * A.sb.l +
+                grp * A.sb.h,
+            A.sb.l, rows, n);
+  load_tile(sX, ldp,
+            static_cast<const T*>(A.x) + b * A.sx.b + (int64_t)t0 * A.sx.l +
+                h * A.sx.h,
+            A.sx.l, rows, p);
+  chunk_decay(A.a[h], load_dt<T>(A, b, h, t0, rows), dts, acs);
+  const float a_last = acs[rows - 1];
+  const int tid = threadIdx.x;
+  if (tid < kQ) wj[tid] = expf(a_last - acs[tid]) * dts[tid];  // 0 past rows
+  if (tid == 0) A.chunk_a[(int64_t)bh * A.nc + c] = a_last;
+  cp_async_wait_all();
+  __syncthreads();
+  float* out = A.chunk_s + ((int64_t)bh * A.nc + c) * n * p;
+
+  if constexpr (sizeof(T) == 4) {
+    for (int i = tid; i < n * p; i += kThreads) {
+      const int e = i / p, q = i - e * p;
+      float s = 0.f;
+      for (int j = 0; j < kQ; ++j)
+        s += sB[j * ldn + e] * wj[j] * sX[j * ldp + q];
+      out[i] = s;
+    }
+  } else {
+    // M = n (16-row tiles over the warps), N = p, K = j: A = (B * w)^T,
+    // split into hi + lo; B = X.
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
+    for (int mt = warp; mt < n / 16; mt += kThreads / 32) {
+      const int r = mt * 16 + g;
+      uint32_t ah[kQ / 16][4], al[kQ / 16][4];
+#pragma unroll
+      for (int ks = 0; ks < kQ / 16; ++ks) {
+        const int j = ks * 16 + 2 * q;
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int jj = j + (f >> 1) * 8, rr = r + (f & 1) * 8;
+          split(to_f(sB[jj * ldn + rr]) * wj[jj],
+                to_f(sB[(jj + 1) * ldn + rr]) * wj[jj + 1], ah[ks][f],
+                al[ks][f]);
+        }
+      }
+      for (int nt = 0; nt < p / 8; nt += 2) {  // two 8-column tiles
+        float dh[2][4] = {}, dl[2][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < kQ / 16; ++ks) {
+          uint32_t bx[4];
+          ld_b_pair(sX, ldp, ks * 16, nt * 8, bx);
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            mma(dh[u], ah[ks], bx[2 * u], bx[2 * u + 1]);
+            mma(dl[u], al[ks], bx[2 * u], bx[2 * u + 1]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int col = (nt + u) * 8 + 2 * q;
+          store2(out + (size_t)r * p + col, dh[u][0] + dl[u][0],
+                 dh[u][1] + dl[u][1]);
+          store2(out + (size_t)(r + 8) * p + col, dh[u][2] + dl[u][2],
+                 dh[u][3] + dl[u][3]);
+        }
+      }
+    }
+  }
+}
+
+// Pass 2: per head, S_in(c) = exp(a_last(c-1)) S_in(c-1) + S_own(c-1)
+// over the chunks in order, each thread owning 4 state elements; the
+// state after the last chunk is s_L.  S_in(c) replaces S_own(c) (fp32
+// path), or goes to s_in16 as bf16 hi and lo planes (bf16 path), in the
+// layout chunk_out's products read.
+template <bool kSplit>
+__global__ void __launch_bounds__(kStateThreads)
+state_pass(const float* __restrict__ chunk_a, float* chunk_s,
+           __nv_bfloat16* __restrict__ s_in16, float* __restrict__ state,
+           int nc, int np4) {
+  const int bh = blockIdx.y;
+  const int i = blockIdx.x * kStateThreads + threadIdx.x;
+  if (i >= np4) return;
+  float4* s = reinterpret_cast<float4*>(chunk_s) + (int64_t)bh * nc * np4 + i;
+  uint2* s16 = reinterpret_cast<uint2*>(s_in16) + (int64_t)bh * nc * 2 * np4 +
+               i;  // 4 bf16 a thread; lo plane np4 further on
+  const float* al = chunk_a + (int64_t)bh * nc;
+  float4 run = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 own[kStateDepth], next[kStateDepth];
+#pragma unroll
+  for (int k = 0; k < kStateDepth; ++k)
+    if (k < nc) next[k] = s[(int64_t)k * np4];
+  for (int c0 = 0; c0 < nc; c0 += kStateDepth) {
+    // the next group's loads are in flight while this group is stored
+#pragma unroll
+    for (int k = 0; k < kStateDepth; ++k) {
+      own[k] = next[k];
+      if (c0 + kStateDepth + k < nc)
+        next[k] = s[(int64_t)(c0 + kStateDepth + k) * np4];
+    }
+#pragma unroll
+    for (int k = 0; k < kStateDepth; ++k)
+      if (c0 + k < nc) {
+        if constexpr (kSplit) {
+          uint2 hi, lo;
+          split(run.x, run.y, hi.x, lo.x);
+          split(run.z, run.w, hi.y, lo.y);
+          s16[(int64_t)(c0 + k) * 2 * np4] = hi;
+          s16[(int64_t)(c0 + k) * 2 * np4 + np4] = lo;
+        } else {
+          s[(int64_t)(c0 + k) * np4] = run;
+        }
+        const float lam = expf(al[c0 + k]);
+        run.x = lam * run.x + own[k].x;
+        run.y = lam * run.y + own[k].y;
+        run.z = lam * run.z + own[k].z;
+        run.w = lam * run.w + own[k].w;
+      }
+  }
+  reinterpret_cast<float4*>(state)[(int64_t)bh * np4 + i] = run;
+}
+
+// Pass 3: y_t = exp(a_cs_t) C_t S_in + sum_{j<=t} W[t][j] x_j with
+// W[t][j] = (C_t . B_j) exp(a_cs_t - a_cs_j) dt_j, for chunk blockIdx.x
+// of head blockIdx.y.
+// kHalves 2: eight warps, warps w and w + 4 owning the same rows and each
+// half of y's columns (less work per warp where the grid leaves SMs idle).
+template <typename T, int kHalves>
+__global__ void __launch_bounds__(kThreads * kHalves) chunk_out(Args A) {
+  constexpr int kOutThreads = kThreads * kHalves;
+  constexpr int E = pad<T>();
+  const int c = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / A.h, h = bh % A.h, grp = h / (A.h / A.g);
+  const int t0 = c * kQ, rows = min(kQ, A.L - t0);
+  const int n = A.n, p = A.p, ldn = n + E, ldp = p + E;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sC = reinterpret_cast<T*>(smem);  // [kQ][ldn]
+  T* sB = sC + kQ * ldn;               // [kQ][ldn]
+  T* sX = sB + kQ * ldn;               // [kQ][ldp]
+  T* sS = sX + kQ * ldp;               // S_in: see below
+  const size_t s_elems = sizeof(T) == 2 ? 2 * (size_t)n * ldp
+                                        : (size_t)n * p + kQ * kQ;
+  float* dts = reinterpret_cast<float*>(sS + s_elems);
+  float* acs = dts + kQ;
+  const int64_t gb = b * A.sb.b + (int64_t)t0 * A.sb.l + grp * A.sb.h;
+  const int64_t gc = b * A.sc.b + (int64_t)t0 * A.sc.l + grp * A.sc.h;
+  load_tile(sC, ldn, static_cast<const T*>(A.cm) + gc, A.sc.l, rows, n);
+  load_tile(sB, ldn, static_cast<const T*>(A.bm) + gb, A.sb.l, rows, n);
+  load_tile(sX, ldp,
+            static_cast<const T*>(A.x) + b * A.sx.b + (int64_t)t0 * A.sx.l +
+                h * A.sx.h,
+            A.sx.l, rows, p);
+  const float2 dv = load_dt<T>(A, b, h, t0, rows);
+  const int tid = threadIdx.x;
+  if (c > 0) {
+    if constexpr (sizeof(T) == 4) {  // S_in [n][p] as it is
+      const float* s_in = A.chunk_s + ((int64_t)bh * A.nc + c) * n * p;
+      const uint32_t base =
+          static_cast<uint32_t>(__cvta_generic_to_shared(sS));
+      for (int i = tid; i < n * p / 4; i += kOutThreads)
+        cp_async16(base + 16 * i, s_in + 4 * i, 16);
+    } else {  // S_in's hi and lo planes, [n][ldp] each
+      const T* s16 = static_cast<const T*>(A.s_in16) +
+                     ((int64_t)bh * A.nc + c) * 2 * n * p;
+      load_tile(sS, ldp, s16, p, n, p, n);
+      load_tile(sS + (size_t)n * ldp, ldp, s16 + (size_t)n * p, p, n, p, n);
+    }
+  }
+  chunk_decay(A.a[h], dv, dts, acs);
+  cp_async_wait_all();
+  __syncthreads();
+  T* yg = static_cast<T*>(A.y) + b * A.sy.b + (int64_t)t0 * A.sy.l +
+          h * A.sy.h;
+
+  if constexpr (sizeof(T) == 4) {
+    float* sW = sS + (size_t)n * p;  // [kQ][kQ]
+    for (int i = tid; i < kQ * kQ; i += kOutThreads) {
+      const int t = i / kQ, j = i - t * kQ;
+      float w = 0.f;
+      if (j <= t) {
+        for (int e = 0; e < n; ++e) w += sC[t * ldn + e] * sB[j * ldn + e];
+        w *= expf(acs[t] - acs[j]) * dts[j];
+      }
+      sW[i] = w;
+    }
+    __syncthreads();
+    for (int i = tid; i < rows * p; i += kOutThreads) {
+      const int t = i / p, q = i - t * p;
+      float inter = 0.f, intra = 0.f;
+      if (c > 0)
+        for (int e = 0; e < n; ++e) inter += sC[t * ldn + e] * sS[e * p + q];
+      for (int j = 0; j <= t; ++j) intra += sW[t * kQ + j] * sX[j * ldp + q];
+      yg[(int64_t)t * A.sy.l + q] = expf(acs[t]) * inter + intra;
+    }
+  } else {
+    const int lane = tid & 31, g = lane >> 2, q = lane & 3;
+    const int warp = (tid >> 5) & 3, half = kHalves == 2 ? tid >> 7 : 0;
+    const int ra = warp * 16 + g, rb = ra + 8;  // this thread's two rows
+    const int nj = 2 * warp + 2;                // 8-column tiles with j <= t
+    // G = C.B^T for rows ra, rb and every j of the warp's causal band.
+    float sc[kQ / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kQ / 8; ++nt)
+      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+    for (int ks = 0; ks < n / 16; ++ks) {  // 8 independent accumulators
+      const T* ca = sC + ra * ldn + ks * 16 + 2 * q;
+      const uint32_t af[4] = {ld32(ca), ld32(ca + 8 * ldn), ld32(ca + 8),
+                              ld32(ca + 8 * ldn + 8)};
+#pragma unroll
+      for (int nt = 0; nt < kQ / 8; ++nt)
+        if (nt < nj) {
+          const T* bb = sB + (nt * 8 + g) * ldn + ks * 16 + 2 * q;
+          mma(sc[nt], af, ld32(bb), ld32(bb + 8));
+        }
+    }
+    // W, masked to j <= t, as A fragments of W.X in hi + lo halves.
+    const float ea = acs[ra], eb = acs[rb];
+    uint32_t wh[kQ / 16][4], wl[kQ / 16][4];
+#pragma unroll
+    for (int nt = 0; nt < kQ / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = nt * 8 + 2 * q + e;
+        const float dj = dts[j], aj = acs[j];
+        sc[nt][e] = j <= ra ? sc[nt][e] * expf(ea - aj) * dj : 0.f;
+        sc[nt][2 + e] = j <= rb ? sc[nt][2 + e] * expf(eb - aj) * dj : 0.f;
+      }
+#pragma unroll
+    for (int kk = 0; kk < kQ / 16; ++kk) {
+      split(sc[2 * kk][0], sc[2 * kk][1], wh[kk][0], wl[kk][0]);
+      split(sc[2 * kk][2], sc[2 * kk][3], wh[kk][1], wl[kk][1]);
+      split(sc[2 * kk + 1][0], sc[2 * kk + 1][1], wh[kk][2], wl[kk][2]);
+      split(sc[2 * kk + 1][2], sc[2 * kk + 1][3], wh[kk][3], wl[kk][3]);
+    }
+    const __nv_bfloat16* sh = sS;
+    const __nv_bfloat16* sl = sS + (size_t)n * ldp;
+    const float da = expf(ea), db = expf(eb);
+    // Per pair of 8-column tiles, four independent accumulators each: the
+    // hi and lo halves of W.X and of C.S_in.
+    const int pairs = p / 16;
+    const int mid = kHalves == 2 ? (pairs + 1) / 2 : pairs;
+    for (int pp = half ? mid : 0; pp < (half ? pairs : mid); ++pp) {
+      float ih[2][4] = {}, il[2][4] = {}, eh[2][4] = {}, el[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < kQ / 16; ++kk) {
+        if (kk > warp) break;
+        uint32_t bx[4];
+        ld_b_pair(sX, ldp, kk * 16, pp * 16, bx);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          mma(ih[u], wh[kk], bx[2 * u], bx[2 * u + 1]);
+          mma(il[u], wl[kk], bx[2 * u], bx[2 * u + 1]);
+        }
+      }
+      if (c > 0) {
+#pragma unroll 4
+        for (int ks = 0; ks < n / 16; ++ks) {
+          const T* ca = sC + ra * ldn + ks * 16 + 2 * q;
+          const uint32_t af[4] = {ld32(ca), ld32(ca + 8 * ldn), ld32(ca + 8),
+                                  ld32(ca + 8 * ldn + 8)};
+          uint32_t bh[4], bl[4];
+          ld_b_pair(sh, ldp, ks * 16, pp * 16, bh);
+          ld_b_pair(sl, ldp, ks * 16, pp * 16, bl);
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            mma(eh[u], af, bh[2 * u], bh[2 * u + 1]);
+            mma(el[u], af, bl[2 * u], bl[2 * u + 1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int col = (2 * pp + u) * 8 + 2 * q;
+        if (ra < rows)
+          store2(yg + (int64_t)ra * A.sy.l + col,
+                 da * (eh[u][0] + el[u][0]) + (ih[u][0] + il[u][0]),
+                 da * (eh[u][1] + el[u][1]) + (ih[u][1] + il[u][1]));
+        if (rb < rows)
+          store2(yg + (int64_t)rb * A.sy.l + col,
+                 db * (eh[u][2] + el[u][2]) + (ih[u][2] + il[u][2]),
+                 db * (eh[u][3] + el[u][3]) + (ih[u][3] + il[u][3]));
+      }
+    }
+  }
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes, size_t& allowed) {
+  if (bytes <= 48 * 1024 || bytes <= allowed) return cudaSuccess;
   cudaError_t e = cudaFuncSetAttribute(
-      ssd_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (e == cudaSuccess) allowed = bytes;
+  return e;
+}
+
+int sm_count() {
+  static int counts[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (counts[dev] == 0 &&
+      cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess)
+    counts[dev] = 132;
+  return counts[dev];
+}
+
+template <typename T>
+int launch(const Args& A, int bh, cudaStream_t stream) {
+  static size_t allowed_state = 0, allowed_out = 0, allowed_out2 = 0;
+  const size_t s1 = state_smem<T>(A.n, A.p), s3 = out_smem<T>(A.n, A.p);
+  if (s1 > kMaxSmem || s3 > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // bf16: eight warps a chunk when the grid fills at most 4 blocks per SM
+  const bool halves =
+      sizeof(T) == 2 && (int64_t)A.nc * bh <= 4 * (int64_t)sm_count();
+  cudaError_t e = allow_smem(chunk_state<T>, s1, allowed_state);
+  if (e == cudaSuccess) {
+    if constexpr (sizeof(T) == 2)
+      e = halves ? allow_smem(chunk_out<T, 2>, s3, allowed_out2)
+                 : allow_smem(chunk_out<T, 1>, s3, allowed_out);
+    else
+      e = allow_smem(chunk_out<T, 1>, s3, allowed_out);
+  }
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(bh, p / pp);
-  ssd_fwd<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dt),
-      static_cast<const float*>(a), static_cast<const T*>(b),
-      static_cast<const T*>(c), static_cast<T*>(y),
-      static_cast<float*>(s_out), h, g, L, n, p, pp);
+  const dim3 grid(A.nc, bh);
+  chunk_state<T><<<grid, kThreads, s1, stream>>>(A);
+  const int np4 = A.n * A.p / 4;
+  state_pass<sizeof(T) == 2>
+      <<<dim3((np4 + kStateThreads - 1) / kStateThreads, bh), kStateThreads,
+         0, stream>>>(A.chunk_a, A.chunk_s,
+                      static_cast<__nv_bfloat16*>(A.s_in16), A.state, A.nc,
+                      np4);
+  if constexpr (sizeof(T) == 2)
+    if (halves) {
+      chunk_out<T, 2><<<grid, 2 * kThreads, s3, stream>>>(A);
+      return static_cast<int>(cudaGetLastError());
+    }
+  chunk_out<T, 1><<<grid, kThreads, s3, stream>>>(A);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, dt, b, c, y); a is float32.
-// x, y: [bh, L, p]; dt: [bh, L]; a: [bh]; b, c: [(bh / h) * g, L, n];
-// s_out: [bh, n, p] float32, the state after step L - 1; all contiguous;
-// n and p multiples of 4.  A block's state columns and
-// sub-chunk buffers (smem_floats) must fit in its 227 KB of shared memory.
+// dtype: 0 = float32, 1 = bfloat16 (x, dt, b, c, y); a is float32 [h].
+// dims (int64): bsz, L, h, g, n, p, then the (batch, step, head) strides
+// in elements of x, dt, b, c and y, whose innermost dimension is
+// contiguous.  Rows of x, b, c and y, their base pointers and strides
+// must be 16-byte aligned; n, p multiples of 4 (fp32) or of 16 (bf16).
+// state: [bsz * h, n, p] float32, written whole.  scratch: float32 of
+// bsz * h * chunks * (n * p * (1 fp32, 2 bf16) + 1), chunks =
+// ceil(L / 64).
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* a,
                                const void* b, const void* c, void* y,
-                               void* s_out, int bh, int h, int g, int L, int n,
-                               int p, int dtype, void* stream) {
-  if (bh <= 0 || L <= 0) return 0;
-  if (h <= 0 || g <= 0 || h % g != 0 || bh % h != 0 || n <= 0 || p <= 0 ||
-      n % 4 != 0 || p % 4 != 0 ||
-      smem_floats(n, cols_per_block(p)) * sizeof(float) > 232448)
+                               void* state, void* scratch,
+                               const int64_t* dims, int dtype, void* stream) {
+  const int64_t bsz = dims[0], L = dims[1], h = dims[2], g = dims[3],
+                n = dims[4], p = dims[5];
+  if (bsz <= 0 || L <= 0 || h <= 0) return 0;
+  const bool bf16 = dtype == 1;
+  if ((dtype != 0 && !bf16) || g <= 0 || h % g != 0 || n <= 0 || p <= 0 ||
+      (bf16 ? (n % 16 || p % 16) : (n % 4 || p % 4)) || bsz * h > 65535 ||
+      L > (int64_t)1 << 30)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(x, dt, a, b, c, y, s_out, bh, h, g, L, n, p, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, dt, a, b, c, y, s_out, bh, h, g, L, n, p,
-                                 st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  Args A;
+  A.x = x;
+  A.dt = dt;
+  A.a = static_cast<const float*>(a);
+  A.bm = b;
+  A.cm = c;
+  A.y = y;
+  A.state = static_cast<float*>(state);
+  A.nc = static_cast<int>((L + kQ - 1) / kQ);
+  // scratch: S_own [bsz*h, chunks, n, p] fp32, then (bf16) S_in's hi and
+  // lo planes [bsz*h, chunks, 2, n, p] bf16, then chunk_a
+  const int64_t states = bsz * h * A.nc * n * p;
+  A.chunk_s = static_cast<float*>(scratch);
+  A.s_in16 = A.chunk_s + states;
+  A.chunk_a = A.chunk_s + (bf16 ? 2 : 1) * states;
+  Strides* st[5] = {&A.sx, &A.sdt, &A.sb, &A.sc, &A.sy};
+  for (int i = 0; i < 5; ++i) *st[i] = {dims[6 + 3 * i], dims[7 + 3 * i],
+                                        dims[8 + 3 * i]};
+  A.h = static_cast<int>(h);
+  A.g = static_cast<int>(g);
+  A.L = static_cast<int>(L);
+  A.n = static_cast<int>(n);
+  A.p = static_cast<int>(p);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int bh = static_cast<int>(bsz * h);
+  return bf16 ? launch<__nv_bfloat16>(A, bh, s) : launch<float>(A, bh, s);
 }

@@ -7,10 +7,15 @@ kernel (``repro/kernels/overlap_scan/kernel.py``: ``_rank_kernel`` /
 LevelIndex fence queries, vSST planning, the flat-level and per-SST GET
 probes and the memtable probe.  On a CUDA tensor it launches the kernel in
 ``csrc/overlap_scan.cu`` (one thread per key, binary search over the
-fences); on a CPU tensor it runs :func:`fence_rank_plain`.  The strict rank
-is computed directly (no ``key - 1``, so INT64_MIN needs no special case)
-and there is no fence padding (a key equal to INT64_MAX counts only real
-fences).
+fences in global memory); on a CPU tensor it runs
+:func:`fence_rank_plain`.  The strict rank is computed directly
+(no ``key - 1``, so INT64_MIN needs no special case) and there is no
+fence padding (a key equal to INT64_MAX counts only real fences).
+
+The card path is kept lean, since the store makes thousands of small calls
+whose cost is the host's: the C entry is resolved once, the raw current
+stream is read without building a ``torch.cuda.Stream``, and contiguous
+inputs are passed as they are.
 """
 
 from __future__ import annotations
@@ -22,6 +27,10 @@ import torch
 from .. import _build
 
 _SIDES = {"right": 1, "left": 0}
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+             ctypes.c_int64, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+_launch = None       # the C entry, resolved at the first CUDA call
+_raw_stream = None   # torch._C._cuda_getCurrentRawStream
 
 
 def fence_rank_plain(fences: torch.Tensor, keys: torch.Tensor,
@@ -43,35 +52,46 @@ def fence_rank_plain(fences: torch.Tensor, keys: torch.Tensor,
     return lo
 
 
+def _resolve() -> None:
+    global _launch, _raw_stream
+    _raw_stream = torch._C._cuda_getCurrentRawStream
+    _launch = _build.load("overlap_scan", "fence_rank_launch", _ARGTYPES)
+
+
 def fence_rank(fences: torch.Tensor, keys: torch.Tensor,
                side: str = "right") -> torch.Tensor:
     """int64 rank of every key of ``keys`` (any shape) over the sorted int64
     ``fences``: ``searchsorted(fences, keys, side)``."""
-    if side not in _SIDES:
+    right = _SIDES.get(side) if isinstance(side, str) else None
+    if right is None:
         raise ValueError(f"side must be 'right' or 'left', not {side!r}")
-    if fences.dtype != torch.int64 or keys.dtype != torch.int64:
+    if fences.dtype is not torch.int64 or keys.dtype is not torch.int64:
         raise TypeError("fence_rank takes int64 fences and keys")
-    if fences.device != keys.device:
-        raise ValueError("fences and keys must be on one device")
-    if keys.device.type == "cpu":
+    if not keys.is_cuda:
+        if fences.device != keys.device:
+            raise ValueError("fences and keys must be on one device")
+        if keys.device.type != "cpu":
+            raise ValueError(f"unsupported device {keys.device}")
         return fence_rank_plain(fences, keys, side)
-    if keys.device.type != "cuda":
-        raise ValueError(f"unsupported device {keys.device}")
-    fences = fences.contiguous()
-    flat = keys.contiguous().view(-1)
-    out = torch.empty_like(flat)
-    if flat.shape[0] == 0:
-        return out.view(keys.shape)
-    fn = _build.load("overlap_scan", "fence_rank_launch",
-                     [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                      ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
-                      ctypes.c_void_p])
-    err = fn(fences.data_ptr(), fences.shape[0], flat.data_ptr(),
-             flat.shape[0], out.data_ptr(), _SIDES[side],
-             torch.cuda.current_stream(keys.device).cuda_stream)
-    _build.check(err, "overlap_scan")
+    dev = keys.get_device()
+    if fences.get_device() != dev:
+        raise ValueError("fences and keys must be on one device")
+    if not keys.is_contiguous():
+        keys = keys.contiguous()
+    if not fences.is_contiguous():
+        fences = fences.contiguous()
+    out = torch.empty_like(keys)
+    m = out.numel()
+    if m == 0:
+        return out
+    if _launch is None:
+        _resolve()
+    err = _launch(fences.data_ptr(), fences.shape[0], keys.data_ptr(), m,
+                  out.data_ptr(), right, _raw_stream(dev))
+    if err:
+        _build.check(err, "overlap_scan")
     fence_rank.launches += 1
-    return out.view(keys.shape)
+    return out
 
 
 fence_rank.launches = 0

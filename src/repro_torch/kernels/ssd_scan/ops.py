@@ -8,25 +8,35 @@ Per head, ``s_t = exp(dt_t a) s_{t-1} + dt_t B_t x_t^T`` and
 state.  Both versions return y and the final state ``s_L`` (fp32): the
 reference's wrapper returns y only and its model recomputes the state with
 a second, sequential scan; here a prefill takes it from the one scan.
-:func:`ssd_scan` takes the reference wrapper's model-layout API and
-pads L exactly as its ``ops.py`` does (``ckk = min(ck, L) if L % ck else
-ck``, zeros, so dt = 0 on padded steps).  On a CUDA tensor it launches the
-kernel in ``csrc/ssd_scan.cu`` (one block per head and group of up to 32
-state columns, B and C read per group); on a CPU tensor it runs
-:func:`ssd_scan_plain`.  Both evaluate ``exp(a_cs_t - a_cs_j)`` only for
-``j <= t``.
+:func:`ssd_scan` takes the reference wrapper's model-layout API.  On a
+CPU tensor it runs :func:`ssd_scan_plain`, which pads L exactly as the
+reference's ``ops.py`` does (``ckk = min(ck, L) if L % ck else ck``,
+zeros, so dt = 0 on padded steps).  On a CUDA tensor it launches the
+three passes of ``csrc/ssd_scan.cu`` over 64-step chunks (each chunk's own
+end state, the states carried across chunks, then y), which read x, dt, B
+and C through their strides, B and C per group, and write y in place: no
+padding, transposing or repeating copy.  Both evaluate
+``exp(a_cs_t - a_cs_j)`` only for ``j <= t``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import torch
 
 from .. import _build
 
 DEFAULT_CK = 128
+_KERNEL_CK = 64      # the kernel's chunk (csrc/ssd_scan.cu, kQ)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# sizes and (batch, step, head) strides of x, dt, b, c, y, as int64
+_DIMS = struct.Struct("<21q")
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_char_p, ctypes.c_int,
+                                     ctypes.c_void_p]
+_launch = None       # the C entry, resolved at the first CUDA call
+_raw_stream = None   # torch._C._cuda_getCurrentRawStream
 
 
 def _check(x, dt, a, b, c) -> None:
@@ -37,7 +47,7 @@ def _check(x, dt, a, b, c) -> None:
         raise ValueError(
             f"bad shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, a "
             f"{tuple(a.shape)}, b {tuple(b.shape)}, c {tuple(c.shape)}")
-    if len({t.device for t in (x, dt, a, b, c)}) != 1:
+    if len({t.get_device() for t in (x, dt, a, b, c)}) != 1:
         raise ValueError("ssd_scan inputs must be on one device")
 
 
@@ -89,46 +99,72 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y.to(x.dtype), state.reshape(bsz, h, n, p)
 
 
+def _rows_aligned(t: torch.Tensor, elems: int) -> torch.Tensor:
+    """``t`` itself when its innermost dimension is contiguous and its base
+    pointer and other strides are whole 16-byte chunks, as the kernel's
+    cp.async tile loads need (true of the model's views of ``xbc``); a
+    contiguous copy otherwise."""
+    st = t.stride()
+    if st[-1] == 1 and t.data_ptr() % 16 == 0 \
+            and not (st[0] % elems or st[1] % elems or st[2] % elems):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _resolve() -> None:
+    global _launch, _raw_stream
+    _raw_stream = torch._C._cuda_getCurrentRawStream
+    _launch = _build.load("ssd_scan", "ssd_scan_launch", _ARGTYPES)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor, *,
              ck: int = DEFAULT_CK) -> tuple[torch.Tensor, torch.Tensor]:
     """x: [B, L, H, P]; dt: [B, L, H]; a: [H]; b, c: [B, L, G, N] with
     H % G == 0 -> (y [B, L, H, P] in x's dtype, final state [B, H, N, P]
-    float32).  Padded steps have dt = 0, so they leave the state as it is."""
+    float32).  Inputs may be strided views (the model passes slices of one
+    ``xbc`` buffer).  On the CPU the plain version pads as the reference
+    does (``ck``); the kernel takes no padding and ignores ``ck``: its
+    64-step chunks zero-fill the rows past L, with dt = 0."""
     _check(x, dt, a, b, c)
-    if x.device.type == "cpu":
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"unsupported device {x.device}")
         return ssd_scan_plain(x, dt, a, b, c, ck=ck)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if x.dtype not in _DTYPES or not (x.dtype == dt.dtype == b.dtype
-                                      == c.dtype):
+    code = _DTYPES.get(x.dtype)
+    if code is None or not (x.dtype == dt.dtype == b.dtype == c.dtype):
         raise TypeError("ssd_scan kernel takes x, dt, b and c all float32 "
                         "or all bfloat16")
     bsz, L, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
-    if p % 4 or n % 4:
-        raise ValueError(f"ssd_scan kernel takes head and state sizes that "
-                         f"are multiples of 4, not P={p}, N={n}")
-    y = torch.empty_like(x)
-    state = torch.zeros(bsz, h, n, p, dtype=torch.float32, device=x.device)
-    if x.numel() == 0:
-        return y, state
-    _, pad = _chunk(L, ck)
-    xh = _padded_heads(x, pad)
-    dth = _padded_heads(dt[..., None], pad)[..., 0].contiguous()
-    bg, cg = _padded_heads(b, pad), _padded_heads(c, pad)
-    ah = a.float().repeat(bsz).contiguous()
-    yh = torch.empty_like(xh)
-    fn = _build.load("ssd_scan", "ssd_scan_launch",
-                     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                     + [ctypes.c_void_p])
-    err = fn(xh.data_ptr(), dth.data_ptr(), ah.data_ptr(), bg.data_ptr(),
-             cg.data_ptr(), yh.data_ptr(), state.data_ptr(), bsz * h, h, g,
-             L + pad, n, p, _DTYPES[x.dtype],
-             torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "ssd_scan")
+    if (n % 16 or p % 16) if code else (n % 4 or p % 4):
+        raise ValueError(
+            "ssd_scan kernel takes state and head sizes that are multiples "
+            f"of 16 (bfloat16) or of 4 (float32), not N={n}, P={p}")
+    y = torch.empty((bsz, L, h, p), dtype=x.dtype, device=x.device)
+    state = torch.empty((bsz, h, n, p), dtype=torch.float32, device=x.device)
+    if y.numel() == 0:
+        return y, state.zero_()
+    elems = 16 // x.element_size()
+    x, b, c = (_rows_aligned(t, elems) for t in (x, b, c))
+    if a.dtype is not torch.float32 or not a.is_contiguous():
+        a = a.float().contiguous()
+    chunks = -(-L // _KERNEL_CK)
+    # per chunk and head: its own end state (fp32), the carried state as
+    # bf16 hi and lo planes (bf16 inputs), its decay
+    scratch = torch.empty(bsz * h * chunks * (n * p * (1 + code) + 1),
+                          dtype=torch.float32, device=x.device)
+    dims = _DIMS.pack(bsz, L, h, g, n, p, *x.stride()[:3], *dt.stride(),
+                      *b.stride()[:3], *c.stride()[:3], *y.stride()[:3])
+    if _launch is None:
+        _resolve()
+    err = _launch(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+                  c.data_ptr(), y.data_ptr(), state.data_ptr(),
+                  scratch.data_ptr(), dims, code,
+                  _raw_stream(x.get_device()))
+    if err:
+        _build.check(err, "ssd_scan")
     ssd_scan.launches += 1
-    y.copy_(yh.reshape(bsz, h, L + pad, p).movedim(1, 2)[:, :L])
     return y, state
 
 

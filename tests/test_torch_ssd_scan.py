@@ -14,6 +14,14 @@ wrapper does not: it is held to a float64 run of the recurrence
 ``s_t = exp(dt_t a) s_{t-1} + dt_t B_t x_t^T`` on the same (rounded)
 inputs, within 2e-4 in both dtypes, since the state is float32 arithmetic
 and is never rounded to bf16.
+
+The CUDA kernel cannot run here, so :func:`_three_pass` mirrors its
+arithmetic in torch: unpadded 64-step chunks, each chunk's own end state
+and decay, the carried states across chunks, then y from the carried
+state and the masked intra-chunk products.  It reads strided inputs cut
+from one ``xbc``-shaped buffer as the model cuts them, as the kernel does,
+and is held to the plain version and the reference at the tolerances
+above.
 """
 
 import jax.numpy as jnp
@@ -24,6 +32,7 @@ import torch
 from repro.kernels.ssd_scan import ssd_scan as ref_ssd
 from repro.kernels.ssd_scan.ref import ssd_scan_ref
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+from repro_torch.kernels.ssd_scan.ops import _KERNEL_CK, _rows_aligned
 
 CASES = [  # b, L, h, g, p, n, ck, dtype
     (1, 128, 2, 1, 64, 64, 64, "float32"),
@@ -116,3 +125,107 @@ def test_ssd_rejects_bad_shapes():
     with pytest.raises(ValueError):        # 3 heads over 2 groups
         ssd_scan(x, torch.zeros(1, 8, 3), torch.zeros(3),
                  torch.zeros(1, 8, 2, 4), torch.zeros(1, 8, 2, 4))
+
+
+def _three_pass(x, dt, a, bm, cm, q=_KERNEL_CK):
+    """The kernel's three passes (``csrc/ssd_scan.cu``) in fp32 torch on
+    unpadded inputs: (y in x's dtype, final state [B, H, N, P])."""
+    bsz, L, h, p = x.shape
+    rep = h // bm.shape[2]
+    xf, dtf = x.float(), dt.float()
+    bf = bm.float().repeat_interleave(rep, 2)           # [B, L, H, N]
+    cf = cm.float().repeat_interleave(rep, 2)
+    spans = [slice(c0, min(L, c0 + q)) for c0 in range(0, L, q)]
+    own, last, cums = [], [], []
+    for sl in spans:                                    # chunk_state
+        acs = a * torch.cumsum(dtf[:, sl], 1)           # [B, T, H]
+        w = torch.exp(acs[:, -1:] - acs) * dtf[:, sl]
+        own.append(torch.einsum("bth,bthn,bthp->bhnp", w, bf[:, sl],
+                                xf[:, sl]))
+        last.append(acs[:, -1])
+        cums.append(acs)
+    s_in = [torch.zeros_like(own[0])]                   # state_pass
+    for s_own, a_last in zip(own, last):
+        s_in.append(torch.exp(a_last)[..., None, None] * s_in[-1] + s_own)
+    ys = []
+    for sl, acs, s in zip(spans, cums, s_in):           # chunk_out
+        at = acs.transpose(1, 2)                        # [B, H, T]
+        t = at.shape[-1]
+        tril = torch.ones(t, t, dtype=torch.bool).tril()
+        diff = at[..., :, None] - at[..., None, :]
+        decay = torch.exp(torch.where(tril, diff, float("-inf")))
+        w = (torch.einsum("bthn,bjhn->bhtj", cf[:, sl], bf[:, sl]) * decay
+             * dtf[:, sl].transpose(1, 2)[..., None, :])
+        ys.append(torch.exp(acs)[..., None]
+                  * torch.einsum("bthn,bhnp->bthp", cf[:, sl], s)
+                  + torch.einsum("bhtj,bjhp->bthp", w, xf[:, sl]))
+    return torch.cat(ys, 1).to(x.dtype), s_in[-1]
+
+
+def _xbc_inputs(b, L, h, g, p, n, dtype, wide_dt, seed):
+    """One [B, L, H*P + 2*G*N] buffer cut into x, B and C the way
+    ``models/ssd.py`` cuts ``xbc`` (strided views), with dt [B, L, H] and
+    a [H]; the same values, contiguous, for the reference."""
+    rng = np.random.default_rng(seed)
+    di = h * p
+    jd = jnp.dtype(dtype)
+    xbc = np.concatenate([rng.standard_normal((b, L, di)),
+                          rng.standard_normal((b, L, 2 * g * n)) * 0.3], -1)
+    xbc = np.array(jnp.asarray(xbc, jd).astype(jnp.float32))
+    if wide_dt:                           # log-uniform from 1e-4 to 10
+        dts = 10.0 ** rng.uniform(-4, 1, (b, L, h))
+    else:
+        dts = np.abs(rng.standard_normal((b, L, h))) * 0.1 + 0.01
+    dts = np.array(jnp.asarray(dts, jd).astype(jnp.float32))
+    a = (-np.abs(rng.standard_normal(h)) - 0.1).astype(np.float32)
+    tt = getattr(torch, dtype)
+    buf = torch.from_numpy(xbc).to(tt)
+    port = (buf[..., :di].reshape(b, L, h, p),
+            torch.from_numpy(dts).to(tt), torch.from_numpy(a),
+            buf[..., di:di + g * n].reshape(b, L, g, n),
+            buf[..., di + g * n:].reshape(b, L, g, n))
+    ref = (jnp.asarray(xbc[..., :di].reshape(b, L, h, p), jd),
+           jnp.asarray(dts, jd), jnp.asarray(a),
+           jnp.asarray(xbc[..., di:di + g * n].reshape(b, L, g, n), jd),
+           jnp.asarray(xbc[..., di + g * n:].reshape(b, L, g, n), jd))
+    return ref, port
+
+
+@pytest.mark.parametrize("L", [1, 63, 64, 65, 189, 300])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("wide_dt", [False, True])
+def test_three_pass_mirror(L, dtype, wide_dt):
+    """The kernel's passes on unpadded, strided inputs (H 4 over G 2)
+    against the plain version (padded as the reference pads), the
+    reference's sequential oracle and, for dt in the softplus range, its
+    Pallas kernel in interpret mode; dt log-uniform from 1e-4 to 10
+    overflows that kernel's unmasked exponentials, so there only the
+    oracle and the plain version stand.  The state is held to a float64
+    run of the recurrence."""
+    b, h, g, p, n = 2, 4, 2, 32, 16
+    ref_in, port_in = _xbc_inputs(b, L, h, g, p, n, dtype, wide_dt, L)
+    assert not port_in[0].is_contiguous() and not port_in[3].is_contiguous()
+    got, state = _three_pass(*port_in)
+    assert got.dtype == port_in[0].dtype and got.shape == port_in[0].shape
+    plain, plain_state = ssd_scan_plain(*port_in)
+    assert _err(got, jnp.asarray(plain.float().numpy())) < TOL[dtype]
+    assert _err(got, _oracle(*ref_in)) < TOL[dtype]
+    if not wide_dt:
+        assert _err(got, ref_ssd(*ref_in)) < TOL[dtype]
+    assert state.shape == (b, h, n, p)
+    assert _err(state, jnp.asarray(plain_state.numpy())) < 2e-4
+    assert _err(state, _state_oracle(*ref_in[:4])) < 2e-4
+
+
+def test_rows_aligned_keeps_model_views():
+    """The card path passes the model's views of xbc through uncopied and
+    copies only what its 16-byte cp.async rows cannot read."""
+    _, (x, _, _, bm, cm) = _xbc_inputs(1, 70, 4, 1, 64, 64, "bfloat16",
+                                       False, 0)
+    for t in (x, bm, cm):
+        assert _rows_aligned(t, 8) is t
+    odd = torch.zeros(1, 70, 4 * 64 + 1, dtype=torch.bfloat16)
+    view = odd[..., 1:].reshape(1, 70, 4, 64)    # rows off by 2 bytes
+    fixed = _rows_aligned(view, 8)
+    assert fixed is not view and fixed.is_contiguous()
+    assert torch.equal(fixed, view)
