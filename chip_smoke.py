@@ -9,15 +9,19 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    six kernels from ``src/repro_torch/csrc`` (one nvcc per source, in
    parallel) into ``build/repro_torch/``.
 2. Kernel edge cases: every kernel against its plain PyTorch version on the
-   card (merge and rank exactly, Lindley within 1e-9 s; the rank also
-   against np.searchsorted at 4,094-4,097 and 6,143-6,145 fences, 1, 255,
-   257 and 3,007 keys, strided keys and on a side stream; flash_attention
+   card (merge and rank exactly, Lindley within 1e-9 s and bitwise equal
+   over two calls; the merge around its 1,024-output tile, with all-equal
+   keys, duplicates, 1 key against 1,000,000 and on a side stream; Lindley
+   around its 4,096-op tile, over 10,000 rows of 0-3 ops, with d0 above
+   every arrival and past an all-ones NaN (the call must end); the rank
+   also against np.searchsorted at 4,094-4,097 and 6,143-6,145 fences, 1,
+   255, 257 and 3,007 keys, strided keys and on a side stream; flash_attention
    over S 1..384 and 63/64/65, head_dim 64/128, GQA and windows, S 4,096
    with a 128-token window and with GQA rep 2 at D 128, and B 8 grids at
    ragged S 777 and 1,000; ssd_scan's y and final state over L 1..300,
    63/64/65 and 189, G < H, dt from 1e-4 to 10, contiguous inputs and
    strided views of one xbc buffer, and L 4,096 at B 2 and at zamba2's
-   64 heads;
+   64 heads, half of them with the final state from an fp32 state_dt;
    paged_attention over B 1-3, G 1/2/3/6/8, head_dim 64/128, page sizes
    16/32, shuffled page tables with repeats and garbage past the length,
    lengths 0, 1, PS, PS+1 and MAXP*PS, then lengths at the boundaries of
@@ -30,9 +34,10 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    then 2,000,000 YCSB Run A ops (50% GET / 50% update, Zipfian 0.99) at
    8,000 ops/s.  Launch counts are zeroed just before and read just after;
    merge_path, overlap_scan and lindley_scan must have launched.  The
-   (keys, fences) sizes of every rank call are counted on the way (by
-   wrapping the name in the store's modules, not in the package) and must
-   add up to overlap_scan's launches.
+   (keys, fences) sizes of every rank call and the (A, B) lengths of every
+   merge call are counted on the way (by wrapping the names in the store's
+   modules, not in the package) and must add up to overlap_scan's and
+   merge_path's launches.
 4. Serving paths: ``repro_torch.launch.serve.run(arch, smoke=False)`` with
    the reference's defaults (8 requests: two shared 128-token prefixes
    plus 8-63-token tails; 16 greedy tokens each; 32-token prefix blocks;
@@ -48,13 +53,22 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    library call — ``ms``, the median of five CUDA-event-timed trials of
    back-to-back calls, and ``device_ms``, the kernels' own device time from
    torch.profiler — beside the bound: the larger of the bytes at 3.35 TB/s
-   and the operations at 989 TFLOP/s (bf16).  overlap_scan is also timed,
-   beside torch.searchsorted, at the store's commonest call shape from
-   phase 3.  The LM kernels are also
+   and the operations at 989 TFLOP/s (bf16).  overlap_scan and merge_path
+   are also timed at the store's commonest call shape from phase 3 (beside
+   torch.searchsorted and torch.sort), lindley_scan over a ragged batch of
+   4,096 rows, ssd_scan with and without its final-state run.  The LM
+   kernels are also
    timed at a 4,096-token prefill (flash_attention at zamba2's and at
    qwen3-1.7b's heads), paged_attention at 8 sequences and at 1 sequence
    of 4,096 tokens over a shuffled pool.
-6. Cross-checks: the store path again with ``compute_device="cpu"`` (per-op
+6. Cross-checks: zamba2-1.2b in bf16 at full width and depth, every
+   Mamba2 layer's final state from the kernel against a sequential fp32
+   scan with fp32 dt (the reference's ``ssd_final_state``) on the layer's
+   own inputs, within SSD_STATE_TOL; then 15 decode steps in float32
+   (the weights widened): greedy tokens from the kernel's states equal to
+   the fp32 scan's, and, fed an fp64 scan's tokens, logits within 1e-3 of
+   max(1, max|logit|) of that scan's, where states from bf16 dt must fall
+   outside; the store path again with ``compute_device="cpu"`` (per-op
    reads/probed and stall counts identical, latency within 1e-9 s); each
    serving model in float32 at full width, depth cut (zamba2 to 7 layers,
    one shared-attention application; qwen3 to 2), card against CPU on the
@@ -74,6 +88,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import math
 import subprocess
 import sys
 import time
@@ -91,8 +106,11 @@ LINDLEY_TOL_S = 1e-9
 # and ~1e-4 before rounding.
 # ssd's fp32 rtol covers its cumsums over 64- vs 128-step chunks: exponents
 # up to ~700 carry ~1e-5 relative error into y (a CPU emulation of the
-# kernel's chunking reaches a quarter of it).  The state is fp32 arithmetic
-# in both dtypes and is never rounded to bf16.
+# kernel's chunking reaches a quarter of it).  SSD_STATE_TOL holds the
+# final state: fp32 arithmetic from fp32 or bf16 inputs; from bf16 inputs
+# the kernel's y-state (no state_dt) carries ~16 significant bits of each
+# chunk's (B * w)^T X (bf16 hi + lo parts), the final-state run (state_dt,
+# the model's) ~24 (three parts).
 TOL = {("flash_attention", "float32"): (2e-5, 0.0),
        ("flash_attention", "bfloat16"): (1e-3, 1e-2),
        ("ssd_scan", "float32"): (2e-4, 1e-4),
@@ -125,6 +143,7 @@ SOURCES = {"merge_path": "kernels/merge_path/kernel.py:131",
            "paged_attention": "kernels/paged_attention/kernel.py:102"}
 N_LOAD = 8_000_000             # uniform keys loaded (before de-duplication)
 N_RUN = 2_000_000              # YCSB Run A ops after the settle
+LINDLEY_ROWS = 4096            # the ragged batch lindley_scan is timed at
 
 
 def fail(msg: str) -> None:
@@ -221,44 +240,65 @@ def distinct_probes(torch, fences, keys, side: str) -> int:
     return int(torch.unique(torch.cat(seen)).numel())
 
 
-class RankShapes:
-    """Counts the (keys, fences) sizes of every card call of fence_rank
-    that launches (keys > 0), by wrapping the name in the store's modules
-    that imported it; the package itself is left as it is."""
+class CallShapes:
+    """Counts the sizes of every card call of a kernel's wrapper that
+    launches, by wrapping its name in the store's modules that imported it;
+    the package itself is left as it is.  ``shape(*args)`` gives a call's
+    sizes, or None for a call that launches nothing."""
 
-    MODULES = ("lsm", "sst", "level_index", "memtable", "vsst")
-
-    def __init__(self):
+    def __init__(self, ops_module: str, name: str, modules, shape):
         self.counts: collections.Counter = collections.Counter()
+        self._where = (ops_module, name, modules, shape)
         self._patched: list = []
 
     def __enter__(self):
         import importlib
+        ops_module, name, modules, shape = self._where
+        orig = getattr(importlib.import_module(ops_module), name)
+        counts = self.counts
 
-        from repro_torch.kernels.overlap_scan import ops
-        orig, counts = ops.fence_rank, self.counts
-
-        def recorded(fences, keys, side="right"):
-            if keys.is_cuda and keys.numel():
-                counts[(int(keys.numel()), int(fences.shape[0]))] += 1
-            return orig(fences, keys, side)
-        for name in self.MODULES:
-            mod = importlib.import_module(f"repro_torch.core.{name}")
-            if mod.fence_rank is orig:
-                mod.fence_rank = recorded
+        def recorded(*args, **kwargs):
+            key = shape(*args, **kwargs)
+            if key is not None:
+                counts[key] += 1
+            return orig(*args, **kwargs)
+        for mod_name in modules:
+            mod = importlib.import_module(f"repro_torch.core.{mod_name}")
+            if getattr(mod, name) is orig:
+                setattr(mod, name, recorded)
                 self._patched.append(mod)
         self._orig = orig
         return self
 
     def __exit__(self, *exc):
         for mod in self._patched:
-            mod.fence_rank = self._orig
+            setattr(mod, self._where[1], self._orig)
 
     def report(self) -> dict:
         return {"calls": sum(self.counts.values()),
                 "distinct_shapes": len(self.counts),
-                "top": [[m, n, c] for (m, n), c in
-                        self.counts.most_common(12)]}
+                "top": [[*k, c] for k, c in self.counts.most_common(12)]}
+
+
+def rank_shapes() -> CallShapes:
+    """(keys, fences) of every card call of fence_rank with keys."""
+    def shape(fences, keys, side="right"):
+        if keys.is_cuda and keys.numel():
+            return int(keys.numel()), int(fences.shape[0])
+        return None
+    return CallShapes("repro_torch.kernels.overlap_scan.ops", "fence_rank",
+                      ("lsm", "sst", "level_index", "memtable", "vsst"),
+                      shape)
+
+
+def merge_shapes() -> CallShapes:
+    """(A's length, B's length) of every card call of merge_two_runs with
+    a key to merge."""
+    def shape(a_keys, a_seqs, b_keys, b_seqs):
+        n_a, n_b = int(a_keys.shape[0]), int(b_keys.shape[0])
+        return (n_a, n_b) if a_keys.is_cuda and n_a + n_b else None
+    return CallShapes("repro_torch.kernels.merge_path.ops", "merge_two_runs",
+                      ("merge",), shape)
 
 
 def bound_ms(nbytes: float) -> float:
@@ -340,7 +380,12 @@ def check_equal(torch, what: str, got, want) -> int:
 
 
 def edge_merge(torch, np, rng) -> int:
-    from repro_torch.kernels.merge_path.ops import (merge_two_runs,
+    """merge_path against its plain version, exactly: INT64_MIN/MAX, empty
+    runs; then, around the kernel's tile T, outputs of T - 1, T, T + 1 and
+    several tiles (one run alone and split between both); all-equal keys in
+    both runs (ties on every tile's diagonal); duplicates within each run;
+    1 key against 1,000,000 both ways; and a call on a side stream."""
+    from repro_torch.kernels.merge_path.ops import (TILE, merge_two_runs,
                                                     merge_two_runs_plain)
     big = 2 ** 62
     cases = [
@@ -351,16 +396,36 @@ def edge_merge(torch, np, rng) -> int:
         (np.unique(rng.integers(-1000, 1000, 1500)),
          np.unique(rng.integers(-1000, 1000, 900))),
     ]
+    more = np.random.default_rng(22)        # rng's draws stay as they were
+    for n in (TILE - 1, TILE, TILE + 1, 5 * TILE + 3):
+        keys = np.sort(more.integers(-2 ** 63, 2 ** 63 - 1, n))
+        cases += [(keys, np.array([], np.int64)),
+                  (np.array([], np.int64), keys),
+                  (keys[::2], np.unique(keys[1::2]))]
+    cases += [(np.full(3 * TILE + 7, 9), np.full(2 * TILE - 5, 9)),
+              (np.full(TILE, -2 ** 63), np.full(TILE + 1, -2 ** 63)),
+              (np.sort(more.integers(0, 50, 6000)),
+               np.sort(more.integers(0, 50, 4000))),
+              (np.array([500_000]), np.arange(1_000_000) * 2),
+              (np.arange(1_000_000) * 2 + 1, np.array([-3]))]
     err = 0
     for a, b in cases:
         a = torch.tensor(np.asarray(a, np.int64), device="cuda")
         b = torch.tensor(np.asarray(b, np.int64), device="cuda")
         sa = torch.arange(a.shape[0], device="cuda") + 2 ** 40
         sb = torch.arange(b.shape[0], device="cuda") + 2 ** 41
-        err = max(err, check_equal(torch, "merge_path edge case",
-                                   merge_two_runs(a, sa, b, sb),
-                                   merge_two_runs_plain(a, sa, b, sb)))
-    return err
+        err = max(err, check_equal(
+            torch, f"merge_path edge case {a.shape[0]} + {b.shape[0]}",
+            merge_two_runs(a, sa, b, sb), merge_two_runs_plain(a, sa, b, sb)))
+    side_stream = torch.cuda.Stream()
+    side_stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side_stream):
+        got = merge_two_runs(a, sa, b, sb)
+    side_stream.synchronize()
+    return max(err, check_equal(torch, "merge_path on a side stream",
+                                [t.cpu() for t in got],
+                                [t.cpu() for t in merge_two_runs_plain(
+                                    a, sa, b, sb)]))
 
 
 def edge_rank(torch, np, rng) -> int:
@@ -413,9 +478,32 @@ def edge_rank(torch, np, rng) -> int:
                                 [got.cpu()], [want]))
 
 
-def edge_lindley(torch, np, rng) -> float:
+def check_lindley(torch, what: str, s, a, offsets, d0=None) -> float:
+    """lindley_scan called twice: within LINDLEY_TOL_S of its plain version
+    and bitwise equal to itself; returns the largest |err|."""
     from repro_torch.kernels.lindley_scan.ops import (lindley_batch,
                                                       lindley_batch_plain)
+    got = lindley_batch(s, a, offsets, d0)
+    again = lindley_batch(s, a, offsets, d0)
+    err = float((got - lindley_batch_plain(s, a, offsets, d0)).abs().max()) \
+        if got.numel() else 0.0
+    if not err <= LINDLEY_TOL_S:
+        fail(f"lindley_scan {what}: max |err| {err} > {LINDLEY_TOL_S}")
+    if not torch.equal(got.view(torch.int64), again.view(torch.int64)):
+        fail(f"lindley_scan {what}: two calls differ")
+    return err
+
+
+def edge_lindley(torch, np, rng) -> float:
+    """lindley_scan against its plain version (within 1e-9 s) and against
+    itself (bitwise, two calls): a ragged batch with empty rows, rows of
+    1,023-1,025 ops and a 1.5 M-op row; rows of T - 1, T,
+    T + 1 and 3T + 5 ops around the kernel's tile T (one row alone and
+    all together, unaligned offsets); 10,000 rows of 0-3 ops; a row of 5
+    tiles whose running max is d0 throughout; and a row of 5 tiles with a
+    NaN of all-ones bits in its service and its arrivals, which must end
+    and agree with the plain version before the NaN."""
+    from repro_torch.kernels.lindley_scan.ops import TILE
     lens = [0, 1, 1023, 1024, 1025, 0, 5000, 1_500_000]
     d0 = [0.0, 3.0, -np.inf, 1.0, -np.inf, 2.0, 0.5, -np.inf]
     n = sum(lens)
@@ -424,12 +512,54 @@ def edge_lindley(torch, np, rng) -> float:
     offsets = np.concatenate([[0], np.cumsum(lens)])
     s = torch.from_numpy(service).to("cuda")
     a = torch.from_numpy(arrivals).to("cuda")
-    got = lindley_batch(s, a, offsets, d0)
-    want = lindley_batch_plain(s, a, offsets, d0)
-    err = float((got - want).abs().max())
-    if not err <= LINDLEY_TOL_S:
-        fail(f"lindley_scan edge cases: max |err| {err} > {LINDLEY_TOL_S}")
-    return err
+    err = check_lindley(torch, "edge cases", s, a, offsets, d0)
+    more = np.random.default_rng(23)        # rng's draws stay as they were
+    lens = [TILE - 1, TILE, TILE + 1, 3 * TILE + 5]
+    service = more.exponential(1e-3, sum(lens))
+    arrivals = np.concatenate([np.sort(more.uniform(0, 10, m)) for m in lens])
+    s = torch.from_numpy(service).to("cuda")
+    a = torch.from_numpy(arrivals).to("cuda")
+    offsets = np.concatenate([[0], np.cumsum(lens)])
+    err = max(err, check_lindley(torch, "rows around the tile", s, a,
+                                 offsets, [-np.inf, 1.0, 5.0, -np.inf]))
+    for r, m in enumerate(lens):
+        lo = int(offsets[r])
+        err = max(err, check_lindley(torch, f"one row of {m} ops",
+                                     s[lo:lo + m], a[lo:lo + m], [0, m]))
+    lens = more.integers(0, 4, 10_000)
+    service = more.exponential(1e-3, int(lens.sum()))
+    arrivals = more.uniform(0, 1, int(lens.sum()))
+    offsets = np.concatenate([[0], np.cumsum(lens)])
+    for r in range(lens.size):
+        arrivals[offsets[r]:offsets[r + 1]].sort()
+    err = max(err, check_lindley(
+        torch, "10,000 rows of 0-3 ops", torch.from_numpy(service).cuda(),
+        torch.from_numpy(arrivals).cuda(), offsets,
+        more.uniform(-1, 1, lens.size)))
+    m = 5 * TILE
+    s = torch.from_numpy(more.exponential(1e-6, m)).cuda()
+    a = torch.from_numpy(np.sort(more.uniform(0, 1, m))).cuda()
+    err = max(err, check_lindley(torch, "d0 above every arrival", s, a,
+                                 [0, m], [1000.0]))
+    # a NaN whose bits are all ones (the kernel's unpublished word) in the
+    # service and the arrivals of a 5-tile row: the call must end, and the
+    # departures before it agree with the plain version's
+    from repro_torch.kernels.lindley_scan.ops import (lindley_batch,
+                                                      lindley_batch_plain)
+    service = more.exponential(1e-3, m)
+    arrivals = np.sort(more.uniform(0, 10, m))
+    first = 2 * TILE + 7
+    service[first] = arrivals[3 * TILE + 1] = \
+        np.array([-1], np.int64).view(np.float64)[0]
+    s = torch.from_numpy(service).cuda()
+    a = torch.from_numpy(arrivals).cuda()
+    got = lindley_batch(s, a, [0, m])[:first]
+    torch.cuda.synchronize()
+    nan_err = float((got - lindley_batch_plain(s, a, [0, m])[:first])
+                    .abs().max())
+    if not nan_err <= LINDLEY_TOL_S:
+        fail(f"lindley_scan before an all-ones NaN: max |err| {nan_err}")
+    return max(err, nan_err)
 
 
 # ---------------------------------------------------- main-shape timings
@@ -453,6 +583,30 @@ def time_merge(torch, sim) -> dict:
                    lambda: merge_two_runs_plain(b_k, b_s, a_k, a_s),
                    lambda: torch.sort(torch.cat([b_k, a_k]), stable=True),
                    40)}
+
+
+def time_merge_at(torch, np, trace, n_a: int, n_b: int) -> dict:
+    """merge_path at the store's commonest merge shape: n_a and n_b of the
+    loaded keys, each run sorted and unique, drawn apart (seeded)."""
+    from repro_torch.kernels.merge_path.ops import (merge_two_runs,
+                                                    merge_two_runs_plain)
+    _, keys, _, n_load = trace
+    pick = np.random.default_rng(24)
+    runs = []
+    for m, base in ((n_a, 2 ** 40), (n_b, 2 ** 41)):
+        k = np.sort(pick.choice(keys[:n_load], m, replace=False))
+        runs += [torch.from_numpy(k).to("cuda"),
+                 torch.arange(m, device="cuda") + base]
+    a_k, a_s, b_k, b_s = runs
+    err = check_equal(torch, f"merge_path at {n_a} + {n_b}",
+                      merge_two_runs(*runs), merge_two_runs_plain(*runs))
+    return {
+        "shape": f"{n_a} + {n_b} keys (the store's commonest merge)",
+        "max_abs_err": err, "bound_ms": bound_ms(32 * (n_a + n_b)),
+        **time_all(torch, lambda: merge_two_runs(*runs),
+                   lambda: merge_two_runs_plain(*runs),
+                   lambda: torch.sort(torch.cat([a_k, b_k]), stable=True),
+                   200)}
 
 
 def time_rank(torch, np, sim, trace) -> dict:
@@ -508,30 +662,53 @@ def time_rank_at(torch, np, trace, m: int, n: int) -> dict:
                    lambda: torch.searchsorted(fences, k, side="left"), 200)}
 
 
-def time_lindley(torch, np, sim, res) -> dict:
-    """One queue of the main path's length: its real arrivals and its base
-    service (per-kind CPU cost plus block reads at the device's block
-    time), before busy inflation and stalls."""
+def lindley_queue(np, sim, res):
+    """The main path's one queue: its real arrivals and its base service
+    (per-kind CPU cost plus block reads at the device's block time),
+    before busy inflation and stalls."""
     from repro_torch.core.sim import GET_CPU, PUT_SERVICE
-    from repro_torch.kernels.lindley_scan.ops import (lindley_batch,
-                                                      lindley_batch_plain)
     dev = sim.device
     block_t = dev.io_latency + dev.block_size / dev.read_bw
     service = np.where(res.op_types == 1, GET_CPU, PUT_SERVICE) \
         + res.get_reads * block_t
+    return service, res.arrivals.astype(np.float64)
+
+
+def time_lindley(torch, np, service, arrivals) -> dict:
+    """One queue of float64 ``service`` and ``arrivals`` (numpy)."""
+    from repro_torch.kernels.lindley_scan.ops import (lindley_batch,
+                                                      lindley_batch_plain)
     n = int(service.shape[0])
     s = torch.from_numpy(service).to("cuda")
-    a = torch.from_numpy(res.arrivals.astype(np.float64)).to("cuda")
+    a = torch.from_numpy(arrivals).to("cuda")
     offsets = [0, n]
-    got = lindley_batch(s, a, offsets)
-    err = float((got - lindley_batch_plain(s, a, offsets)).abs().max())
-    if not err <= LINDLEY_TOL_S:
-        fail(f"lindley_scan at the main path's shape: max |err| {err}")
+    err = check_lindley(torch, "at the main path's shape", s, a, offsets)
     return {
         "shape": f"1 queue of {n} ops",
         "max_abs_err": err, "bound_ms": bound_ms(24 * n),
         **time_all(torch, lambda: lindley_batch(s, a, offsets),
                    lambda: lindley_batch_plain(s, a, offsets), None, 20)}
+
+
+def time_lindley_ragged(torch, np, arrivals, rows: int) -> dict:
+    """A ragged batch of ``rows`` queues, as a fleet of shards sends:
+    ``arrivals`` (the main path's) cut at ``rows - 1`` seeded points into
+    contiguous rows (mean ~2,400 ops), service exponential with a 20 us
+    mean."""
+    from repro_torch.kernels.lindley_scan.ops import (lindley_batch,
+                                                      lindley_batch_plain)
+    n = int(arrivals.shape[0])
+    cut = np.random.default_rng(25)
+    offsets = np.concatenate([[0], np.sort(cut.choice(np.arange(1, n),
+                                                      rows - 1, False)), [n]])
+    s = torch.from_numpy(cut.exponential(2e-5, n)).to("cuda")
+    a = torch.from_numpy(arrivals.astype(np.float64)).to("cuda")
+    err = check_lindley(torch, f"over {rows} rows", s, a, offsets)
+    return {
+        "shape": f"{rows} rows, {n} ops", "max_abs_err": err,
+        "bound_ms": bound_ms(24 * n + 8 * (2 * rows + 1)),
+        **time_all(torch, lambda: lindley_batch(s, a, offsets),
+                   lambda: lindley_batch_plain(s, a, offsets), None, 8)}
 
 
 # ----------------------------------------------------- where time goes
@@ -660,8 +837,9 @@ def edge_ssd(torch) -> float:
     chunk edges and the serving length, L 63, 64, 65 and 189, with (N, P)
     (64, 64) and (16, 32), contiguous and as strided views of one xbc
     buffer; and L 4,096 strided, at B 2 x H 4 and at zamba2-1.2b's B 1 x
-    H 64 (bf16, dt in the softplus range).  All at B 2 unless said.
-    Returns the largest |err| of y."""
+    H 64 (bf16, dt in the softplus range).  All at B 2 unless said; every
+    other case, and zamba2's both ways, with an fp32 ``state_dt`` (the
+    final state's run).  Returns the largest |err| of y."""
     from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
     gen = torch.Generator(device="cuda")
     gen.manual_seed(12)
@@ -676,18 +854,24 @@ def edge_ssd(torch) -> float:
               for dt in ("float32", "bfloat16") for strided in (False, True)]
     cases += [(2, LONG_PREFILL, 4, 1, 64, 64, dt, True)
               for dt in ("float32", "bfloat16")]
-    for b, L, h, g, n, p, dt_name, strided in cases:
+    for i, (b, L, h, g, n, p, dt_name, strided) in enumerate(cases):
         args = ssd_inputs(torch, gen, b, L, h, g, n, p,
                           getattr(torch, dt_name), strided)
+        # every other case as the model calls it: the final state from an
+        # fp32 dt that y's dt rounds
+        kw = {"state_dt": args[1].float() * (1 + 2 ** -10)} if i % 2 else {}
         worst = max(worst, check_ssd(
             f"ssd_scan edge case B={b} L={L} H={h} G={g} N={n} P={p} "
-            f"{dt_name} strided={strided}",
-            ssd_scan(*args), ssd_scan_plain(*args)))
+            f"{dt_name} strided={strided} state_dt={bool(kw)}",
+            ssd_scan(*args, **kw), ssd_scan_plain(*args, **kw)))
     args = ssd_inputs(torch, gen, 1, LONG_PREFILL, 64, 1, 64, 64,
                       torch.bfloat16, True, (-1, 0.5))
-    return max(worst, check_ssd(
-        f"ssd_scan edge case zamba2 heads, L={LONG_PREFILL}, strided",
-        ssd_scan(*args), ssd_scan_plain(*args)))
+    for kw in ({}, {"state_dt": args[1].float() * (1 + 2 ** -10)}):
+        worst = max(worst, check_ssd(
+            f"ssd_scan edge case zamba2 heads, L={LONG_PREFILL}, strided, "
+            f"state_dt={bool(kw)}",
+            ssd_scan(*args, **kw), ssd_scan_plain(*args, **kw)))
+    return worst
 
 
 def check_ssd(what: str, got, want) -> float:
@@ -879,6 +1063,123 @@ def serve_cross_check(torch, np, arch: str, layers: int) -> dict:
             "max_abs_logit": scale, "card_s": c_wall, "cpu_s": h_wall}
 
 
+def sequential_state(torch, x, dt, a, bm):
+    """Mamba2's final state by the reference's own formulation
+    (``ssd_final_state``): a sequential fp32 scan, fp32 dt, fp32 products
+    of B and x.  x [B, L, H, P], dt [B, L, H] fp32, a [H], bm [B, L, G, N]
+    -> [B, H, N, P]."""
+    b, L, h, p = x.shape
+    bf = bm.repeat_interleave(h // bm.shape[2], dim=2)
+    s = torch.zeros((b, h, bm.shape[3], p), dtype=torch.float32,
+                    device=x.device)
+    lam = torch.exp(dt * a[None, None, :])
+    for t in range(L):
+        s = lam[:, t, :, None, None] * s + dt[:, t, :, None, None] * (
+            bf[:, t, :, :, None] * x[:, t, :, None, :].float())
+    return s
+
+
+def serve_state_check(torch, np) -> dict:
+    """zamba2-1.2b at full width and depth in bf16 (seeded weights), the
+    first request's prefill on the card: every Mamba2 layer's final state
+    from the kernel, held under SSD_STATE_TOL to ``sequential_state`` (fp32)
+    on that layer's own scan inputs (recorded by wrapping the model's
+    ``ssd_scan``).  Then the hand-off to decode, in float32 (the same
+    weights and caches widened: bf16 decode turns any rounding-level change
+    of a state into whole ulps of the logits, which then spread, so it
+    cannot tell a right state from a wrong one): from the prefill's first
+    token, 15 greedy steps from the kernel's states must give the tokens
+    the fp32 sequential scan's give; fed the tokens of an fp64 sequential
+    scan's states, their logits must stay within CROSS_TOL of max(1,
+    max|logit|) of that scan's at every step, and those of states from dt
+    rounded to bf16 (the fault this check guards against, in the same
+    sequential scan) must not."""
+    import repro_torch.models.ssd as ssd_mod
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import decode_step, forward, init_model
+    cfg = get_config("zamba2_1_2b")
+    params = init_model(cfg, 0, compute_device="cuda")
+    tokens = make_requests(SERVE_REQUESTS, cfg.vocab_size)[0]
+    orig, calls = ssd_mod.ssd_scan, []
+
+    def recorded(x, dt, a, b, c, **kw):
+        y, state = orig(x, dt, a, b, c, **kw)
+        calls.append((x, kw.get("state_dt"), a, b, state))
+        return y, state
+    ssd_mod.ssd_scan = recorded
+    try:
+        logits, cache = forward(cfg, params, {"tokens": tokens[None]},
+                                cache_len=512, compute_device="cuda")
+    finally:
+        ssd_mod.ssd_scan = orig
+    if len(calls) != cfg.n_layers or any(c[1] is None for c in calls):
+        fail("zamba2 state check: every Mamba2 layer must scan with the "
+             "fp32 state_dt")
+    if not torch.equal(cache["state"], torch.stack([c[4] for c in calls])):
+        fail("zamba2 state check: the cache holds other states")
+    errs, sets = [], {"kernel": [], "seq32": [], "seq64": [], "bf16_dt": []}
+    for i, (x, dt, a, bm, state) in enumerate(calls):
+        sets["kernel"].append(state)
+        sets["seq32"].append(sequential_state(torch, x, dt, a, bm))
+        sets["seq64"].append(sequential_state(
+            torch, x.double(), dt.double(), a.double(), bm.double()).float())
+        sets["bf16_dt"].append(sequential_state(
+            torch, x, dt.to(x.dtype).float(), a, bm))
+        errs.append(check_close(f"zamba2 bf16 layer {i} final state",
+                                "ssd_scan", state, sets["seq32"][-1],
+                                SSD_STATE_TOL))
+
+    def widen(tree):
+        return {k: widen(v) if isinstance(v, dict) else
+                v.float() if v.is_floating_point() else v
+                for k, v in tree.items()}
+    params32, cache32 = widen(params), widen(cache)
+    del params
+    tok0 = torch.argmax(logits[:, -1:], -1)
+    pos = torch.tensor([len(tokens)], device="cuda")
+
+    def decode(states, feed=None):
+        """(greedy tokens, logits of each step) in float32 from ``states``,
+        fed ``feed`` if given."""
+        c = {k: v.clone() for k, v in cache32.items()}
+        c["state"] = torch.stack(states)
+        tok, toks, steps = tok0, [int(tok0[0, 0])], []
+        for t in range(DECODE_TOKENS - 1):
+            lg, c = decode_step(cfg, params32, tok, pos + t, c,
+                                compute_device="cuda")
+            steps.append(lg[0, -1])
+            toks.append(int(torch.argmax(steps[-1])))
+            tok = torch.full_like(tok, feed[t + 1] if feed else toks[-1])
+        return toks, steps
+    toks = {name: decode(sets[name])[0] for name in ("kernel", "seq32")}
+    if toks["kernel"] != toks["seq32"]:
+        fail(f"zamba2 state check: greedy tokens from the kernel's states "
+             f"{toks['kernel']}, from the fp32 scan's {toks['seq32']}")
+    ref_toks, ref_steps = decode(sets["seq64"])
+    scale = max(1.0, max(float(p.abs().max()) for p in ref_steps))
+    dist = {name: [float((p - q).abs().max()) for p, q in
+                   zip(decode(sets[name], ref_toks)[1], ref_steps)]
+            for name in ("kernel", "seq32", "bf16_dt")}
+    bound = CROSS_TOL * scale
+    if max(dist["kernel"]) > bound:
+        fail(f"zamba2 state check: float32 decode logits from the kernel's "
+             f"states move up to {max(dist['kernel'])} from the fp64 scan's, "
+             f"more than {bound}")
+    if max(dist["bf16_dt"]) <= bound:
+        fail(f"zamba2 state check: states from bf16 dt move the logits only "
+             f"{max(dist['bf16_dt'])}, within {bound}: the check cannot see "
+             "the fault")
+    return {"layers": len(calls), "prompt_tokens": len(tokens),
+            "max_abs_state_err": max(errs), "per_layer_err": errs,
+            "max_abs_state": max(float(p.abs().max()) for p in sets["seq32"]),
+            "bf16_dt_state_err": max(float((p - q).abs().max()) for p, q in
+                                     zip(sets["bf16_dt"], sets["seq32"])),
+            "tokens": toks["kernel"], "tokens_fp64": ref_toks,
+            "max_abs_logit": scale, "logit_bound": bound,
+            **{f"logit_dist_{k}": v for k, v in dist.items()}}
+
+
 # ----------------------------------------------------- LM kernel timings
 def flash_bound(bh: int, s: int, d: int, bkv: int | None = None,
                 nbytes_el: int = 2):
@@ -1019,8 +1320,10 @@ def time_paged_long(torch, reps: int, b: int = LONG_DECODE[0]) -> dict:
 def time_ssd(torch, L: int, reps: int) -> dict:
     """zamba2-1.2b's Mamba2 prefill: B 1, 64 heads of P 64, one group of
     N 64, bf16, at L tokens, x, B and C as strided views of one xbc buffer
-    as ``models/ssd.py`` passes them (seeded random inputs, dt in the
-    softplus range); the kernel pads nothing."""
+    and the final state from an fp32 ``state_dt``, as ``models/ssd.py``
+    calls it (seeded random inputs, dt in the softplus range); also timed
+    without ``state_dt`` (y's scan alone), the cost of the state's run.
+    The kernel pads nothing."""
     from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
     gen = torch.Generator(device="cuda")
     gen.manual_seed(14)
@@ -1032,17 +1335,28 @@ def time_ssd(torch, L: int, reps: int) -> dict:
     x = xbc[..., :64 * 64].reshape(1, L, 64, 64)
     bm = xbc[..., 64 * 64:64 * 64 + 64].reshape(1, L, 1, 64)
     cm = xbc[..., 64 * 64 + 64:].reshape(1, L, 1, 64)
-    dt = torch.nn.functional.softplus(
-        torch.randn((1, L, 64), generator=gen, device="cuda")).to(bf)
+    dt32 = torch.nn.functional.softplus(
+        torch.randn((1, L, 64), generator=gen, device="cuda"))
+    dt = dt32.to(bf)
     a = -torch.ones(64, device="cuda")
-    err = check_ssd(f"ssd_scan at L={L}", ssd_scan(x, dt, a, bm, cm),
-                    ssd_scan_plain(x, dt, a, bm, cm))
+    err = check_ssd(f"ssd_scan at L={L}",
+                    ssd_scan(x, dt, a, bm, cm, state_dt=dt32),
+                    ssd_scan_plain(x, dt, a, bm, cm, state_dt=dt32))
+    state_err = float((ssd_scan(x, dt, a, bm, cm, state_dt=dt32)[1]
+                       - sequential_state(torch, x, dt32, a, bm)).abs().max())
     bound, by = ssd_bound(1, L, 64, 1, 64, 64)
-    return {"shape": f"BH 64, L {L}, P 64, N 64, bf16, strided xbc views",
+    return {"shape": f"BH 64, L {L}, P 64, N 64, bf16, strided xbc views, "
+                     "fp32 state_dt",
             "max_abs_err": err, "bound_ms": bound, "bound_by": by,
-            **time_all(torch, lambda: ssd_scan(x, dt, a, bm, cm),
-                       lambda: ssd_scan_plain(x, dt, a, bm, cm), None,
-                       reps)}
+            "state_err_vs_sequential": state_err,
+            "without_state_dt_ms": cuda_ms(
+                torch, lambda: ssd_scan(x, dt, a, bm, cm), reps),
+            "without_state_dt_device_ms": device_ms(
+                torch, lambda: ssd_scan(x, dt, a, bm, cm), reps),
+            **time_all(torch, lambda: ssd_scan(x, dt, a, bm, cm,
+                                               state_dt=dt32),
+                       lambda: ssd_scan_plain(x, dt, a, bm, cm,
+                                              state_dt=dt32), None, reps)}
 
 
 def profile_serve(torch, np, arch: str) -> dict:
@@ -1112,9 +1426,10 @@ def main() -> int:
     before = kernels.launch_counts()
     for policy in ("vlsm", "rocksdb"):
         torch.cuda.reset_peak_memory_stats()
-        with RankShapes() as shapes:
+        with rank_shapes() as shapes, merge_shapes() as merges:
             sim, res, wall = run_main_path(torch, np, policy, trace, "cuda")
         report[f"rank_shapes_{policy}"] = shapes.report()
+        report[f"merge_shapes_{policy}"] = merges.report()
         after = kernels.launch_counts()
         launches[policy] = {k: after[k] - before[k] for k in after}
         before = after
@@ -1131,13 +1446,21 @@ def main() -> int:
         if shapes.report()["calls"] != launches[policy]["overlap_scan"]:
             fail(f"{policy}: {shapes.report()['calls']} recorded rank calls, "
                  f"{launches[policy]['overlap_scan']} launches")
+        if merges.report()["calls"] != launches[policy]["merge_path"]:
+            fail(f"{policy}: {merges.report()['calls']} recorded merge calls, "
+                 f"{launches[policy]['merge_path']} launches")
         print(f"rank shapes {policy}: " + json.dumps(shapes.report()),
+              flush=True)
+        print(f"merge shapes {policy}: " + json.dumps(merges.report()),
               flush=True)
     total = kernels.launch_counts()
     common = collections.Counter()
+    common_merge = collections.Counter()
     for policy in ("vlsm", "rocksdb"):
         for m, n, c in report[f"rank_shapes_{policy}"]["top"]:
             common[(m, n)] += c
+        for n_a, n_b, c in report[f"merge_shapes_{policy}"]["top"]:
+            common_merge[(n_a, n_b)] += c
 
     serve_launches = {}
     for arch, (must_launch, _) in SERVE_PATHS.items():
@@ -1163,12 +1486,17 @@ def main() -> int:
     sim, res = runs["vlsm"]
     timings = {"merge_path": time_merge(torch, sim),
                "overlap_scan": time_rank(torch, np, sim, trace),
-               "lindley_scan": time_lindley(torch, np, sim, res)}
+               "lindley_scan": time_lindley(torch, np,
+                                            *lindley_queue(np, sim, res))}
     report["rank_common"] = time_rank_at(torch, np, trace,
                                          *common.most_common(1)[0][0])
     timings["overlap_scan"]["max_abs_err"] = max(
         timings["overlap_scan"]["max_abs_err"],
         report["rank_common"]["max_abs_err"])
+    report["merge_common"] = time_merge_at(torch, np, trace,
+                                           *common_merge.most_common(1)[0][0])
+    report["lindley_ragged"] = time_lindley_ragged(torch, np, res.arrivals,
+                                                   LINDLEY_ROWS)
     del runs, sim, res
     s_serve = max(report["serve_zamba2_1_2b"]["prompt_tokens"])
     timings["flash_attention"] = time_flash(torch, s_serve, 40)
@@ -1203,6 +1531,10 @@ def main() -> int:
           + json.dumps(report["zamba2_decode_paged"]), flush=True)
     print("timing overlap_scan at the store's commonest shape: "
           + json.dumps(report["rank_common"]), flush=True)
+    print("timing merge_path at the store's commonest shape: "
+          + json.dumps(report["merge_common"]), flush=True)
+    print(f"timing lindley_scan over {LINDLEY_ROWS} rows: "
+          + json.dumps(report["lindley_ragged"]), flush=True)
     for name, t in report["long_prefill"].items():
         print(f"timing {name} at {LONG_PREFILL} tokens: " + json.dumps(t),
               flush=True)
@@ -1210,6 +1542,11 @@ def main() -> int:
         print(f"timing {name}, long decode: " + json.dumps(t), flush=True)
     torch.cuda.empty_cache()
 
+    report["zamba2_bf16_states"] = serve_state_check(torch, np)
+    print("zamba2 bf16 states: " + json.dumps(
+        {k: v for k, v in report["zamba2_bf16_states"].items()
+         if k != "per_layer_err"}), flush=True)
+    torch.cuda.empty_cache()
     for arch, (_, layers) in SERVE_PATHS.items():
         cross = serve_cross_check(torch, np, arch, layers)
         report[f"cross_serve_{arch}"] = cross

@@ -48,10 +48,15 @@
 // times X, (B * w)^T times X, C times S_in) with that operand split into
 // bf16 hi + lo halves (~16 significant bits); the state pass writes S_in
 // already split, so chunk_out loads it by cp.async like its other tiles.
-// So the final state of bf16 inputs carries ~16 significant bits of each
-// chunk's (B * w)^T X: ~2e-5 from the plain version's fp32 state at
-// zamba2-1.2b's shapes (PERF.md), inside the 2e-4 the state is held to.
 // fp32 inputs run the same passes on the CUDA cores in fp32.
+//
+// The final state, which a prefill hands to decode, follows Mamba2's
+// sequential fp32 scan with dt in fp32 (the reference model's
+// ssd_final_state), not y's bf16 dt: when the caller passes an fp32
+// state_dt, chunk_state also forms each chunk's own state from it, from
+// the tiles it already holds, with B * w split into three bf16 parts (~24
+// significant bits, fp32's own), and the state pass carries that second
+// chain too (grid z = 1), into s_L only.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -80,7 +85,10 @@ struct Args {
   float* chunk_s;  // [B*H, chunks, N, P]: S_own (fp32 path: then S_in)
   void* s_in16;    // bf16 path: [B*H, chunks, 2, N, P] S_in as hi, lo
   float* chunk_a;  // [B*H, chunks]: a_cs at the chunk's last step
-  Strides sx, sdt, sb, sc, sy;
+  const float* dt_state;  // fp32 dt of the final state, or null; then
+  float* chunk_s2;        // S_own and
+  float* chunk_a2;        // a_cs at the last step from it
+  Strides sx, sdt, sb, sc, sy, sds;
   int h, g, L, n, p, nc;
 };
 
@@ -134,6 +142,16 @@ __device__ __forceinline__ void split(float v0, float v1, uint32_t& hi,
   hi = pack(h);
   lo = pack(__floats2bfloat162_rn(v0 - __low2float(h), v1 - __high2float(h)));
 }
+// v ~= hi + mid + lo, all three in bf16: ~24 significant bits.
+__device__ __forceinline__ void split3(float v0, float v1, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float r0 = v0 - __low2float(h), r1 = v1 - __high2float(h);
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  hi = pack(h);
+  mid = pack(m);
+  lo = pack(__floats2bfloat162_rn(r0 - __low2float(m), r1 - __high2float(m)));
+}
 // D (16x8, fp32) += A (16x16, bf16, row) * B (16x8, bf16, col).  A: a[0]
 // rows g, k 2q..2q+1; a[1] rows g + 8; a[2], a[3] the same at k + 8.  B:
 // b0 k 2q..2q+1, b1 k + 8, column g.  D: d[0..1] row g, columns 2q..2q+1;
@@ -168,14 +186,14 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
 // dt of steps 2l and 2l + 1 of the chunk for lane l of warp 0 (0 past
 // its rows), loaded early so the load overlaps the others in flight.
 template <typename T>
-__device__ __forceinline__ float2 load_dt(const Args& A, int b, int h,
-                                          int t0, int rows) {
+__device__ __forceinline__ float2 load_dt(const T* dt, const Strides& sd,
+                                          int b, int h, int t0, int rows) {
   float2 v = make_float2(0.f, 0.f);
   const int i0 = 2 * threadIdx.x;
   if (threadIdx.x < 32) {
-    const T* dtp = static_cast<const T*>(A.dt) + b * A.sdt.b + h * A.sdt.h;
-    if (i0 < rows) v.x = to_f(dtp[(int64_t)(t0 + i0) * A.sdt.l]);
-    if (i0 + 1 < rows) v.y = to_f(dtp[(int64_t)(t0 + i0 + 1) * A.sdt.l]);
+    const T* dtp = dt + b * sd.b + h * sd.h;
+    if (i0 < rows) v.x = to_f(dtp[(int64_t)(t0 + i0) * sd.l]);
+    if (i0 + 1 < rows) v.y = to_f(dtp[(int64_t)(t0 + i0 + 1) * sd.l]);
   }
   return v;
 }
@@ -208,7 +226,7 @@ __host__ __device__ constexpr int pad() { return 16 / sizeof(T); }
 template <typename T>
 size_t state_smem(int n, int p) {
   return sizeof(T) * (size_t)kQ * (n + pad<T>() + p + pad<T>()) +
-         sizeof(float) * 3 * kQ;
+         sizeof(float) * 6 * kQ;
 }
 
 template <typename T>
@@ -221,38 +239,14 @@ size_t out_smem(int n, int p) {
   return tiles + s_in + sizeof(float) * 2 * kQ;
 }
 
-// Pass 1: S_own[n][p] = sum_j B[j][n] w_j X[j][p], w_j = exp(a_last -
-// a_cs_j) dt_j, and a_last, for chunk blockIdx.x of head blockIdx.y.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) chunk_state(Args A) {
-  constexpr int E = pad<T>();
-  const int c = blockIdx.x, bh = blockIdx.y;
-  const int b = bh / A.h, h = bh % A.h, grp = h / (A.h / A.g);
-  const int t0 = c * kQ, rows = min(kQ, A.L - t0);
-  const int n = A.n, p = A.p, ldn = n + E, ldp = p + E;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sB = reinterpret_cast<T*>(smem);  // [kQ][ldn]
-  T* sX = sB + kQ * ldn;               // [kQ][ldp]
-  float* dts = reinterpret_cast<float*>(sX + kQ * ldp);
-  float* acs = dts + kQ;
-  float* wj = acs + kQ;
-  load_tile(sB, ldn,
-            static_cast<const T*>(A.bm) + b * A.sb.b + (int64_t)t0 * A.sb.l +
-                grp * A.sb.h,
-            A.sb.l, rows, n);
-  load_tile(sX, ldp,
-            static_cast<const T*>(A.x) + b * A.sx.b + (int64_t)t0 * A.sx.l +
-                h * A.sx.h,
-            A.sx.l, rows, p);
-  chunk_decay(A.a[h], load_dt<T>(A, b, h, t0, rows), dts, acs);
-  const float a_last = acs[rows - 1];
+// out[n][p] = sum_j B[j][n] w_j X[j][p] from the chunk's tiles in shared
+// memory, by the whole block; bf16 tiles: on the tensor cores, B * w split
+// into kParts bf16 parts.
+template <int kParts, typename T>
+__device__ __forceinline__ void own_state(const T* sB, int ldn, const T* sX,
+                                          int ldp, const float* wj, int n,
+                                          int p, float* out) {
   const int tid = threadIdx.x;
-  if (tid < kQ) wj[tid] = expf(a_last - acs[tid]) * dts[tid];  // 0 past rows
-  if (tid == 0) A.chunk_a[(int64_t)bh * A.nc + c] = a_last;
-  cp_async_wait_all();
-  __syncthreads();
-  float* out = A.chunk_s + ((int64_t)bh * A.nc + c) * n * p;
-
   if constexpr (sizeof(T) == 4) {
     for (int i = tid; i < n * p; i += kThreads) {
       const int e = i / p, q = i - e * p;
@@ -263,57 +257,118 @@ __global__ void __launch_bounds__(kThreads) chunk_state(Args A) {
     }
   } else {
     // M = n (16-row tiles over the warps), N = p, K = j: A = (B * w)^T,
-    // split into hi + lo; B = X.
+    // split into kParts bf16 parts (hi first); B = X.
     const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
     for (int mt = warp; mt < n / 16; mt += kThreads / 32) {
       const int r = mt * 16 + g;
-      uint32_t ah[kQ / 16][4], al[kQ / 16][4];
+      uint32_t af[kParts][kQ / 16][4];
 #pragma unroll
       for (int ks = 0; ks < kQ / 16; ++ks) {
         const int j = ks * 16 + 2 * q;
 #pragma unroll
         for (int f = 0; f < 4; ++f) {
           const int jj = j + (f >> 1) * 8, rr = r + (f & 1) * 8;
-          split(to_f(sB[jj * ldn + rr]) * wj[jj],
-                to_f(sB[(jj + 1) * ldn + rr]) * wj[jj + 1], ah[ks][f],
-                al[ks][f]);
+          const float v0 = to_f(sB[jj * ldn + rr]) * wj[jj],
+                      v1 = to_f(sB[(jj + 1) * ldn + rr]) * wj[jj + 1];
+          if constexpr (kParts == 3)
+            split3(v0, v1, af[0][ks][f], af[1][ks][f], af[2][ks][f]);
+          else
+            split(v0, v1, af[0][ks][f], af[1][ks][f]);
         }
       }
       for (int nt = 0; nt < p / 8; nt += 2) {  // two 8-column tiles
-        float dh[2][4] = {}, dl[2][4] = {};
+        float d[kParts][2][4] = {};
 #pragma unroll
         for (int ks = 0; ks < kQ / 16; ++ks) {
           uint32_t bx[4];
           ld_b_pair(sX, ldp, ks * 16, nt * 8, bx);
 #pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            mma(dh[u], ah[ks], bx[2 * u], bx[2 * u + 1]);
-            mma(dl[u], al[ks], bx[2 * u], bx[2 * u + 1]);
-          }
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int k = 0; k < kParts; ++k)
+              mma(d[k][u], af[k][ks], bx[2 * u], bx[2 * u + 1]);
         }
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {  // the small parts first
+            v[e] = d[kParts - 1][u][e];
+#pragma unroll
+            for (int k = kParts - 2; k >= 0; --k) v[e] += d[k][u][e];
+          }
           const int col = (nt + u) * 8 + 2 * q;
-          store2(out + (size_t)r * p + col, dh[u][0] + dl[u][0],
-                 dh[u][1] + dl[u][1]);
-          store2(out + (size_t)(r + 8) * p + col, dh[u][2] + dl[u][2],
-                 dh[u][3] + dl[u][3]);
+          store2(out + (size_t)r * p + col, v[0], v[1]);
+          store2(out + (size_t)(r + 8) * p + col, v[2], v[3]);
         }
       }
     }
   }
 }
 
+// Pass 1: S_own[n][p] = sum_j B[j][n] w_j X[j][p], w_j = exp(a_last -
+// a_cs_j) dt_j, and a_last, for chunk blockIdx.x of head blockIdx.y; with
+// kBoth, also from A.dt_state into chunk_s2 and chunk_a2, B * w in three
+// bf16 parts (y's run: two).
+template <typename T, bool kBoth>
+__global__ void __launch_bounds__(kThreads) chunk_state(Args A) {
+  constexpr int E = pad<T>();
+  const int c = blockIdx.x, bh = blockIdx.y;
+  const int b = bh / A.h, h = bh % A.h, grp = h / (A.h / A.g);
+  const int t0 = c * kQ, rows = min(kQ, A.L - t0);
+  const int n = A.n, p = A.p, ldn = n + E, ldp = p + E;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* sB = reinterpret_cast<T*>(smem);  // [kQ][ldn]
+  T* sX = sB + kQ * ldn;               // [kQ][ldp]
+  float* dts = reinterpret_cast<float*>(sX + kQ * ldp);  // per run: dt,
+  float* acs = dts + 2 * kQ;                             // a_cs and w
+  float* wj = acs + 2 * kQ;
+  load_tile(sB, ldn,
+            static_cast<const T*>(A.bm) + b * A.sb.b + (int64_t)t0 * A.sb.l +
+                grp * A.sb.h,
+            A.sb.l, rows, n);
+  load_tile(sX, ldp,
+            static_cast<const T*>(A.x) + b * A.sx.b + (int64_t)t0 * A.sx.l +
+                h * A.sx.h,
+            A.sx.l, rows, p);
+  const float2 dv =
+      load_dt(static_cast<const T*>(A.dt), A.sdt, b, h, t0, rows);
+  float2 dv2 = make_float2(0.f, 0.f);
+  if constexpr (kBoth) dv2 = load_dt(A.dt_state, A.sds, b, h, t0, rows);
+  chunk_decay(A.a[h], dv, dts, acs);
+  if constexpr (kBoth) chunk_decay(A.a[h], dv2, dts + kQ, acs + kQ);
+  const int tid = threadIdx.x;
+  const int64_t at = (int64_t)bh * A.nc + c;
+#pragma unroll
+  for (int run = 0; run < (kBoth ? 2 : 1); ++run) {
+    const float* ac = acs + run * kQ;
+    const float a_last = ac[rows - 1];
+    if (tid < kQ)  // 0 past rows
+      wj[run * kQ + tid] = expf(a_last - ac[tid]) * dts[run * kQ + tid];
+    if (tid == 0) (run ? A.chunk_a2 : A.chunk_a)[at] = a_last;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  own_state<2>(sB, ldn, sX, ldp, wj, n, p, A.chunk_s + at * n * p);
+  if constexpr (kBoth)
+    own_state<3>(sB, ldn, sX, ldp, wj + kQ, n, p, A.chunk_s2 + at * n * p);
+}
+
 // Pass 2: per head, S_in(c) = exp(a_last(c-1)) S_in(c-1) + S_own(c-1)
 // over the chunks in order, each thread owning 4 state elements; the
-// state after the last chunk is s_L.  S_in(c) replaces S_own(c) (fp32
-// path), or goes to s_in16 as bf16 hi and lo planes (bf16 path), in the
-// layout chunk_out's products read.
-template <bool kSplit>
-__global__ void __launch_bounds__(kStateThreads)
-state_pass(const float* __restrict__ chunk_a, float* chunk_s,
-           __nv_bfloat16* __restrict__ s_in16, float* __restrict__ state,
-           int nc, int np4) {
+// state after the last chunk is s_L (written unless `state` is null).
+// S_in(c) replaces S_own(c) (kInPlace, the fp32 path), or goes to s_in16
+// as bf16 hi and lo planes (kSplit, the bf16 path), in the layout
+// chunk_out's products read, or is not written (kFinal, the final state's
+// run).
+enum StateOut { kInPlace, kSplit, kFinal };
+
+template <StateOut kOut>
+__device__ __forceinline__ void carry_states(const float* __restrict__ chunk_a,
+                                             float* chunk_s,
+                                             __nv_bfloat16* __restrict__ s_in16,
+                                             float* __restrict__ state, int nc,
+                                             int np4) {
   const int bh = blockIdx.y;
   const int i = blockIdx.x * kStateThreads + threadIdx.x;
   if (i >= np4) return;
@@ -337,13 +392,13 @@ state_pass(const float* __restrict__ chunk_a, float* chunk_s,
 #pragma unroll
     for (int k = 0; k < kStateDepth; ++k)
       if (c0 + k < nc) {
-        if constexpr (kSplit) {
+        if constexpr (kOut == kSplit) {
           uint2 hi, lo;
           split(run.x, run.y, hi.x, lo.x);
           split(run.z, run.w, hi.y, lo.y);
           s16[(int64_t)(c0 + k) * 2 * np4] = hi;
           s16[(int64_t)(c0 + k) * 2 * np4 + np4] = lo;
-        } else {
+        } else if constexpr (kOut == kInPlace) {
           s[(int64_t)(c0 + k) * np4] = run;
         }
         const float lam = expf(al[c0 + k]);
@@ -353,7 +408,22 @@ state_pass(const float* __restrict__ chunk_a, float* chunk_s,
         run.w = lam * run.w + own[k].w;
       }
   }
-  reinterpret_cast<float4*>(state)[(int64_t)bh * np4 + i] = run;
+  if (state != nullptr)
+    reinterpret_cast<float4*>(state)[(int64_t)bh * np4 + i] = run;
+}
+
+// Grid (N*P / 1024, head, 1 or 2): z = 0 carries y's chain (kOut; s_L as
+// well unless a final-state chain follows), z = 1 the final state's.
+template <StateOut kOut>
+__global__ void __launch_bounds__(kStateThreads) state_pass(Args A) {
+  const int np4 = A.n * A.p / 4;
+  if (blockIdx.z == 0)
+    carry_states<kOut>(A.chunk_a, A.chunk_s,
+                       static_cast<__nv_bfloat16*>(A.s_in16),
+                       A.dt_state == nullptr ? A.state : nullptr, A.nc, np4);
+  else
+    carry_states<kFinal>(A.chunk_a2, A.chunk_s2, nullptr, A.state, A.nc,
+                         np4);
 }
 
 // Pass 3: y_t = exp(a_cs_t) C_t S_in + sum_{j<=t} W[t][j] x_j with
@@ -386,7 +456,8 @@ __global__ void __launch_bounds__(kThreads * kHalves) chunk_out(Args A) {
             static_cast<const T*>(A.x) + b * A.sx.b + (int64_t)t0 * A.sx.l +
                 h * A.sx.h,
             A.sx.l, rows, p);
-  const float2 dv = load_dt<T>(A, b, h, t0, rows);
+  const float2 dv =
+      load_dt(static_cast<const T*>(A.dt), A.sdt, b, h, t0, rows);
   const int tid = threadIdx.x;
   if (c > 0) {
     if constexpr (sizeof(T) == 4) {  // S_in [n][p] as it is
@@ -543,14 +614,17 @@ int sm_count() {
 
 template <typename T>
 int launch(const Args& A, int bh, cudaStream_t stream) {
-  static size_t allowed_state = 0, allowed_out = 0, allowed_out2 = 0;
+  static size_t allowed_state = 0, allowed_both = 0, allowed_out = 0,
+                allowed_out2 = 0;
   const size_t s1 = state_smem<T>(A.n, A.p), s3 = out_smem<T>(A.n, A.p);
   if (s1 > kMaxSmem || s3 > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   // bf16: eight warps a chunk when the grid fills at most 4 blocks per SM
   const bool halves =
       sizeof(T) == 2 && (int64_t)A.nc * bh <= 4 * (int64_t)sm_count();
-  cudaError_t e = allow_smem(chunk_state<T>, s1, allowed_state);
+  const bool both = A.dt_state != nullptr;
+  cudaError_t e = both ? allow_smem(chunk_state<T, true>, s1, allowed_both)
+                       : allow_smem(chunk_state<T, false>, s1, allowed_state);
   if (e == cudaSuccess) {
     if constexpr (sizeof(T) == 2)
       e = halves ? allow_smem(chunk_out<T, 2>, s3, allowed_out2)
@@ -560,36 +634,42 @@ int launch(const Args& A, int bh, cudaStream_t stream) {
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(A.nc, bh);
-  chunk_state<T><<<grid, kThreads, s1, stream>>>(A);
+  if (both)
+    chunk_state<T, true><<<grid, kThreads, s1, stream>>>(A);
+  else
+    chunk_state<T, false><<<grid, kThreads, s1, stream>>>(A);
   const int np4 = A.n * A.p / 4;
-  state_pass<sizeof(T) == 2>
-      <<<dim3((np4 + kStateThreads - 1) / kStateThreads, bh), kStateThreads,
-         0, stream>>>(A.chunk_a, A.chunk_s,
-                      static_cast<__nv_bfloat16*>(A.s_in16), A.state, A.nc,
-                      np4);
-  if constexpr (sizeof(T) == 2)
-    if (halves) {
+  const dim3 state_grid((np4 + kStateThreads - 1) / kStateThreads, bh,
+                        both ? 2 : 1);
+  if constexpr (sizeof(T) == 2) {
+    state_pass<kSplit><<<state_grid, kStateThreads, 0, stream>>>(A);
+    if (halves)
       chunk_out<T, 2><<<grid, 2 * kThreads, s3, stream>>>(A);
-      return static_cast<int>(cudaGetLastError());
-    }
-  chunk_out<T, 1><<<grid, kThreads, s3, stream>>>(A);
+    else
+      chunk_out<T, 1><<<grid, kThreads, s3, stream>>>(A);
+  } else {
+    state_pass<kInPlace><<<state_grid, kStateThreads, 0, stream>>>(A);
+    chunk_out<T, 1><<<grid, kThreads, s3, stream>>>(A);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, dt, b, c, y); a is float32 [h].
+// dt_state: null, or float32 [bsz, L, h] dt for the final state.
 // dims (int64): bsz, L, h, g, n, p, then the (batch, step, head) strides
-// in elements of x, dt, b, c and y, whose innermost dimension is
+// in elements of x, dt, b, c, y and dt_state, whose innermost dimension is
 // contiguous.  Rows of x, b, c and y, their base pointers and strides
 // must be 16-byte aligned; n, p multiples of 4 (fp32) or of 16 (bf16).
 // state: [bsz * h, n, p] float32, written whole.  scratch: float32 of
-// bsz * h * chunks * (n * p * (1 fp32, 2 bf16) + 1), chunks =
-// ceil(L / 64).
+// bsz * h * chunks * (n * p * (1 fp32, 2 bf16; one more with dt_state) +
+// (1; 2 with dt_state)), chunks = ceil(L / 64).
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* a,
-                               const void* b, const void* c, void* y,
-                               void* state, void* scratch,
-                               const int64_t* dims, int dtype, void* stream) {
+                               const void* b, const void* c,
+                               const void* dt_state, void* y, void* state,
+                               void* scratch, const int64_t* dims, int dtype,
+                               void* stream) {
   const int64_t bsz = dims[0], L = dims[1], h = dims[2], g = dims[3],
                 n = dims[4], p = dims[5];
   if (bsz <= 0 || L <= 0 || h <= 0) return 0;
@@ -606,15 +686,19 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* a,
   A.cm = c;
   A.y = y;
   A.state = static_cast<float*>(state);
+  A.dt_state = static_cast<const float*>(dt_state);
   A.nc = static_cast<int>((L + kQ - 1) / kQ);
   // scratch: S_own [bsz*h, chunks, n, p] fp32, then (bf16) S_in's hi and
-  // lo planes [bsz*h, chunks, 2, n, p] bf16, then chunk_a
+  // lo planes [bsz*h, chunks, 2, n, p] bf16, then (dt_state) the final
+  // state's S_own, then chunk_a and (dt_state) chunk_a2 [bsz*h, chunks]
   const int64_t states = bsz * h * A.nc * n * p;
   A.chunk_s = static_cast<float*>(scratch);
   A.s_in16 = A.chunk_s + states;
-  A.chunk_a = A.chunk_s + (bf16 ? 2 : 1) * states;
-  Strides* st[5] = {&A.sx, &A.sdt, &A.sb, &A.sc, &A.sy};
-  for (int i = 0; i < 5; ++i) *st[i] = {dims[6 + 3 * i], dims[7 + 3 * i],
+  A.chunk_s2 = A.chunk_s + (bf16 ? 2 : 1) * states;
+  A.chunk_a = A.chunk_s2 + (dt_state != nullptr ? states : 0);
+  A.chunk_a2 = A.chunk_a + bsz * h * A.nc;
+  Strides* st[6] = {&A.sx, &A.sdt, &A.sb, &A.sc, &A.sy, &A.sds};
+  for (int i = 0; i < 6; ++i) *st[i] = {dims[6 + 3 * i], dims[7 + 3 * i],
                                         dims[8 + 3 * i]};
   A.h = static_cast<int>(h);
   A.g = static_cast<int>(g);

@@ -5,8 +5,11 @@ the flash_attention TPU kernel (``repro/kernels/flash_attention/kernel.py``:
 :func:`flash_attention` takes the reference wrapper's ``[B, H, S, D]`` API.
 On a CUDA tensor it launches the kernel in ``csrc/flash_attention.cu``; on
 a CPU tensor it runs :func:`flash_attention_plain`.  bf16 inputs take the
-kernel's tensor-core path, fp32 inputs its fp32 CUDA-core path.  Two things
-differ from the reference's wrapper and change no output:
+kernel's tensor-core path, fp32 inputs its fp32 CUDA-core path.  The card
+path is lean, as overlap_scan's is: the C entry is resolved once, the raw
+current stream is read without building a ``torch.cuda.Stream``, and
+inputs that are contiguous and 16-byte aligned are passed as they are.
+Two things differ from the reference's wrapper and change no output:
 
 * GQA: the kernel maps each query head to its kv head (``h // rep``)
   instead of materialising ``repeat``ed k and v;
@@ -30,6 +33,19 @@ from .. import _build
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_launch = None       # the C entry, resolved at the first CUDA call
+_raw_stream = None   # torch._C._cuda_getCurrentRawStream
+
+
+def _resolve() -> None:
+    global _launch, _raw_stream
+    _raw_stream = torch._C._cuda_getCurrentRawStream
+    _launch = _build.load("flash_attention", "flash_attention_launch",
+                          _ARGTYPES)
 
 
 def _mask(s: int, t: int, causal: bool, window: int | None,
@@ -93,23 +109,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention kernel takes head_dim in "
                          f"{HEAD_DIMS}, not {d}")
     # the bf16 kernel reads 16-byte vectors: rows must start 16-byte aligned
-    q, k, v = (t.contiguous() for t in (q, k, v))
-    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
+    q, k, v = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+               else t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    fn = _build.load("flash_attention", "flash_attention_launch",
-                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                      ctypes.c_void_p])
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             b, hq, hkv, s, d, int(causal),
-             -1 if window is None else int(window),
-             float(scale if scale is not None else d ** -0.5),
-             _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_attention")
+    if _launch is None:
+        _resolve()
+    err = _launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  b, hq, hkv, s, d, int(causal),
+                  -1 if window is None else int(window),
+                  float(scale if scale is not None else d ** -0.5),
+                  _DTYPES[q.dtype], _raw_stream(q.get_device()))
+    if err:
+        _build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out
 

@@ -14,14 +14,25 @@ arrival buffer, host row ``offsets`` (B + 1 entries) and a ``d0`` per row
 (default -inf: a queue observed from its first arrival).  This replaces the
 reference's power-of-two pad buckets, which existed for the TPU's fixed
 shapes.  On CUDA tensors :func:`lindley_batch` launches
-``csrc/lindley_scan.cu``; on CPU tensors it runs :func:`lindley_batch_plain`,
-which repeats ``lindley_numpy``'s operation order row by row and so agrees
-with the reference's numpy pass bit for bit.
+``csrc/lindley_scan.cu`` (one streaming pass over 4,096-op tiles whose
+carries are summed in a fixed order, so two calls give the same bits); on
+CPU tensors it runs :func:`lindley_batch_plain`, which repeats
+``lindley_numpy``'s operation order row by row and so agrees with the
+reference's numpy pass bit for bit.
+
+The card path is lean: the C entry is resolved once, the raw current stream
+is read without building a ``torch.cuda.Stream``, one row travels as
+scalars, and a ragged batch's plan (offsets, d0 and each tile's row) in one
+pinned, non-blocking copy; nothing synchronises with the host.  Inputs are
+not checked for NaN (that would need a sync): the kernel's running max
+skips a NaN where the plain version's spreads it, so NaN inputs give other
+departures on the card, but every call ends.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from collections.abc import Sequence
 
 import numpy as np
@@ -29,7 +40,7 @@ import torch
 
 from .. import _build
 
-TILE = 1024          # elements per block of the kernel's tile passes
+TILE = 4096          # ops of a tile: the kernel's kTile, checked at load
 
 
 def _rows(offsets, d0, n_total: int) -> tuple[np.ndarray, np.ndarray]:
@@ -61,44 +72,91 @@ def lindley_batch_plain(service: torch.Tensor, arrivals: torch.Tensor,
     return out
 
 
+def plan(offsets, d0, n_total: int) -> tuple[np.ndarray | None, int, float]:
+    """The kernel's tile plan of a batch: (int64 plan, tiles, d0 of a
+    single row).  The plan is ``[offsets | first tile of each row (B + 1) |
+    d0 as float64 bits | row of each tile]``; for one row it is None and
+    the row travels as scalars (its length and d0)."""
+    if len(offsets) == 2 and (d0 is None or len(d0) == 1):
+        if int(offsets[0]) != 0 or int(offsets[1]) != n_total:
+            raise ValueError("offsets must rise from 0 to the buffer length")
+        return (None, -(-n_total // TILE),
+                -math.inf if d0 is None else float(d0[0]))
+    off, d = _rows(offsets, d0, n_total)
+    per_row = -(-np.diff(off) // TILE)
+    first = np.zeros(off.shape[0], np.int64)
+    np.cumsum(per_row, out=first[1:])
+    rows = np.repeat(np.arange(off.shape[0] - 1), per_row)
+    packed = np.concatenate([off, first, d.view(np.int64), rows])
+    return packed, int(first[-1]), -math.inf
+
+
+# per (device, stream): the kernel's tile counter and carries (16 + 32
+# bytes a tile), reset by each call; reused only on its own stream, where
+# calls run one after another
+_scratch: dict[tuple[int, int], torch.Tensor] = {}
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_double,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+_launch = None       # the C entry, resolved at the first CUDA call
+_raw_stream = None   # torch._C._cuda_getCurrentRawStream
+
+
+def _resolve() -> None:
+    global _launch, _raw_stream
+    tile = _build.load("lindley_scan", "lindley_scan_tile", [])()
+    if tile != TILE:
+        raise RuntimeError(f"lindley_scan: the library's tile is {tile}, "
+                           f"ops.TILE {TILE}")
+    _raw_stream = torch._C._cuda_getCurrentRawStream
+    _launch = _build.load("lindley_scan", "lindley_scan_launch", _ARGTYPES)
+
+
 def lindley_batch(service: torch.Tensor, arrivals: torch.Tensor,
                   offsets: Sequence[int],
                   d0: Sequence[float] | None = None) -> torch.Tensor:
-    """Departure times of every op of a ragged batch of FIFO queues."""
-    if service.dtype != torch.float64 or arrivals.dtype != torch.float64:
+    """Departure times of every op of a ragged batch of FIFO queues.  On
+    the card two calls on the same inputs give the same bits."""
+    if service.dtype is not torch.float64 \
+            or arrivals.dtype is not torch.float64:
         raise TypeError("lindley_batch takes float64 service and arrivals")
     if service.dim() != 1 or service.shape != arrivals.shape:
         raise ValueError("service and arrivals must be 1-D of one length")
-    if service.device != arrivals.device:
-        raise ValueError("service and arrivals must be on one device")
-    dev = service.device
-    if dev.type == "cpu":
+    if not service.is_cuda:
+        if service.device != arrivals.device:
+            raise ValueError("service and arrivals must be on one device")
+        if service.device.type != "cpu":
+            raise ValueError(f"unsupported device {service.device}")
         return lindley_batch_plain(service, arrivals, offsets, d0)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    off, d = _rows(offsets, d0, int(service.shape[0]))
-    n_rows = off.shape[0] - 1
-    tiles = -(-np.diff(off) // TILE)
-    tile_first = np.concatenate([[0], np.cumsum(tiles)]).astype(np.int64)
-    n_tiles = int(tile_first[-1])
+    dev = service.get_device()
+    if arrivals.get_device() != dev:
+        raise ValueError("service and arrivals must be on one device")
+    n = service.shape[0]
+    packed, tiles, d0v = plan(offsets, d0, n)
     out = torch.empty_like(service)
-    if n_tiles == 0:
+    if tiles == 0:
         return out
-    service, arrivals = service.contiguous(), arrivals.contiguous()
-    meta = torch.from_numpy(np.concatenate([off, tile_first])).to(dev)
-    d0_dev = torch.from_numpy(d).to(dev)
-    tile_agg = torch.empty((n_tiles, 2), dtype=torch.float64, device=dev)
-    tile_carry = torch.empty_like(tile_agg)
-    fn = _build.load("lindley_scan", "lindley_scan_launch",
-                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                      ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_void_p, ctypes.c_void_p])
-    err = fn(service.data_ptr(), arrivals.data_ptr(), meta.data_ptr(),
-             meta.data_ptr() + 8 * (n_rows + 1), d0_dev.data_ptr(), n_rows,
-             n_tiles, tile_agg.data_ptr(), tile_carry.data_ptr(),
-             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "lindley_scan")
+    if not service.is_contiguous():
+        service = service.contiguous()
+    if not arrivals.is_contiguous():
+        arrivals = arrivals.contiguous()
+    if _launch is None:
+        _resolve()
+    stream = _raw_stream(dev)
+    on_card = None
+    if packed is not None:
+        host = torch.from_numpy(packed).pin_memory()
+        on_card = host.to(service.device, non_blocking=True)
+    scratch = _scratch.get((dev, stream))
+    if scratch is None or scratch.numel() < 2 + 4 * tiles:
+        scratch = _scratch[dev, stream] = torch.empty(
+            2 + 4 * tiles, dtype=torch.int64, device=service.device)
+    err = _launch(service.data_ptr(), arrivals.data_ptr(),
+                  None if on_card is None else on_card.data_ptr(),
+                  len(offsets) - 1, tiles, n, d0v, scratch.data_ptr(),
+                  out.data_ptr(), stream)
+    if err:
+        _build.check(err, "lindley_scan")
     lindley_batch.launches += 1
     return out
 

@@ -23,7 +23,10 @@ every call).
 The kernel splits each sequence's tokens over several blocks and combines
 their partial softmaxes (flash-decoding); :func:`split_plan` picks the
 split on the host from the capacity ``MAXP * PS``, ``B * Hkv`` and the
-card's SM count, never from the device-side lengths.
+card's SM count, never from the device-side lengths.  The card path is
+lean, as overlap_scan's is: the C entry is resolved once, the raw current
+stream is read without building a ``torch.cuda.Stream``, and contiguous,
+16-byte-aligned inputs are passed as they are.
 """
 
 from __future__ import annotations
@@ -43,6 +46,13 @@ TILE_TOKENS = 32        # the kernel's tile (kTK): splits are whole tiles
 MIN_BLOCKS_PER_SM = 2   # the split gives every SM at least this many blocks
 RESIDENT_BLOCKS_PER_SM = 4   # bf16, D 128: 53 KB of shared memory a block
 _sm_counts: dict[int, int] = {}
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_launch = None       # the C entry, resolved at the first CUDA call
+_raw_stream = None   # torch._C._cuda_getCurrentRawStream
 # per (device, stream): fp32 scratch for the splits' partials.  Reused only
 # on its own stream, where a call's split kernel runs after the previous
 # call's combine has read the buffer.
@@ -70,13 +80,19 @@ def split_plan(capacity: int, b: int, hkv: int,
     return max(1, -(-capacity // per)), per
 
 
-def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if idx not in _sm_counts:
-        _sm_counts[idx] = torch.cuda.get_device_properties(
+def _resolve() -> None:
+    global _launch, _raw_stream
+    _raw_stream = torch._C._cuda_getCurrentRawStream
+    _launch = _build.load("paged_attention", "paged_attention_launch",
+                          _ARGTYPES)
+
+
+def _sm_count(idx: int) -> int:
+    n = _sm_counts.get(idx)
+    if n is None:
+        n = _sm_counts[idx] = torch.cuda.get_device_properties(
             idx).multi_processor_count
-    return _sm_counts[idx]
+    return n
 
 
 def _partials(device: torch.device, stream: int, numel: int) -> torch.Tensor:
@@ -157,31 +173,33 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("page_table and lengths must be int32")
     # the kernel reads 16-byte vectors: rows must start 16-byte aligned
-    q, k_pages, v_pages, page_table, lengths = (
-        t.contiguous() for t in (q, k_pages, v_pages, page_table, lengths))
-    q, k_pages, v_pages = (t if t.data_ptr() % 16 == 0 else t.clone()
-                           for t in (q, k_pages, v_pages))
+    q, k_pages, v_pages = (
+        t if t.is_contiguous() and t.data_ptr() % 16 == 0
+        else t.clone(memory_format=torch.contiguous_format)
+        for t in (q, k_pages, v_pages))
+    if not page_table.is_contiguous():
+        page_table = page_table.contiguous()
+    if not lengths.is_contiguous():
+        lengths = lengths.contiguous()
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
-    ns, per = split_plan(maxp * ps, b, hkv, _sm_count(q.device))
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if _launch is None:
+        _resolve()
+    dev = q.get_device()
+    ns, per = split_plan(maxp * ps, b, hkv, _sm_count(dev))
+    stream = _raw_stream(dev)
     # per split and output row: m and l, then the unnormalised acc
     part = _partials(q.device, stream, b * hq * ns * (d + 2)) \
         if ns > 1 else None
-    fn = _build.load("paged_attention", "paged_attention_launch",
-                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_int, ctypes.c_void_p])
-    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             None if part is None else part.data_ptr(), b, hq, hkv, d, ps,
-             maxp, ns, per, float(scale if scale is not None else d ** -0.5),
-             _DTYPES[q.dtype], stream)
-    _build.check(err, "paged_attention")
+    err = _launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                  page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                  None if part is None else part.data_ptr(), b, hq, hkv, d,
+                  ps, maxp, ns, per,
+                  float(scale if scale is not None else d ** -0.5),
+                  _DTYPES[q.dtype], stream)
+    if err:
+        _build.check(err, "paged_attention")
     paged_attention.launches += 1
     return out
 

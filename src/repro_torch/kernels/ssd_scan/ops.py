@@ -7,7 +7,12 @@ Per head, ``s_t = exp(dt_t a) s_{t-1} + dt_t B_t x_t^T`` and
 ``[CK, CK]`` products, the inter-chunk term from the carried ``[N, P]``
 state.  Both versions return y and the final state ``s_L`` (fp32): the
 reference's wrapper returns y only and its model recomputes the state with
-a second, sequential scan; here a prefill takes it from the one scan.
+a second, sequential fp32 scan whose dt is fp32 (``ssd_final_state``),
+while y's dt is rounded to x's dtype.  Given that fp32 dt as ``state_dt``,
+both versions compute the final state from it in fp32 (the kernel as a
+second chain through its first two passes, from the tiles they already
+hold) and y from ``dt`` as before; without it the state comes from y's
+own scan.
 :func:`ssd_scan` takes the reference wrapper's model-layout API.  On a
 CPU tensor it runs :func:`ssd_scan_plain`, which pads L exactly as the
 reference's ``ops.py`` does (``ckk = min(ck, L) if L % ck else ck``,
@@ -31,15 +36,16 @@ from .. import _build
 DEFAULT_CK = 128
 _KERNEL_CK = 64      # the kernel's chunk (csrc/ssd_scan.cu, kQ)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# sizes and (batch, step, head) strides of x, dt, b, c, y, as int64
-_DIMS = struct.Struct("<21q")
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_char_p, ctypes.c_int,
+# sizes and (batch, step, head) strides of x, dt, b, c, y, state_dt, as
+# int64
+_DIMS = struct.Struct("<24q")
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_char_p, ctypes.c_int,
                                      ctypes.c_void_p]
 _launch = None       # the C entry, resolved at the first CUDA call
 _raw_stream = None   # torch._C._cuda_getCurrentRawStream
 
 
-def _check(x, dt, a, b, c) -> None:
+def _check(x, dt, a, b, c, state_dt=None) -> None:
     bsz, L, h, p = x.shape
     g = b.shape[2]
     if (dt.shape != (bsz, L, h) or a.shape != (h,) or b.ndim != 4
@@ -47,7 +53,14 @@ def _check(x, dt, a, b, c) -> None:
         raise ValueError(
             f"bad shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, a "
             f"{tuple(a.shape)}, b {tuple(b.shape)}, c {tuple(c.shape)}")
-    if len({t.get_device() for t in (x, dt, a, b, c)}) != 1:
+    extra = ()
+    if state_dt is not None:
+        if state_dt.shape != dt.shape or state_dt.dtype is not torch.float32:
+            raise ValueError(f"state_dt must be float32 of dt's shape "
+                             f"{tuple(dt.shape)}, not {state_dt.dtype} "
+                             f"{tuple(state_dt.shape)}")
+        extra = (state_dt,)
+    if len({t.get_device() for t in (x, dt, a, b, c, *extra)}) != 1:
         raise ValueError("ssd_scan inputs must be on one device")
 
 
@@ -65,12 +78,24 @@ def _chunk(L: int, ck: int) -> tuple[int, int]:
     return ckk, (-L) % ckk
 
 
+def _chunk_state(state, xc, dtc, bc, ah):
+    """The state carried over one chunk: decayed by the chunk's total
+    ``exp(a * sum dt)``, plus ``sum_j B_j w_j x_j^T``."""
+    a_cs = ah[:, None] * torch.cumsum(dtc, dim=1)            # [BH, CK]
+    wj = torch.exp(a_cs[:, -1:] - a_cs) * dtc
+    return (torch.exp(a_cs[:, -1])[:, None, None] * state
+            + (bc * wj[..., None]).transpose(1, 2) @ xc)
+
+
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                    b: torch.Tensor, c: torch.Tensor, *,
-                   ck: int = DEFAULT_CK) -> tuple[torch.Tensor, torch.Tensor]:
+                   ck: int = DEFAULT_CK,
+                   state_dt: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain torch, fp32 throughout, in the TPU
-    kernel's chunks of ``ckk`` steps, batched over every head."""
-    _check(x, dt, a, b, c)
+    kernel's chunks of ``ckk`` steps, batched over every head; the final
+    state from ``state_dt`` when it is given."""
+    _check(x, dt, a, b, c, state_dt)
     bsz, L, h, p = x.shape
     rep = h // b.shape[2]
     ckk, pad = _chunk(L, ck)
@@ -92,9 +117,13 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                            float("-inf"))
         w = (cc @ bc.transpose(1, 2)) * torch.exp(diff) * dtc[:, None, :]
         y[:, c0:c0 + ckk] = yc + w @ xc
-        wj = torch.exp(a_cs[:, -1:] - a_cs) * dtc
-        state = (torch.exp(a_cs[:, -1])[:, None, None] * state
-                 + (bc * wj[..., None]).transpose(1, 2) @ xc)
+        state = _chunk_state(state, xc, dtc, bc, ah)
+    if state_dt is not None and state_dt is not dt:
+        dth = _padded_heads(state_dt[..., None], pad)[..., 0].float()
+        state = torch.zeros_like(state)
+        for c0 in range(0, lp, ckk):
+            state = _chunk_state(state, xh[:, c0:c0 + ckk],
+                                 dth[:, c0:c0 + ckk], bh_[:, c0:c0 + ckk], ah)
     y = y.reshape(bsz, h, lp, p).movedim(1, 2)[:, :L]
     return y.to(x.dtype), state.reshape(bsz, h, n, p)
 
@@ -118,19 +147,22 @@ def _resolve() -> None:
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-             b: torch.Tensor, c: torch.Tensor, *,
-             ck: int = DEFAULT_CK) -> tuple[torch.Tensor, torch.Tensor]:
+             b: torch.Tensor, c: torch.Tensor, *, ck: int = DEFAULT_CK,
+             state_dt: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: [B, L, H, P]; dt: [B, L, H]; a: [H]; b, c: [B, L, G, N] with
     H % G == 0 -> (y [B, L, H, P] in x's dtype, final state [B, H, N, P]
-    float32).  Inputs may be strided views (the model passes slices of one
-    ``xbc`` buffer).  On the CPU the plain version pads as the reference
-    does (``ck``); the kernel takes no padding and ignores ``ck``: its
-    64-step chunks zero-fill the rows past L, with dt = 0."""
-    _check(x, dt, a, b, c)
+    float32).  ``state_dt`` (float32, dt's shape; optional): the dt the
+    final state is computed from, in fp32; y always uses ``dt``.  Inputs
+    may be strided views (the model passes slices of one ``xbc`` buffer).
+    On the CPU the plain version pads as the reference does (``ck``); the
+    kernel takes no padding and ignores ``ck``: its 64-step chunks
+    zero-fill the rows past L, with dt = 0."""
+    _check(x, dt, a, b, c, state_dt)
     if not x.is_cuda:
         if x.device.type != "cpu":
             raise ValueError(f"unsupported device {x.device}")
-        return ssd_scan_plain(x, dt, a, b, c, ck=ck)
+        return ssd_scan_plain(x, dt, a, b, c, ck=ck, state_dt=state_dt)
     code = _DTYPES.get(x.dtype)
     if code is None or not (x.dtype == dt.dtype == b.dtype == c.dtype):
         raise TypeError("ssd_scan kernel takes x, dt, b and c all float32 "
@@ -149,17 +181,25 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     x, b, c = (_rows_aligned(t, elems) for t in (x, b, c))
     if a.dtype is not torch.float32 or not a.is_contiguous():
         a = a.float().contiguous()
+    if state_dt is dt:
+        state_dt = None     # the same dt: y's own scan gives the state
+    sd_strides = (0, 0, 0) if state_dt is None else state_dt.stride()
     chunks = -(-L // _KERNEL_CK)
     # per chunk and head: its own end state (fp32), the carried state as
-    # bf16 hi and lo planes (bf16 inputs), its decay
-    scratch = torch.empty(bsz * h * chunks * (n * p * (1 + code) + 1),
+    # bf16 hi and lo planes (bf16 inputs), its decay; and the final state
+    # run's own end state and decay (state_dt)
+    runs = 1 if state_dt is None else 2
+    scratch = torch.empty(bsz * h * chunks * (n * p * (code + runs) + runs),
                           dtype=torch.float32, device=x.device)
     dims = _DIMS.pack(bsz, L, h, g, n, p, *x.stride()[:3], *dt.stride(),
-                      *b.stride()[:3], *c.stride()[:3], *y.stride()[:3])
+                      *b.stride()[:3], *c.stride()[:3], *y.stride()[:3],
+                      *sd_strides)
     if _launch is None:
         _resolve()
     err = _launch(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-                  c.data_ptr(), y.data_ptr(), state.data_ptr(),
+                  c.data_ptr(),
+                  None if state_dt is None else state_dt.data_ptr(),
+                  y.data_ptr(), state.data_ptr(),
                   scratch.data_ptr(), dims, code,
                   _raw_stream(x.get_device()))
     if err:

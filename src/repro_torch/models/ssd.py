@@ -6,14 +6,16 @@ conv over (x, B, C); SSD scan s_t = exp(dt A) s_{t-1} + dt B x^T, y = C s;
 D-skip, SiLU(z) gating, RMSNorm, out_proj.
 
 :func:`ssd_forward` follows the reference's kernel route
-(``use_pallas=True``): dt is cast to x's dtype and the scan goes through
-the ssd_scan kernel wrapper.  The final state comes from that same scan,
-which returns it beside y; the reference runs a second, sequential scan
-over L for it (``ssd_final_state``) with dt in float32.  In float32 the two
-agree to rounding; in bfloat16 the port's state sees dt rounded to bf16,
-as the reference's kernel route's y does.  :func:`ssd_prefill` gives the
-block's output, conv tail and final state from one input projection and
-one scan (the reference projects twice).
+(``use_pallas=True``): y comes from the ssd_scan kernel wrapper with dt
+cast to x's dtype.  The final state, which a prefill hands to decode,
+follows the reference's ``ssd_final_state``: fp32 dt (the softplus output,
+not rounded to x's dtype) and fp32 products of B and x.  The reference
+runs a second, sequential scan over L for it; here the same call to
+``ssd_scan`` computes it from ``state_dt`` (on the card a second chain
+through the kernel's first two passes), so in bfloat16 too the state
+agrees with the reference's to fp32 rounding.  :func:`ssd_prefill` gives
+the block's output, conv tail and final state from one input projection
+(the reference projects twice).
 """
 
 from __future__ import annotations
@@ -60,18 +62,27 @@ def _split_proj(cfg, zxbcdt):
     return z, xbc, dt
 
 
+def _silu(x):
+    """SiLU as the reference's ``jax.nn.silu`` evaluates it,
+    x * (1 / (1 + exp(-x))), each operation rounded to x's dtype: in
+    bfloat16, ``F.silu``'s single rounding differs from it in ~40% of
+    outputs (by one ulp)."""
+    return x * torch.exp(-x).add_(1).reciprocal_()
+
+
 def _causal_conv(cfg, p, xbc):
-    """Depthwise causal conv1d over [B, L, C]."""
+    """Depthwise causal conv1d over [B, L, C], then SiLU."""
     k = cfg.conv_kernel
     pad = F.pad(xbc, (0, 0, k - 1, 0))
     out = sum(pad[:, i:i + xbc.shape[1], :] * p["conv_w"][i][None, None, :]
               for i in range(k))
-    return F.silu(out + p["conv_b"])
+    return _silu(out + p["conv_b"])
 
 
 def ssd_prefill(cfg, p, h):
-    """The block over a full sequence from one projection and one scan:
-    (out [B, L, D], conv_tail [B, k-1, C], state [B, H, N, P] fp32)."""
+    """The block over a full sequence from one projection and one scan
+    call: (out [B, L, D], conv_tail [B, k-1, C], state [B, H, N, P] fp32,
+    from fp32 dt as the reference's ``ssd_final_state``)."""
     b, L, _ = h.shape
     g, n_ = cfg.ssm_groups, cfg.ssm_state
     nh, pd = cfg.ssm_heads, cfg.ssm_head_dim
@@ -82,10 +93,10 @@ def ssd_prefill(cfg, p, h):
     cm = xbc[..., cfg.d_inner + g * n_:].reshape(b, L, g, n_)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     a = -torch.exp(p["a_log"])
-    y, state = ssd_scan(x, dt.to(x.dtype), a, bm, cm)
+    y, state = ssd_scan(x, dt.to(x.dtype), a, bm, cm, state_dt=dt)
     y = y + x * p["d_skip"][None, None, :, None].to(x.dtype)
     y = y.reshape(b, L, cfg.d_inner)
-    y = rms_norm(y * F.silu(z), p["ssm_norm"], cfg.norm_eps)
+    y = rms_norm(y * _silu(z), p["ssm_norm"], cfg.norm_eps)
     conv_tail = xbc_raw[:, -(cfg.conv_kernel - 1):, :]
     return y @ p["out_proj"], conv_tail, state
 
@@ -111,7 +122,7 @@ def ssd_decode(cfg, p, h, conv_cache, state):
     z, xbc_raw, dt_raw = _split_proj(cfg, h @ p["in_proj"])   # [B,1,*]
     window = torch.cat([conv_cache, xbc_raw], dim=1)          # [B, k, C]
     conv_out = torch.einsum("bkc,kc->bc", window, p["conv_w"]) + p["conv_b"]
-    xbc = F.silu(conv_out)                                    # [B, C]
+    xbc = _silu(conv_out)                                     # [B, C]
     x = xbc[..., :cfg.d_inner].reshape(b, nh, pd)
     bm = xbc[..., cfg.d_inner:cfg.d_inner + g * n_].reshape(b, g, n_)
     cm = xbc[..., cfg.d_inner + g * n_:].reshape(b, g, n_)
@@ -126,5 +137,5 @@ def ssd_decode(cfg, p, h, conv_cache, state):
     y = torch.einsum("bhn,bhnp->bhp", cf.float(), state)
     y = y.to(h.dtype) + x * p["d_skip"][None, :, None].to(h.dtype)
     y = y.reshape(b, 1, cfg.d_inner)
-    y = rms_norm(y * F.silu(z), p["ssm_norm"], cfg.norm_eps)
+    y = rms_norm(y * _silu(z), p["ssm_norm"], cfg.norm_eps)
     return y @ p["out_proj"], window[:, 1:, :], state

@@ -20,7 +20,8 @@ import torch
 from repro.core.merge import merge_runs as ref_merge_runs
 from repro.kernels.merge_path.ref import merge_two_runs_ref
 from repro_torch.core.merge import merge_runs
-from repro_torch.kernels.merge_path.ops import (merge_two_runs,
+from repro_torch.kernels.merge_path import ops
+from repro_torch.kernels.merge_path.ops import (TILE, merge_two_runs,
                                                 merge_two_runs_plain)
 from _torch_parity import reference_numpy_tiers  # noqa: F401
 
@@ -106,6 +107,53 @@ def test_merge_rejects_bad_input():
         merge_two_runs(k.to(torch.int32), k, k, k)
     with pytest.raises(ValueError):
         merge_two_runs(k, k[:3], k, k)
+    with pytest.raises(TypeError):
+        merge_two_runs(k, k, k[None], k[None])
+    meta = torch.empty(4, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError):         # runs on two devices
+        merge_two_runs(k, k, meta, meta)
+    with pytest.raises(ValueError):         # neither the CPU nor a card
+        merge_two_runs(meta, meta, meta, meta)
+
+
+@pytest.mark.parametrize("name", ["ties", "extremes", "random0"])
+def test_merge_takes_strided_runs(name):
+    """Views with a stride (every other element of a buffer twice the
+    length) merge as their contiguous copies do."""
+    a, sa, b, sb = _case(name)
+    want_k, want_s = _oracle(a, sa, b, sb)
+    views = []
+    for x in (a, sa, b, sb):
+        buf = torch.zeros(2 * x.shape[0], dtype=torch.int64)
+        buf[::2] = torch.from_numpy(x)
+        views.append(buf[::2])
+    assert not views[0].is_contiguous() or a.shape[0] < 2
+    k, s = merge_two_runs(*views)
+    np.testing.assert_array_equal(k.numpy(), want_k)
+    np.testing.assert_array_equal(s.numpy(), want_s)
+
+
+@pytest.mark.parametrize("tile", [TILE, TILE // 2])
+def test_resolve_checks_the_library_tile(monkeypatch, tile):
+    """The wrapper takes a kernel library only if the tile its
+    ``merge_path_tile`` entry reports is ops.TILE (the card's edge checks
+    cut runs around TILE); a library of another tile raises and leaves the
+    entry unresolved."""
+    launch = object()
+    entries = {"merge_path_tile": lambda: tile,
+               "merge_path_launch": launch}
+    monkeypatch.setattr(ops._build, "load",
+                        lambda name, fn, argtypes: entries[fn])
+    monkeypatch.setattr(ops, "_launch", None)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", object(),
+                        raising=False)
+    if tile == TILE:
+        ops._resolve()
+        assert ops._launch is launch
+    else:
+        with pytest.raises(RuntimeError, match="tile"):
+            ops._resolve()
+        assert ops._launch is None
 
 
 def test_merge_runs_is_independent_of_run_order():

@@ -19,7 +19,10 @@ below 6e-6.  The greedy tokens must be identical.
 
 The port's final SSM state comes from its chunked scan (the kernel route's
 own), the reference's from a second, sequential scan over L: in float32
-they agree within the same tolerance.
+they agree within the same tolerance.  In bfloat16 the port's state is
+still computed from fp32 dt and fp32 products of B and x, as the
+reference's ``ssd_final_state`` does, and its conv and SiLU round as the
+reference's do, so the two agree to fp32 rounding (the bf16 twin below).
 """
 
 import jax
@@ -28,7 +31,9 @@ import numpy as np
 import pytest
 import torch
 
+import repro.models.ssd as ref_ssd
 import repro_torch.configs as port_configs
+import repro_torch.models.ssd as port_ssd
 from repro.configs import get_config
 from repro.models import decode_step as ref_decode
 from repro.models import forward as ref_forward
@@ -91,6 +96,74 @@ def test_final_state_matches_the_scan(pair):
         got = ssd_final_state(tcfg, layer_params(tp["layers"], i)["ssd"],
                               torch.from_numpy(h))
         _close(got, want, f"final state, layer {i}")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_final_state_matches_the_scan_bf16(arch):
+    """The bf16 twin: the port's bf16 ``ssd_final_state`` against the
+    reference's, held to the float32 tolerance.  y's dt is rounded to bf16
+    (the reference's kernel route), the state's must not be.  Both run
+    their own conv and SiLU (bitwise equal in bf16, see below).  A state
+    scanned with bf16 dt fails it: 0.038 in layer 0, where the limit is
+    3.4e-4."""
+    cfg = get_config(arch).smoke().with_(param_dtype="bfloat16")
+    tcfg = port_configs.get_config(arch).smoke().with_(
+        param_dtype="bfloat16")
+    rp = ref_init(cfg, jax.random.PRNGKey(3))
+    tp = params_from_jax(tcfg, jax.tree.map(np.asarray, rp),
+                         compute_device="cpu")
+    h = np.random.default_rng(1).standard_normal(
+        (2, S, cfg.d_model)).astype(np.float32)
+    for i in range(cfg.n_layers):
+        want = ref_final_state(
+            cfg, jax.tree.map(lambda x: x[i], rp["layers"]["ssd"]),
+            jnp.asarray(h).astype(jnp.bfloat16))
+        got = ssd_final_state(tcfg, layer_params(tp["layers"], i)["ssd"],
+                              torch.from_numpy(h).to(torch.bfloat16))
+        assert got.dtype == torch.float32
+        _close(got, want, f"bf16 final state, layer {i}")
+
+
+def _bf16(x: np.ndarray) -> tuple[torch.Tensor, jnp.ndarray]:
+    t = torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+    return t, jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+
+def test_silu_matches_the_reference_bf16():
+    """The Mamba2 block's SiLU equals ``jax.nn.silu`` bit for bit at every
+    finite bf16 value but those whose fp32 sigmoid or product is
+    subnormal, which XLA on the CPU flushes to zero: 513 of 65,280 (the
+    subnormal inputs, the inputs of which half is subnormal, and three near
+    -88 whose sigmoid is)."""
+    bits = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32)
+    x = bits.to(torch.int16).view(torch.bfloat16)
+    xf = x.float()
+    sig = 1 / (1 + torch.exp(-xf))
+
+    def subnormal(v):
+        return (v != 0) & (v.abs() < torch.finfo(torch.float32).tiny)
+    x = x[xf.isfinite() & ~subnormal(sig) & ~subnormal(xf * sig)]
+    assert x.numel() == 65_280 - 513
+    want = jax.nn.silu(_bf16(x.float().numpy())[1])
+    np.testing.assert_array_equal(port_ssd._silu(x).float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_causal_conv_matches_the_reference_bf16(arch):
+    """The block's depthwise conv and SiLU in bf16, bit for bit against the
+    reference's ``_causal_conv`` on the same numpy-seeded inputs."""
+    cfg = get_config(arch).smoke()
+    rng = np.random.default_rng(5)
+    c = port_ssd.conv_dim(cfg)
+    tx, jx = _bf16(rng.standard_normal((2, S, c)))
+    tw, jw = _bf16(rng.standard_normal((cfg.conv_kernel, c)) * 0.5)
+    tb, jb = _bf16(rng.standard_normal(c) * 0.1)
+    want = ref_ssd._causal_conv(cfg, {"conv_w": jw, "conv_b": jb}, jx)
+    got = port_ssd._causal_conv(cfg, {"conv_w": tw, "conv_b": tb}, tx)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
 
 
 def test_four_decode_steps(pair):

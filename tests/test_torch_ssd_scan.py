@@ -127,6 +127,33 @@ def test_ssd_rejects_bad_shapes():
                  torch.zeros(1, 8, 2, 4), torch.zeros(1, 8, 2, 4))
 
 
+@pytest.mark.parametrize("L,ck", [(128, 64), (189, 128), (300, 128)])
+def test_state_dt_keeps_y_and_takes_fp32_dt(L, ck):
+    """bf16 x, B, C with y's dt rounded to bf16 and the state's dt in fp32
+    (``models/ssd.py``'s call): y is bit for bit y without ``state_dt``
+    (and the reference kernel's), while the state is the float64
+    recurrence's with the fp32 dt, within 2e-4 as above; from y's bf16 dt
+    it would be off by ~2^-9 of dt."""
+    ref_in, port_in = _inputs(1, L, 4, 2, 32, 16, "bfloat16", seed=L)
+    rng = np.random.default_rng(L)
+    dt32 = np.abs(rng.standard_normal((1, L, 4))).astype(np.float32) * 0.5
+    dt16 = jnp.asarray(dt32, jnp.bfloat16)
+    state_dt = torch.from_numpy(dt32)
+    x, _, a, bm, cm = port_in
+    dt = torch.from_numpy(np.array(dt16.astype(jnp.float32))).to(
+        torch.bfloat16)
+    y0, state0 = ssd_scan(x, dt, a, bm, cm, ck=ck)
+    y, state = ssd_scan(x, dt, a, bm, cm, ck=ck, state_dt=state_dt)
+    assert torch.equal(y, y0)
+    ref = (ref_in[0], dt16, ref_in[2], ref_in[3], ref_in[4])
+    assert _err(y, ref_ssd(*ref, ck=ck)) < TOL["bfloat16"]
+    want = _state_oracle(ref[0], jnp.asarray(dt32), ref[2], ref[3])
+    assert _err(state, want) < 2e-4
+    assert _err(state0, want) > 10 * _err(state, want)
+    with pytest.raises(ValueError):         # the state's dt is float32
+        ssd_scan(x, dt, a, bm, cm, state_dt=dt)
+
+
 def _three_pass(x, dt, a, bm, cm, q=_KERNEL_CK):
     """The kernel's three passes (``csrc/ssd_scan.cu``) in fp32 torch on
     unpadded inputs: (y in x's dtype, final state [B, H, N, P])."""
