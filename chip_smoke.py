@@ -28,16 +28,36 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    the kernel's split over blocks, an all-empty batch and a B 1 x 4,096
    decode; every element within atol + rtol * |plain| as TOL below
    states).
-3. Store path: ``Simulator.run`` on the card for vlsm and rocksdb at the
-   paper's byte scale (64 MiB scale, ``DeviceModel.scaled(1.0)``, 200-byte
-   pairs): 8,000,000 uniform keys loaded at 500,000 ops/s, a 10 s settle,
-   then 2,000,000 YCSB Run A ops (50% GET / 50% update, Zipfian 0.99) at
-   8,000 ops/s.  Launch counts are zeroed just before and read just after;
-   merge_path, overlap_scan and lindley_scan must have launched.  The
-   (keys, fences) sizes of every rank call and the (A, B) lengths of every
-   merge call are counted on the way (by wrapping the names in the store's
-   modules, not in the package) and must add up to overlap_scan's and
-   merge_path's launches.
+3. Store path: ``Simulator.run`` on the card for every registered policy
+   (vlsm, rocksdb, rocksdb_io, adoc, lsmi, lazy) at the paper's byte scale
+   (64 MiB scale, ``DeviceModel.scaled(1.0)``, 200-byte pairs): 8,000,000
+   uniform keys loaded at 500,000 ops/s, a 10 s settle, then 2,000,000
+   YCSB Run A ops (50% GET / 50% update, Zipfian 0.99) at 8,000 ops/s.
+   Launch counts are zeroed just before and read just after; overlap_scan
+   and lindley_scan must have launched, and merge_path exactly once for
+   each input SST of a compaction past the first of its merge: the runs
+   that ``LSMTree.merge_runs`` is handed must add up to the job log's input
+   SSTs (lsmi's here each move one SST into an empty key range and merge
+   nothing).  The (keys, fences) sizes of every rank call and the (A, B)
+   lengths of every merge call are counted on the way (by wrapping the
+   names in the store's modules, not in the package) and must add up to
+   overlap_scan's and merge_path's launches.
+3b. Store benches: ``db_bench.main`` on the card, from rewound uid
+   counters, at the reference's full sizes for every policy (fillrandom
+   uniform and pareto, read_path, ycsb_a, seekrandom, chain_report,
+   shard_sweep x1/x2/x4 and the x4 Zipf hot shard, fleet_sweep over 4 shard
+   counts x 32 rates with its serial oracle on every rate), each bench's
+   launches counted apart; its rows, in order, against the committed
+   ``BENCH_dbbench.json`` rows of the same benches: timing keys and the
+   two tier keys dropped, every integer, string and structural field
+   equal, a rounded simulated-time field within one unit of its last digit
+   (counted), the parity gap within 1e-9 s; at least one row must stall.
+3c. The fleet matrix (every policy x shard counts 1, 2, 4, 16 x 32 rates:
+   4,416 queues) through ``fleet.fleet_sweep``: ONE lindley_scan launch,
+   its queues and departures bit for bit those of the 768 per-pass
+   launches of 3b's ``sweep_execute``, the kernel within 1e-9 s of its
+   plain version on the batch; then db_bench's quick fleet_sweep with 1
+   and with 2 spawned workers, rows identical but for timing keys.
 4. Serving paths: ``repro_torch.launch.serve.run(arch, smoke=False)`` with
    the reference's defaults (8 requests: two shared 128-token prefixes
    plus 8-63-token tails; 16 greedy tokens each; 32-token prefix blocks;
@@ -56,7 +76,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    and the operations at 989 TFLOP/s (bf16).  overlap_scan and merge_path
    are also timed at the store's commonest call shape from phase 3 (beside
    torch.searchsorted and torch.sort), lindley_scan over a ragged batch of
-   4,096 rows, ssd_scan with and without its final-state run.  The LM
+   4,096 rows and over the fleet matrix's batch (timed in 3c, so that its
+   1.3 GB leave the card before the serving paths), ssd_scan with and
+   without its final-state run.  The LM
    kernels are also
    timed at a 4,096-token prefill (flash_attention at zamba2's and at
    qwen3-1.7b's heads), paged_attention at 8 sequences and at 1 sequence
@@ -74,8 +96,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    one shared-attention application; qwen3 to 2), card against CPU on the
    first request's prefill and 4 greedy decode steps (tokens identical,
    logits within 1e-3 of max(1, max|logit|)).
-7. Where the time goes: the vlsm store path under torch.profiler and
-   cProfile; a 2-request serving run of each model under torch.profiler.
+7. Where the time goes: each policy's store path under torch.profiler
+   (vlsm's also under cProfile); a 2-request serving run of each model
+   under torch.profiler.  Every phase's wall seconds go into the report.
 
 Prints the card line, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  ``--out DIR`` also writes every number
@@ -141,9 +164,31 @@ SOURCES = {"merge_path": "kernels/merge_path/kernel.py:131",
            "flash_attention": "kernels/flash_attention/kernel.py:108",
            "ssd_scan": "kernels/ssd_scan/kernel.py:81",
            "paged_attention": "kernels/paged_attention/kernel.py:102"}
+# the store path's policies: every registered one (phase 3); the card-vs-CPU
+# cross-check (phase 6) keeps to the first two
+CROSS_POLICIES = ("vlsm", "rocksdb")
 N_LOAD = 8_000_000             # uniform keys loaded (before de-duplication)
 N_RUN = 2_000_000              # YCSB Run A ops after the settle
 LINDLEY_ROWS = 4096            # the ragged batch lindley_scan is timed at
+# db_bench rows against the reference's committed rows: the keys that may
+# differ (timings and machine facts, as scripts/check_row_parity.py drops
+# them, and the two keys naming the tier), the rounded simulated-time
+# fields with the decimals db_bench keeps (one unit of the last may
+# differ), and the fleet summary's parity gap, which is held to
+# LINDLEY_TOL_S instead
+ROW_VOLATILE = frozenset({
+    "wall_clock_s", "fleet_wall_s", "serial_wall_s", "speedup",
+    "structural_s", "temporal_s", "lindley_s", "finalize_s", "cache_hit",
+    "executor_wall_s", "serial_equiv_s", "cache_hits", "cache_misses",
+    "tasks", "workers", "index_backend", "backend"})
+ROW_ROUNDED = {"p50_get_ms": 3, "p99_get_ms": 3, "p999_get_ms": 3,
+               "p99_put_ms": 3, "p999_put_ms": 3, "p50_scan_ms": 3,
+               "p99_scan_ms": 3, "p999_scan_ms": 3, "stall_total_s": 4,
+               "stall_max_ms": 2, "stall_s": 4, "chain_stall_s": 4,
+               "stall_attributed_s": 4, "p50_critical_path_ms": 3,
+               "p99_critical_path_ms": 3}
+ROW_PARITY = "parity_max_abs_latency_s"
+FLEET_OPS, FLEET_POP = 30_000, 40_000   # db_bench's fleet_sweep, full size
 
 
 def fail(msg: str) -> None:
@@ -299,6 +344,32 @@ def merge_shapes() -> CallShapes:
         return (n_a, n_b) if a_keys.is_cuda and n_a + n_b else None
     return CallShapes("repro_torch.kernels.merge_path.ops", "merge_two_runs",
                       ("merge",), shape)
+
+
+class CompactionInputs:
+    """The runs that each compaction merges: wraps ``LSMTree.merge_runs``
+    (the one door of every compaction's merge) and counts, per call, the
+    runs holding a key.  A call of r such runs launches merge_path r - 1
+    times, and every input SST of the job log is one such run, so
+    ``pairwise`` must equal merge_path's launches and ``runs`` the job
+    log's input SSTs.  The package itself is left as it is."""
+
+    def __enter__(self):
+        from repro_torch.core.lsm import LSMTree
+        self.runs = self.pairwise = 0
+        self._orig = orig = LSMTree.merge_runs
+
+        def recorded(tree, runs):
+            r = sum(1 for k, _ in runs if k.shape[0])
+            self.runs += r
+            self.pairwise += max(r - 1, 0)
+            return orig(tree, runs)
+        LSMTree.merge_runs = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.lsm import LSMTree
+        LSMTree.merge_runs = self._orig
 
 
 def bound_ms(nbytes: float) -> float:
@@ -712,34 +783,290 @@ def time_lindley_ragged(torch, np, arrivals, rows: int) -> dict:
 
 
 # ----------------------------------------------------- where time goes
-def profile_main_path(torch, np, trace) -> dict:
-    """The vlsm main path twice more: under torch.profiler for the device's
-    busy time by kernel, and under cProfile for the host's hot spots."""
+def profile_main_path(torch, np, trace, policy: str = "vlsm",
+                      host_profile: bool = True) -> dict:
+    """The store path of ``policy`` once more under torch.profiler for the
+    device's busy time by kernel, and (``host_profile``) once more under
+    cProfile for the host's hot spots."""
     import cProfile
     import pstats
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, wall = run_main_path(torch, np, "vlsm", trace, "cuda")
+        _, _, wall = run_main_path(torch, np, policy, trace, "cuda")
     rows = kernel_times_us(prof)
     busy_ms = sum(us for _, us, _ in rows) / 1e3
-    host = cProfile.Profile()
-    host.enable()
-    _, _, host_wall = run_main_path(torch, np, "vlsm", trace, "cuda")
-    host.disable()
-    stats = pstats.Stats(host).stats
-    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:15]
-    return {
+    out = {
         "profiled_wall_s": wall,
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / 1e3 / wall,
         "top_device": [{"name": n[:90], "ms": us / 1e3, "count": c}
                        for n, us, c in rows[:12]],
-        "cprofile_wall_s": host_wall,
-        "top_host": [{"fn": f"{Path(f).name}:{line}:{fn}", "tottime_s": tt,
-                      "calls": nc}
-                     for (f, line, fn), (_cc, nc, tt, _ct, _cl) in top],
     }
+    if not host_profile:
+        return out
+    host = cProfile.Profile()
+    host.enable()
+    _, _, host_wall = run_main_path(torch, np, policy, trace, "cuda")
+    host.disable()
+    stats = pstats.Stats(host).stats
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:15]
+    out["cprofile_wall_s"] = host_wall
+    out["top_host"] = [{"fn": f"{Path(f).name}:{line}:{fn}", "tottime_s": tt,
+                        "calls": nc}
+                       for (f, line, fn), (_cc, nc, tt, _ct, _cl) in top]
+    return out
+
+
+# ------------------------------------------------------- store benches
+def strip_volatile(row):
+    """A bench row without the keys a run may change (ROW_VOLATILE)."""
+    if isinstance(row, dict):
+        return {k: strip_volatile(v) for k, v in row.items()
+                if k not in ROW_VOLATILE}
+    if isinstance(row, list):
+        return [strip_volatile(v) for v in row]
+    return row
+
+
+def compare_row(got, want, where: str, flips: list) -> None:
+    """Fails unless ``got`` equals ``want`` (both stripped): every integer,
+    string and structural field exactly; a rounded simulated-time field
+    (ROW_ROUNDED) within one unit of its last kept digit, each such
+    difference appended to ``flips``; the parity gap within
+    LINDLEY_TOL_S."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            fail(f"row {where}: {got!r} does not have the keys "
+                 f"{sorted(want)}")
+        for k, w in want.items():
+            g = got[k]
+            if k == ROW_PARITY:
+                if not g <= LINDLEY_TOL_S:
+                    fail(f"row {where}: {k} {g} > {LINDLEY_TOL_S}")
+            elif k in ROW_ROUNDED and not isinstance(w, bool) \
+                    and isinstance(w, (int, float)):
+                diff = abs(g - w)
+                if diff > 10.0 ** -ROW_ROUNDED[k] * (1 + 1e-6):
+                    fail(f"row {where}: {k} {g} != {w}")
+                if diff:
+                    flips.append(f"{where}.{k}: {g} vs {w}")
+            else:
+                compare_row(g, w, f"{where}.{k}", flips)
+    elif isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            fail(f"row {where}: list lengths differ")
+        for i, (g, w) in enumerate(zip(got, want)):
+            compare_row(g, w, f"{where}[{i}]", flips)
+    elif type(got) is not type(want) and not (
+            isinstance(got, (int, float)) and isinstance(want, (int, float))
+            and not isinstance(got, bool) and not isinstance(want, bool)):
+        fail(f"row {where}: {got!r} != {want!r}")
+    elif got != want:
+        fail(f"row {where}: {got!r} != {want!r}")
+
+
+class RecordLindley:
+    """Records every call of the list-of-queues Lindley front end the fleet
+    engine makes (queues in, departures out), by wrapping its name in
+    ``repro_torch.core.fleet``; the package is left as it is."""
+
+    def __enter__(self):
+        from repro_torch.core import fleet
+        self.calls: list = []
+        self._orig = orig = fleet.lindley_batch_np
+        calls = self.calls
+
+        def recorded(services, arrivals, d0=None, compute_device="cuda"):
+            deps = orig(services, arrivals, d0, compute_device)
+            calls.append((services, arrivals, deps))
+            return deps
+        fleet.lindley_batch_np = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import fleet
+        fleet.lindley_batch_np = self._orig
+
+
+class BenchLaunches:
+    """Kernel launches per db_bench bench: wraps the bench functions that
+    ``db_bench.main`` calls by their module names and adds each call's
+    launches to its bench (``fill_sim``'s to fillrandom, whose runs
+    chain_report reuses); the package is left as it is."""
+
+    BENCH_OF = {"fill_sim": "fillrandom", "fillrandom": "fillrandom",
+                "read_path": "read_path", "ycsb_a": "ycsb_a",
+                "seekrandom": "seekrandom", "chain_report": "chain_report",
+                "shard_sweep": "shard_sweep",
+                "fleet_sweep_bench": "fleet_sweep"}
+
+    def __enter__(self):
+        from repro_torch import kernels
+        from repro_torch.bench_kv import db_bench
+        self.per_bench: dict = {}
+        self._orig = {f: getattr(db_bench, f) for f in self.BENCH_OF}
+        per_bench = self.per_bench
+
+        def counted(bench, fn):
+            def call(*a, **kw):
+                before = kernels.launch_counts()
+                out = fn(*a, **kw)
+                after = kernels.launch_counts()
+                tally = per_bench.setdefault(bench, dict.fromkeys(after, 0))
+                for k in after:
+                    tally[k] += after[k] - before[k]
+                return out
+            return call
+        for f, bench in self.BENCH_OF.items():
+            setattr(db_bench, f, counted(bench, self._orig[f]))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.bench_kv import db_bench
+        for f, fn in self._orig.items():
+            setattr(db_bench, f, fn)
+
+
+def db_bench_rows(torch, out: Path | None) -> tuple[dict, list]:
+    """db_bench's seven store benches at the reference's full sizes for
+    every registered policy, on the card (``db_bench.main``, from rewound
+    uid counters as in a fresh process), their rows held in order against
+    the committed ``BENCH_dbbench.json`` rows of the same benches
+    (``compare_row``); at least one row must stall.  Returns the report
+    and fleet_sweep's per-pass Lindley calls (``RecordLindley``)."""
+    from repro_torch import kernels
+    from repro_torch.bench_kv import db_bench
+    from repro_torch.core import DEFAULT_CACHE
+    from repro_torch.core.uids import reset_uid_counters
+    want = [r for r in json.loads((ROOT / "BENCH_dbbench.json").read_text())
+            if r["bench"] not in db_bench.NOT_PORTED]
+    argv = [] if out is None else ["--json", str(out / "db_bench.json")]
+    reset_uid_counters()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with RecordLindley() as rec, BenchLaunches() as by_bench:
+        rows = db_bench.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    DEFAULT_CACHE.clear()           # its prepared engines hold card memory
+    if len(rows) != len(want):
+        fail(f"db_bench: {len(rows)} rows, the committed file has "
+             f"{len(want)} of the same benches")
+    flips: list[str] = []
+    for i, (g, w) in enumerate(zip(rows, want)):
+        if g["bench"] != w["bench"]:
+            fail(f"db_bench row {i}: bench {g['bench']} != {w['bench']}")
+        compare_row(strip_volatile(g), strip_volatile(w),
+                    f"{i}:{w['bench']}:{w.get('policy', '')}", flips)
+    stalled = [f"{r['bench']}:{r['policy']}:x{r.get('n_shards', 1)}"
+               for r in rows if r.get("n_stalls", 0) > 0]
+    if not stalled:
+        fail("db_bench: no row stalls")
+    if min(launches[k] for k in STORE_KERNELS) <= 0:
+        fail(f"db_bench: a store kernel never launched: {launches}")
+    for k in launches:
+        if sum(t[k] for t in by_bench.per_bench.values()) != launches[k]:
+            fail(f"db_bench: {k}'s launches outside the benches: "
+                 f"{launches[k]} in all, {by_bench.per_bench} by bench")
+    per_bench: dict = collections.defaultdict(float)
+    for r in rows:
+        if r["bench"] != "fleet_sweep" or r.get("engine") == "summary":
+            per_bench[r["bench"]] += r["wall_clock_s"]
+    summary = rows[-2] if rows[-1]["bench"] == "perf_trajectory" else rows[-1]
+    return {"rows": len(rows), "last_digit_flips": len(flips),
+            "flips": flips[:20], "stalled_rows": len(stalled),
+            "stalled": stalled[:12], "wall_s": wall,
+            "row_wall_s": dict(per_bench),
+            "fleet_summary": {k: summary[k] for k in (
+                "fleet_wall_s", "serial_wall_s", "speedup",
+                ROW_PARITY, "parity_stalls_equal") if k in summary},
+            "launches": launches,
+            "launches_per_bench": by_bench.per_bench}, rec.calls
+
+
+def fleet_matrix(torch, np, pass_calls: list) -> tuple[dict, tuple]:
+    """db_bench's fleet matrix (every policy x shard counts 1, 2, 4, 16 x
+    32 rates) through ``fleet.fleet_sweep`` on the card, which must scan
+    every pending queue of the matrix in ONE lindley_scan launch; its
+    queues and departures must equal bit for bit those of ``pass_calls``,
+    the per-pass calls (one launch each) of ``sweep_execute`` on the same
+    matrix in the db_bench phase.  Returns the report and the matrix's
+    batch (service, arrivals, offsets) on the card, held within
+    LINDLEY_TOL_S of the plain version."""
+    from repro_torch import kernels
+    from repro_torch.bench_kv import db_bench
+    from repro_torch.core import fleet, policies
+    points, _ = db_bench.fleet_points(policies.names(), FLEET_OPS, FLEET_POP)
+    with RecordLindley() as rec:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        fleet.fleet_sweep(points, compute_device="cuda")
+        torch.cuda.synchronize()
+        t_matrix = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    if launches["lindley_scan"] != 1 or len(rec.calls) != 1:
+        fail(f"fleet_sweep: {launches['lindley_scan']} lindley_scan launches "
+             f"in {len(rec.calls)} calls for the matrix, not 1")
+    services, arrivals, deps = rec.calls[0]
+    queues = [q for c in pass_calls for q in zip(*c)]
+    if len(queues) != len(services):
+        fail(f"fleet_sweep: {len(services)} rows, the passes scanned "
+             f"{len(queues)}")
+    bits = np.int64
+    for i, (s, a, d) in enumerate(queues):
+        if not (np.array_equal(s.view(bits), services[i].view(bits))
+                and np.array_equal(a.view(bits), arrivals[i].view(bits))):
+            fail(f"fleet_sweep: queue {i} differs from its pass's")
+        if not np.array_equal(d.view(bits), deps[i].view(bits)):
+            fail(f"fleet_sweep: departures of row {i} are not bit-equal "
+                 "to its pass's")
+    lens = np.array([q.shape[0] for q in services], np.int64)
+    offsets = np.concatenate([[0], np.cumsum(lens)])
+    s = torch.from_numpy(np.concatenate(services)).to("cuda")
+    a = torch.from_numpy(np.concatenate(arrivals)).to("cuda")
+    del rec, queues
+    err = check_lindley(torch, "over the fleet matrix", s, a, offsets)
+    report = {"points": len(points), "rates": len(points[0].grid),
+              "rows": int(lens.size), "ops": int(offsets[-1]),
+              "empty_rows": int((lens == 0).sum()),
+              "lindley_launches": launches["lindley_scan"],
+              "per_pass_calls": len(pass_calls),
+              "launches": launches, "bit_equal_to_passes": True,
+              "max_abs_err": err, "fleet_sweep_wall_s": t_matrix,
+              "device_bytes": 3 * 8 * int(offsets[-1])}
+    return report, (s, a, offsets)
+
+
+def time_lindley_matrix(torch, batch) -> dict:
+    """lindley_scan over the fleet matrix's batch, beside its plain version."""
+    from repro_torch.kernels.lindley_scan.ops import (lindley_batch,
+                                                      lindley_batch_plain)
+    s, a, offsets = batch
+    n, rows = int(s.shape[0]), len(offsets) - 1
+    return {
+        "shape": f"{rows} rows, {n} ops (the fleet matrix)",
+        "bound_ms": bound_ms(24 * n + 8 * (2 * rows + 1)),
+        **time_all(torch, lambda: lindley_batch(s, a, offsets),
+                   lambda: lindley_batch_plain(s, a, offsets), None, 8)}
+
+
+def workers_rows(torch) -> dict:
+    """db_bench's fleet_sweep at its quick size with 1 and with 2 spawned
+    workers on the card: the rows must be identical but for the volatile
+    keys."""
+    from repro_torch.bench_kv import db_bench
+    got, walls = {}, {}
+    for w in (1, 2):
+        t0 = time.perf_counter()
+        got[w] = db_bench.main(["--quick", "--bench", "fleet_sweep",
+                                "--workers", str(w)])
+        walls[w] = time.perf_counter() - t0
+    if strip_volatile(got[1]) != strip_volatile(got[2]):
+        fail("fleet_sweep: rows of 1 and 2 workers differ")
+    return {"rows": len(got[1]), "identical": True,
+            "wall_s": {f"workers_{w}": t for w, t in walls.items()}}
 
 
 # ------------------------------------------------------ LM kernels: edges
@@ -1391,12 +1718,22 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
+    if args.out is not None:
+        args.out.mkdir(parents=True, exist_ok=True)
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     from repro_torch import kernels
     from repro_torch.kernels import _build
 
     report: dict = {}
+    phase_s = report["phase_s"] = {}
+    clock = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """Wall seconds of the phase just ended, into the report."""
+        now = time.perf_counter()
+        phase_s[name] = now - clock[0]
+        clock[0] = now
     card = card_line()
     print(card, flush=True)
     t0 = time.perf_counter()
@@ -1405,6 +1742,7 @@ def main() -> int:
     report["ptxas"] = {k: [ln for ln in v.splitlines() if "ptxas" in ln]
                        for k, v in _build.ptxas_reports.items()}
     print(f"kernels built in {report['build_s']:.2f} s", flush=True)
+    lap("build")
 
     rng = np.random.default_rng(0)
     edge_err = {"merge_path": edge_merge(torch, np, rng),
@@ -1419,14 +1757,18 @@ def main() -> int:
           f"flash_attention {edge_err['flash_attention']:.3e}, "
           f"ssd_scan {edge_err['ssd_scan']:.3e}, "
           f"paged_attention {edge_err['paged_attention']:.3e}", flush=True)
+    lap("edges")
 
     trace = ycsb_trace(np, N_LOAD, N_RUN)
+    from repro_torch.core import policies
+    store_policies = policies.names()
     kernels.reset_launch_counts()
-    runs, launches, card_runs = {}, {}, {}
+    main_sim, launches, card_runs = None, {}, {}
     before = kernels.launch_counts()
-    for policy in ("vlsm", "rocksdb"):
+    for policy in store_policies:
         torch.cuda.reset_peak_memory_stats()
-        with rank_shapes() as shapes, merge_shapes() as merges:
+        with rank_shapes() as shapes, merge_shapes() as merges, \
+                CompactionInputs() as inputs:
             sim, res, wall = run_main_path(torch, np, policy, trace, "cuda")
         report[f"rank_shapes_{policy}"] = shapes.report()
         report[f"merge_shapes_{policy}"] = merges.report()
@@ -1435,13 +1777,33 @@ def main() -> int:
         before = after
         row = summarize(np, sim, res, trace[3], wall)
         row["launches"] = launches[policy]
+        # merge_path launches once for each input SST of a compaction past
+        # the first of its merge; a run whose compactions each move one SST
+        # into an empty key range (lsmi over the sorted load: its run phase
+        # fills no L0 past the trigger) merges nothing
+        compactions = [j for j in res.job_log if j.kind == "compact"]
+        row["merging_compactions"] = sum(1 for j in compactions
+                                         if j.n_in_ssts > 1)
+        row["compaction_inputs"] = sum(j.n_in_ssts for j in compactions)
+        if inputs.runs != row["compaction_inputs"]:
+            fail(f"{policy}: compactions merged {inputs.runs} runs, the job "
+                 f"log names {row['compaction_inputs']} input SSTs")
+        if inputs.pairwise != launches[policy]["merge_path"]:
+            fail(f"{policy}: merge_path launched "
+                 f"{launches[policy]['merge_path']} times for "
+                 f"{inputs.pairwise} pairwise merges of its compactions")
         row["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        runs[policy] = (sim, res)
-        card_runs[policy] = (res.get_reads, res.get_probed, res.latency,
-                             res.n_stalls)
+        if policy == "vlsm":
+            main_sim = (sim, res)
+        if policy in CROSS_POLICIES:
+            card_runs[policy] = (res.get_reads, res.get_probed, res.latency,
+                                 res.n_stalls)
+        del sim, res
         report[f"main_{policy}"] = row
         print(f"main path {policy}: " + json.dumps(row), flush=True)
-        if min(launches[policy][k] for k in STORE_KERNELS) <= 0:
+        need = [k for k in STORE_KERNELS
+                if k != "merge_path" or inputs.pairwise]
+        if min(launches[policy][k] for k in need) <= 0:
             fail(f"{policy}: a kernel never launched on the store path")
         if shapes.report()["calls"] != launches[policy]["overlap_scan"]:
             fail(f"{policy}: {shapes.report()['calls']} recorded rank calls, "
@@ -1456,11 +1818,31 @@ def main() -> int:
     total = kernels.launch_counts()
     common = collections.Counter()
     common_merge = collections.Counter()
-    for policy in ("vlsm", "rocksdb"):
+    for policy in CROSS_POLICIES:
         for m, n, c in report[f"rank_shapes_{policy}"]["top"]:
             common[(m, n)] += c
         for n_a, n_b, c in report[f"merge_shapes_{policy}"]["top"]:
             common_merge[(n_a, n_b)] += c
+    torch.cuda.empty_cache()
+    lap("store_path")
+
+    report["db_bench"], pass_calls = db_bench_rows(torch, args.out)
+    print("db_bench rows: " + json.dumps(report["db_bench"]), flush=True)
+    lap("db_bench")
+    report["fleet_matrix"], matrix_batch = fleet_matrix(torch, np,
+                                                        pass_calls)
+    del pass_calls
+    print("fleet matrix: " + json.dumps(report["fleet_matrix"]), flush=True)
+    # timed here, so that its 1.3 GB leave the card before the serving
+    # paths' peak memory is read
+    report["lindley_fleet_matrix"] = time_lindley_matrix(torch, matrix_batch)
+    del matrix_batch
+    torch.cuda.empty_cache()
+    lap("fleet_matrix")
+    report["fleet_workers"] = workers_rows(torch)
+    print("fleet_sweep workers 1 vs 2: " + json.dumps(report["fleet_workers"]),
+          flush=True)
+    lap("fleet_workers")
 
     serve_launches = {}
     for arch, (must_launch, _) in SERVE_PATHS.items():
@@ -1482,8 +1864,9 @@ def main() -> int:
                  f"{counts['paged_attention']} times, not "
                  f"{srv['paged_launches_expected']}")
     torch.cuda.empty_cache()
+    lap("serving")
 
-    sim, res = runs["vlsm"]
+    sim, res = main_sim
     timings = {"merge_path": time_merge(torch, sim),
                "overlap_scan": time_rank(torch, np, sim, trace),
                "lindley_scan": time_lindley(torch, np,
@@ -1497,7 +1880,7 @@ def main() -> int:
                                            *common_merge.most_common(1)[0][0])
     report["lindley_ragged"] = time_lindley_ragged(torch, np, res.arrivals,
                                                    LINDLEY_ROWS)
-    del runs, sim, res
+    del main_sim, sim, res
     s_serve = max(report["serve_zamba2_1_2b"]["prompt_tokens"])
     timings["flash_attention"] = time_flash(torch, s_serve, 40)
     timings["ssd_scan"] = time_ssd(torch, s_serve, 40)
@@ -1535,12 +1918,15 @@ def main() -> int:
           + json.dumps(report["merge_common"]), flush=True)
     print(f"timing lindley_scan over {LINDLEY_ROWS} rows: "
           + json.dumps(report["lindley_ragged"]), flush=True)
+    print("timing lindley_scan over the fleet matrix: "
+          + json.dumps(report["lindley_fleet_matrix"]), flush=True)
     for name, t in report["long_prefill"].items():
         print(f"timing {name} at {LONG_PREFILL} tokens: " + json.dumps(t),
               flush=True)
     for name, t in report["long_decode"].items():
         print(f"timing {name}, long decode: " + json.dumps(t), flush=True)
     torch.cuda.empty_cache()
+    lap("timings")
 
     report["zamba2_bf16_states"] = serve_state_check(torch, np)
     print("zamba2 bf16 states: " + json.dumps(
@@ -1554,7 +1940,8 @@ def main() -> int:
               + json.dumps(cross), flush=True)
         torch.cuda.empty_cache()
 
-    for policy in ("vlsm", "rocksdb"):
+    lap("serving_checks")
+    for policy in CROSS_POLICIES:
         reads, probed, latency, n_stalls = card_runs.pop(policy)
         _, r_cpu, w_cpu = run_main_path(torch, np, policy, trace, "cpu")
         if not (np.array_equal(reads, r_cpu.get_reads)
@@ -1570,11 +1957,15 @@ def main() -> int:
               f"max |latency err| {err:.3e} s (cpu run {w_cpu:.1f} s)",
               flush=True)
 
-    prof = profile_main_path(torch, np, trace)
-    report["profile_vlsm"] = prof
-    print("profile vlsm: device busy "
-          f"{prof['device_busy_ms']:.1f} ms of {prof['profiled_wall_s']:.2f} s "
-          f"wall ({100 * prof['device_busy_share']:.2f}%)", flush=True)
+    lap("store_cross_check")
+    for policy in store_policies:
+        prof = profile_main_path(torch, np, trace, policy,
+                                 host_profile=policy == "vlsm")
+        report[f"profile_{policy}"] = prof
+        print(f"profile {policy}: device busy "
+              f"{prof['device_busy_ms']:.1f} ms of "
+              f"{prof['profiled_wall_s']:.2f} s wall "
+              f"({100 * prof['device_busy_share']:.2f}%)", flush=True)
 
     for arch in SERVE_PATHS:
         sprof = profile_serve(torch, np, arch)
@@ -1585,6 +1976,8 @@ def main() -> int:
               f"({100 * sprof['device_busy_share']:.2f}%)", flush=True)
         torch.cuda.empty_cache()
 
+    lap("profiles")
+    print("phase wall s: " + json.dumps(phase_s), flush=True)
     rows = []
     for name, t in timings.items():
         # launches: each kernel's count on its own main path (store kernels
@@ -1604,7 +1997,6 @@ def main() -> int:
     report["kernels"] = rows
     report["card"] = card
     if args.out is not None:
-        args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

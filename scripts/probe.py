@@ -25,6 +25,8 @@ Phases, each made of ``chip_smoke.py``'s own functions:
     paged     paged_attention at qwen3's and zamba2's decode shapes and at
               8 and 1 sequences of 4,096 tokens
     ssd       ssd_scan at zamba2's L 189 and 4,096
+    seekrandom db_bench's seekrandom at full size for every policy, from
+              rewound uid counters: its wall, its launches and its rows
 
 It builds the kernels the phases need and prints their ``-Xptxas -v``
 lines, prints ``--predict``'s text before anything runs, then runs every
@@ -98,6 +100,21 @@ def ssd(torch, np, cs, ctx) -> dict:
             "L4096": cs.time_ssd(torch, cs.LONG_PREFILL, 10)}
 
 
+def seekrandom(torch, np, cs, ctx) -> dict:
+    from repro_torch import kernels
+    from repro_torch.bench_kv import db_bench
+    from repro_torch.core.uids import reset_uid_counters
+    reset_uid_counters()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = db_bench.main(["--bench", "seekrandom"])
+    torch.cuda.synchronize()
+    return {"wall_s": time.perf_counter() - t0,
+            "launches": kernels.launch_counts(),
+            "rows": [cs.strip_volatile(r) for r in rows]}
+
+
+STORE = ("merge_path", "overlap_scan", "lindley_scan")
 # phase: (kernels it builds, what it runs)
 PHASES = {
     "edge_merge": (("merge_path",), lambda torch, np, cs, ctx: {
@@ -121,6 +138,7 @@ PHASES = {
     "flash": (("flash_attention",), flash),
     "paged": (("paged_attention",), paged),
     "ssd": (("ssd_scan",), ssd),
+    "seekrandom": (STORE, seekrandom),
 }
 
 

@@ -7,13 +7,17 @@ Public API::
                                   CompactionPolicy, get_policy, policies)
 
 ``LSMTree.apply_batch(RequestBatch) -> ResultBatch`` is the single typed
-operation entry point.  ``LSMTree``, ``Simulator`` and
+operation entry point.  ``LSMTree``, ``Simulator``, ``FleetEngine``, the
+sweeps (``fleet_sweep``, ``sweep_execute``, ...) and
 ``repro_torch.bench_kv.ycsb.run_ycsb`` take ``compute_device`` (default
 ``"cuda"``); ``device`` keeps its reference meaning, the storage
-``DeviceModel``.
+``DeviceModel``.  The legacy ``Policy`` str-enum aliases the five seed
+policy names.
 """
 
 from . import policies
+from .fleet import (FleetEngine, PendingRun, SweepPoint, fleet_sweep,
+                    serial_sweep, traffic_curve)
 from .level_index import LevelIndex
 from .lsm import Job, LSMTree
 from .memtable import Memtable
@@ -22,14 +26,22 @@ from .shard import ShardRouter
 from .sim import SimResult, Simulator
 from .sst import SST
 from .stats import ChainRecord, FleetStats, Stats, TenantLedger
-from .types import (DeviceModel, LSMConfig, OpKind, RequestBatch,
+from .sweeps import (DEFAULT_CACHE, LEDGER, ExecutorLedger, PointTiming,
+                     StructuralCache, parallel_map, point_key, run_point,
+                     serial_sweep_parallel, sweep_execute)
+from .types import (DeviceModel, LSMConfig, OpKind, Policy, RequestBatch,
                     ResultBatch, resolve_compute_device)
 from .uids import UidNamespace, reset_uid_counters
 
 __all__ = [
-    "ChainRecord", "CompactionPolicy", "DeviceModel", "FleetStats", "Job",
+    "ChainRecord", "CompactionPolicy", "DEFAULT_CACHE", "DeviceModel",
+    "ExecutorLedger", "FleetEngine", "FleetStats", "Job", "LEDGER",
     "LSMConfig", "LSMTree", "LevelIndex", "Memtable", "OpKind",
-    "RequestBatch", "ResultBatch", "SST", "ShardRouter", "SimResult",
-    "Simulator", "Stats", "TenantLedger", "UidNamespace", "get_policy",
-    "policies", "reset_uid_counters", "resolve_compute_device",
+    "PendingRun", "PointTiming", "Policy", "RequestBatch", "ResultBatch",
+    "SST", "ShardRouter", "SimResult", "Simulator", "Stats",
+    "StructuralCache", "SweepPoint", "TenantLedger", "UidNamespace",
+    "fleet_sweep", "get_policy", "parallel_map", "point_key", "policies",
+    "reset_uid_counters", "resolve_compute_device", "run_point",
+    "serial_sweep", "serial_sweep_parallel", "sweep_execute",
+    "traffic_curve",
 ]

@@ -613,14 +613,17 @@ class LSMTree:
                 if self.index.n_ssts(level):
                     spans[level] = self.index.scan_spans(
                         level, start_keys[pending], m[pending] * kv + max_sst)
+            # every pending scan's start key on the device in one copy
+            probes = torch.from_numpy(start_keys[pending]).to(
+                self.compute_device)
             still = []
             for j, op in enumerate(pending):
                 op = int(op)
                 op_spans = {lvl: (int(s[j]), int(e[j]))
                             for lvl, (s, e) in spans.items()}
                 done = self._scan_one(op, int(start_keys[op]), int(want[op]),
-                                      int(m[op]), op_spans, counts, blocks,
-                                      files, out_k, out_s)
+                                      int(m[op]), op_spans, probes[j:j + 1],
+                                      counts, blocks, files, out_k, out_s)
                 if not done:
                     still.append(op)
             pending = np.asarray(still, np.int64)
@@ -630,93 +633,114 @@ class LSMTree:
         return counts, blocks, files, flat_k, flat_s
 
     def _scan_one(self, op: int, k: int, want: int, m: int,
-                  spans: dict[int, tuple[int, int]], counts, blocks, files,
-                  out_k: list, out_s: list) -> bool:
+                  spans: dict[int, tuple[int, int]], probe: torch.Tensor,
+                  counts, blocks, files, out_k: list, out_s: list) -> bool:
         """One gather/merge round for scan ``op`` at run cap ``m``; returns
-        False when the cap must double (window not yet provably complete)."""
+        False when the cap must double (window not yet provably complete).
+
+        ``probe`` holds ``k`` on the compute device.  The scan waits on the
+        card three times: for the ranks of ``k`` in every source (one
+        overlap_scan launch per source, read back together); for the
+        merged window (the merge_path launches of ``merge_runs``) and the
+        last entry of each capped run, in one copy, on which the host
+        makes the frontier test and the window cut; and for the ranks of
+        the window's last key in every device run (one overlap_scan launch
+        per run, read back together), which feed the iterator cost
+        model."""
         cfg = self.cfg
         kv = cfg.kv_size
         bsz = cfg.block_size
+        mts = [mt.to_sorted() for mt in [self.memtable] + self.immutables]
+        l0 = [sst for sst in self.levels[0] if sst.largest >= k]
+        heads = [(level, start, end) for level, (start, end) in spans.items()
+                 if start < end]
+        sources = [ks for ks, _ in mts] + [sst.keys for sst in l0] + \
+            [self.levels[level][start].keys for level, start, _ in heads]
+        pos = torch.cat([fence_rank(keys, probe, "left")
+                         for keys in sources]).tolist() if sources else []
         runs: list[tuple[torch.Tensor, torch.Tensor]] = []
-        frontiers: list[int] = []   # last delivered key of each capped run
-        # Device runs for the iterator cost model: (keys, SST part bounds).
-        dev_runs: list[tuple[torch.Tensor, np.ndarray]] = []
-        for mt in [self.memtable] + self.immutables:
-            ks, ss, more = mt.scan_from(k, m)
-            if more:
-                frontiers.append(int(ks[-1]))
-            if ks.shape[0]:
-                runs.append((ks, ss))
-        for sst in self.levels[0]:
-            if sst.largest < k:
+        # capped runs whose last entry bounds the window: (run, or None
+        # for an unconditional frontier, else the source's largest key)
+        capped: list[tuple[int, int | None]] = []
+        # device runs for the iterator cost model: (run, SST part bounds)
+        dev_runs: list[tuple[int, list[int]]] = []
+        for (ks, ss), i in zip(mts, pos):
+            if ks.shape[0] - i > m:
+                capped.append((len(runs), None))
+            if ks.shape[0] > i:
+                runs.append((ks[i:i + m], ss[i:i + m]))
+        pos = pos[len(mts):]
+        for sst, i in zip(l0, pos):
+            if sst.n == i:
                 continue
-            ks, ss = sst.scan_from(k, m)
-            if ks.shape[0] == 0:
-                continue
-            if ks.shape[0] == m and sst.largest > int(ks[-1]):
-                frontiers.append(int(ks[-1]))
-            runs.append((ks, ss))
-            dev_runs.append((ks, np.asarray([ks.shape[0]], np.int64)))
-        for level, (start, end) in spans.items():
+            if sst.n - i >= m:
+                capped.append((len(runs), sst.largest))
+            dev_runs.append((len(runs), [min(m, sst.n - i)]))
+            runs.append((sst.keys[i:i + m], sst.seqs[i:i + m]))
+        pos = pos[len(l0):]
+        for (level, start, end), i in zip(heads, pos):
             remaining = m
             parts_k: list[torch.Tensor] = []
             parts_s: list[torch.Tensor] = []
-            for pos in range(start, end):
+            for p in range(start, end):
                 if remaining <= 0:
                     break
-                sst = self.levels[level][pos]
-                if pos == start:
-                    ks, ss = sst.scan_from(k, remaining)
-                else:
-                    ks, ss = sst.keys[:remaining], sst.seqs[:remaining]
-                if ks.shape[0] == 0:
+                sst = self.levels[level][p]
+                a = i if p == start else 0
+                b = min(sst.n, a + remaining)
+                if b <= a:
                     continue
-                parts_k.append(ks)
-                parts_s.append(ss)
-                remaining -= int(ks.shape[0])
+                parts_k.append(sst.keys[a:b])
+                parts_s.append(sst.seqs[a:b])
+                remaining -= b - a
             if parts_k:
-                lk = torch.cat(parts_k)
-                ls = torch.cat(parts_s)
-                if (lk.shape[0] == m
-                        and int(self.index.largest[level][-1]) > int(lk[-1])):
-                    frontiers.append(int(lk[-1]))
-                runs.append((lk, ls))
-                bounds = np.cumsum([p.shape[0] for p in parts_k])
-                dev_runs.append((lk, bounds.astype(np.int64)))
+                if remaining == 0:
+                    capped.append((len(runs),
+                                   int(self.index.largest[level][-1])))
+                bounds = np.cumsum([q.shape[0] for q in parts_k]).tolist()
+                dev_runs.append((len(runs), bounds))
+                runs.append((torch.cat(parts_k), torch.cat(parts_s))
+                            if len(parts_k) > 1 else (parts_k[0], parts_s[0]))
         if not runs:
             return True          # nothing at or past k anywhere
-        keys, seqs = merge_backend.merge_runs(runs)
-        log, tomb = seq_decode(seqs)
-        live_idx = torch.nonzero(~tomb).flatten()
+        keys_d, seqs_d = merge_backend.merge_runs(runs)
+        n = keys_d.shape[0]
+        host = torch.cat([keys_d, seqs_d] + [runs[r][0][-1:] for r, _ in
+                                             capped]).cpu().numpy()
+        keys, seqs = host[:n], host[n:2 * n]
+        log, tomb = seqs >> 1, (seqs & 1).astype(bool)
+        live_idx = np.nonzero(~tomb)[0]
+        frontiers = [int(last) for (_, largest), last in
+                     zip(capped, host[2 * n:])
+                     if largest is None or largest > int(last)]
         if frontiers:
             frontier = min(frontiers)
             trusted = live_idx[keys[live_idx] <= frontier]
             if trusted.shape[0] < want:
                 return False     # double m: window not provably complete
         take = live_idx[:want]
-        last_key = int(keys[take[-1]]) if take.shape[0] else None
+        consumed = [0] * len(dev_runs)
+        if take.shape[0] and dev_runs:
+            j = int(take[-1])
+            consumed = torch.cat([fence_rank(runs[r][0], keys_d[j:j + 1],
+                                             "right")
+                                  for r, _ in dev_runs]).tolist()
         n_blocks = n_files = 0
-        for rk, bounds in dev_runs:
-            if last_key is None:
-                consumed = 0
-            else:
-                probe = torch.tensor([last_key], dtype=torch.int64,
-                                     device=rk.device)
-                consumed = int(fence_rank(rk, probe, "right")[0])
-            if consumed == 0:
+        for (_, bounds), used in zip(dev_runs, consumed):
+            if used == 0:
                 n_files += 1     # seek only: position at the first entry
                 n_blocks += 1
                 continue
             prev = 0
-            for b in bounds.tolist():
-                part = min(consumed, b) - prev
+            for b in bounds:
+                part = min(used, b) - prev
                 if part <= 0:
                     break
                 n_files += 1
                 n_blocks += -(-part * kv // bsz)
                 prev = b
-        out_k[op] = keys[take].cpu().numpy()
-        out_s[op] = log[take].cpu().numpy()
+        out_k[op] = keys[take]
+        out_s[op] = log[take]
         counts[op] = int(take.shape[0])
         blocks[op] = n_blocks
         files[op] = n_files

@@ -475,8 +475,8 @@ class Simulator:
         """Shared run prologue: validate/normalize the op stream, price the
         base per-kind service, route ops to shards/regions and derive the
         fill-event schedule.  Both engines — the heap loop here and the
-        two-phase fleet engine (still to be ported) — start from the
-        exact same :class:`_RunState`."""
+        two-phase :class:`repro_torch.core.fleet.FleetEngine` — start from
+        the exact same :class:`_RunState`."""
         n = op_types.shape[0]
         assert keys.shape[0] == n and arrivals.shape[0] == n and n > 0
         cfg = self.cfg

@@ -184,6 +184,23 @@ class ResultBatch:
         return self.scan_keys[a:b], self.scan_seqs[a:b]
 
 
+class Policy(str, enum.Enum):
+    """Aliases for the five seed compaction policies (Fig. 3).
+
+    ``LSMConfig.policy`` carries a plain registry name; these members
+    compare equal to those names (``cfg.policy == Policy.VLSM``) and are
+    accepted wherever a name is (``LSMConfig(policy=Policy.ADOC)``,
+    ``policies.get(Policy.LSMI)``).  Policies registered later, such as
+    ``"lazy"``, have a name and no member.
+    """
+
+    VLSM = "vlsm"            # Fig 3(d): no tiering, small SSTs, phi, vSSTs
+    ROCKSDB = "rocksdb"      # Fig 3(b): tiering L0 + leveled rest + debt
+    ROCKSDB_IO = "rocksdb_io"  # RocksDB with overflow (debt) disabled
+    ADOC = "adoc"            # Fig 3(c): tiering + debt + aggressive scheduling
+    LSMI = "lsmi"            # Fig 3(a): incremental, no tiering, fixed SSTs
+
+
 @dataclass(frozen=True)
 class DeviceModel:
     """Deterministic storage-device model (replaces the paper's NVMe).
@@ -245,6 +262,9 @@ class LSMConfig:
     paranoid_checks: bool = field(default_factory=_paranoid_default)
 
     def __post_init__(self) -> None:
+        # a Policy member becomes its registry name
+        object.__setattr__(self, "policy",
+                           getattr(self.policy, "value", self.policy))
         assert self.n_shards >= 1, "n_shards must be >= 1"
         assert self.shard_router in ("hash", "range"), \
             f"unknown shard_router {self.shard_router!r} (hash|range)"
@@ -298,6 +318,16 @@ class LSMConfig:
         return get_policy("rocksdb_io").default_config(scale)
 
     @staticmethod
+    def adoc_default(scale: int = 1 << 20) -> "LSMConfig":
+        from .policies import get_policy
+        return get_policy("adoc").default_config(scale)
+
+    @staticmethod
     def vlsm_default(scale: int = 1 << 20, sst_frac: int = 8) -> "LSMConfig":
         from .policies import get_policy
         return get_policy("vlsm").default_config(scale, sst_frac=sst_frac)
+
+    @staticmethod
+    def lsmi_default(scale: int = 1 << 20) -> "LSMConfig":
+        from .policies import get_policy
+        return get_policy("lsmi").default_config(scale)

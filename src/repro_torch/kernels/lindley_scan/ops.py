@@ -27,6 +27,11 @@ pinned, non-blocking copy; nothing synchronises with the host.  Inputs are
 not checked for NaN (that would need a sync): the kernel's running max
 skips a NaN where the plain version's spreads it, so NaN inputs give other
 departures on the card, but every call ends.
+
+:func:`lindley_batch_np` is the list-of-queues front end the fleet engine
+and the sweeps call (the reference's ``lindley_batch_np``): numpy queues in,
+numpy departures out, through one CSR buffer and one :func:`lindley_batch`
+call.
 """
 
 from __future__ import annotations
@@ -162,3 +167,43 @@ def lindley_batch(service: torch.Tensor, arrivals: torch.Tensor,
 
 
 lindley_batch.launches = 0
+
+
+def lindley_batch_np(services: Sequence[np.ndarray],
+                     arrivals: Sequence[np.ndarray],
+                     d0: Sequence[float] | None = None,
+                     compute_device: str | torch.device = "cuda"
+                     ) -> list[np.ndarray]:
+    """Departure times of a list of FIFO queues (the reference's
+    ``lindley_batch_np``): ``services[i]`` and ``arrivals[i]`` are queue
+    i's per-op service and arrival times (1-D, equal length, possibly
+    empty), ``d0[i]`` its carried-in clock (default -inf).  Returns one
+    float64 array per queue.
+
+    The queues become ONE CSR buffer on ``compute_device`` and go through
+    ONE :func:`lindley_batch` call: on the card one kernel launch for the
+    whole list, however ragged; on the CPU the plain version, in
+    ``lindley_numpy``'s operation order row by row.  The reference pads
+    the queues into power-of-two buckets with a cached pad plan because
+    the TPU kernel takes rectangular blocks; the Hopper kernel takes
+    ragged rows, so there is no pad plan and no plan cache here."""
+    dev = torch.device(compute_device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "compute_device='cuda' but torch sees no CUDA device; pass "
+            "compute_device='cpu' to run the plain PyTorch tier")
+    b = len(services)
+    if len(arrivals) != b:
+        raise ValueError("one arrival array per service array")
+    lens = np.fromiter((s.shape[0] for s in services), np.int64, b)
+    offsets = np.zeros(b + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    total = int(offsets[-1])
+    if total == 0:
+        return [np.empty(0, np.float64) for _ in range(b)]
+    host = np.empty((2, total), np.float64)
+    np.concatenate(services, out=host[0], casting="same_kind")
+    np.concatenate(arrivals, out=host[1], casting="same_kind")
+    queues = torch.from_numpy(host).to(dev)
+    dep = lindley_batch(queues[0], queues[1], offsets, d0).cpu().numpy()
+    return np.split(dep, offsets[1:-1])

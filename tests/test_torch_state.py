@@ -61,7 +61,8 @@ def _step(tree, batch_cls, rng_state, n_pop_keys):
     return res
 
 
-@pytest.mark.parametrize("pname", ["vlsm", "rocksdb", "rocksdb_io"])
+@pytest.mark.parametrize("pname", ["vlsm", "rocksdb", "rocksdb_io", "adoc",
+                                   "lsmi", "lazy"])
 def test_state_transfer_then_identical_evolution(pname):
     rng = np.random.default_rng(3)
     pop = np.unique(rng.integers(0, 1 << 40, 6_000)).astype(np.int64)

@@ -21,14 +21,16 @@ CPU = torch.device("cpu")
 
 
 def test_registry_resolves_the_ported_policies():
-    assert policies.names() == ["vlsm", "rocksdb", "rocksdb_io"]
+    assert policies.names() == ["vlsm", "rocksdb", "rocksdb_io", "adoc",
+                                "lsmi", "lazy"]
     with pytest.raises(KeyError, match="registered policies"):
-        get_policy("adoc")
+        get_policy("no_such_policy")
     with pytest.raises(ValueError, match="already registered"):
         policies.register(get_policy("vlsm"))
 
 
-@pytest.mark.parametrize("pname", ["vlsm", "rocksdb", "rocksdb_io"])
+@pytest.mark.parametrize("pname", ["vlsm", "rocksdb", "rocksdb_io", "adoc",
+                                   "lsmi", "lazy"])
 @pytest.mark.parametrize("scale", [1 << 17, 64 << 20])
 def test_canned_configs_match_reference(pname, scale):
     ref_cfg = dataclasses.asdict(ref_policy(pname).default_config(scale))
