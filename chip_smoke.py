@@ -42,22 +42,55 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    lengths of every merge call are counted on the way (by wrapping the
    names in the store's modules, not in the package) and must add up to
    overlap_scan's and merge_path's launches.
-3b. Store benches: ``db_bench.main`` on the card, from rewound uid
-   counters, at the reference's full sizes for every policy (fillrandom
-   uniform and pareto, read_path, ycsb_a, seekrandom, chain_report,
-   shard_sweep x1/x2/x4 and the x4 Zipf hot shard, fleet_sweep over 4 shard
-   counts x 32 rates with its serial oracle on every rate), each bench's
-   launches counted apart; its rows, in order, against the committed
-   ``BENCH_dbbench.json`` rows of the same benches: timing keys and the
-   two tier keys dropped, every integer, string and structural field
-   equal, a rounded simulated-time field within one unit of its last digit
-   (counted), the parity gap within 1e-9 s; at least one row must stall.
+3b. db_bench: ``db_bench.main`` on the card, from rewound uid counters, at
+   the reference's full sizes for every policy (fillrandom uniform and
+   pareto, read_path, ycsb_a, seekrandom, chain_report, shard_sweep
+   x1/x2/x4 and the x4 Zipf hot shard, fleet_sweep over 4 shard counts x
+   32 rates with its serial oracle on every rate, serve_sweep's three
+   tenants over 6 load factors with admission off and on, and the
+   perf_trajectory row), each bench's launches counted apart; its rows, in
+   order, against all 902 committed ``BENCH_dbbench.json`` rows: timing
+   keys and the two tier keys dropped, every integer, string and
+   structural field equal (perf_trajectory's task, cache-hit, cache-miss
+   and worker counts included), a rounded simulated-time field within one
+   unit of its last digit (counted), the parity gap within 1e-9 s; at
+   least one row must stall.
 3c. The fleet matrix (every policy x shard counts 1, 2, 4, 16 x 32 rates:
    4,416 queues) through ``fleet.fleet_sweep``: ONE lindley_scan launch,
    its queues and departures bit for bit those of the 768 per-pass
    launches of 3b's ``sweep_execute``, the kernel within 1e-9 s of its
    plain version on the batch; then db_bench's quick fleet_sweep with 1
    and with 2 spawned workers, rows identical but for timing keys.
+3d. Open-loop serving at the paper's byte scale, for vlsm and rocksdb over
+   2 hash shards: db_bench's pinned three-tenant spec (``make_serve_spec``:
+   YCSB-B at priority 0 with a 25 ms SLO, bursty YCSB-A at priority 1,
+   60 ms, a bulk load at priority 2, 250 ms) offering 2,000,000 ops over
+   8,000,000 preloaded keys at load factors 1, 2 and 8 (4,000, 8,000 and
+   32,000 ops/s; the last past the admission knee).  Admission off:
+   ``serve_grid`` (one structural replay, one temporal pass and one
+   lindley_scan launch a factor), its factor-1 run equal to a serial
+   ``Simulator.run`` on the same stream (per-op reads, probed counts and
+   stall events identical, latency within 1e-9 s).  Admission on:
+   ``Simulator.serve`` under ``REPRO_SANITIZE=1`` at every factor (no
+   violation; factor 8 must shed), and a ``FleetEngine`` at factors 2 and
+   8 with the same verdicts, ledgers and stall events, latency within
+   1e-9 s.  Every
+   run: each tenant's offered ops = admitted + shed + throttled, the
+   priority-0 tenant never shed; merge_path, overlap_scan and lindley_scan
+   must have launched (counts zeroed at the start of each policy's run).
+   Wall seconds of materialize, the admission pre-pass and the engine,
+   goodput, shed share and the priority-0 tenant's p99/p99.9, and the peak
+   device memory go into the report.
+3e. ``ShardedStore`` on the card (run after phase 5): 4 hash shards
+   (vlsm, 64 MiB scale), 400,000 keys loaded, then 100,000 ops (45% GET,
+   45% PUT, 5% DELETE, 5% SCAN of at most 100 keys), 10,000 ops a batch,
+   sealed between batches as a harness seals it, and the same with one
+   shard (whose compactions the 4-shard store does not reach), each
+   against the same store built on the CPU: every batch's per-op seqs,
+   reads, probed and SCAN keys and seqnos, ``merged_view``, every shard's
+   SSTs, Stats and chain ledger and the drained jobs identical; the
+   one-shard store also against a bare ``LSMTree`` on the card,
+   identical.
 4. Serving paths: ``repro_torch.launch.serve.run(arch, smoke=False)`` with
    the reference's defaults (8 requests: two shared 128-token prefixes
    plus 8-63-token tails; 16 greedy tokens each; 32-token prefix blocks;
@@ -72,7 +105,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
 5. Kernel timings at the main paths' shapes: kernel, plain version and
    library call — ``ms``, the median of five CUDA-event-timed trials of
    back-to-back calls, and ``device_ms``, the kernels' own device time from
-   torch.profiler — beside the bound: the larger of the bytes at 3.35 TB/s
+   torch.profiler, with the device events it recorded per call — beside
+   the bound: the larger of the bytes at 3.35 TB/s
    and the operations at 989 TFLOP/s (bf16).  overlap_scan and merge_path
    are also timed at the store's commonest call shape from phase 3 (beside
    torch.searchsorted and torch.sort), lindley_scan over a ragged batch of
@@ -90,15 +124,25 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    (the weights widened): greedy tokens from the kernel's states equal to
    the fp32 scan's, and, fed an fp64 scan's tokens, logits within 1e-3 of
    max(1, max|logit|) of that scan's, where states from bf16 dt must fall
-   outside; the store path again with ``compute_device="cpu"`` (per-op
-   reads/probed and stall counts identical, latency within 1e-9 s); each
+   outside; the store path of vlsm and rocksdb with
+   ``compute_device="cpu"`` (per-op reads/probed and stall counts
+   identical, latency within 1e-9 s); each
    serving model in float32 at full width, depth cut (zamba2 to 7 layers,
    one shared-attention application; qwen3 to 2), card against CPU on the
    first request's prefill and 4 greedy decode steps (tokens identical,
    logits within 1e-3 of max(1, max|logit|)).
-7. Where the time goes: each policy's store path under torch.profiler
-   (vlsm's also under cProfile); a 2-request serving run of each model
-   under torch.profiler.  Every phase's wall seconds go into the report.
+7. Where the time goes: vlsm's store path under torch.profiler (device
+   activity only) and under cProfile (the other five policies are not
+   profiled, to keep the run's time: PERF.md section 4); phase 3d's
+   admission-on serve of vlsm at factor 2 under torch.profiler; a
+   2-request serving run of each model under torch.profiler.  Every
+   phase's wall seconds go into the report.
+
+The CPU tier's runs that phases 3e and 6 compare against are computed by
+one spawned worker, started once phase 5's timings are taken: 3e's card
+runs, phase 6's serving checks and phase 7 run beside it, and vlsm's
+store path, run once just before and once just after it starts, records
+its toll on a host-bound wall.
 
 Prints the card line, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  ``--out DIR`` also writes every number
@@ -112,6 +156,7 @@ import argparse
 import collections
 import json
 import math
+import multiprocessing
 import subprocess
 import sys
 import time
@@ -176,31 +221,50 @@ LINDLEY_ROWS = 4096            # the ragged batch lindley_scan is timed at
 # fields with the decimals db_bench keeps (one unit of the last may
 # differ), and the fleet summary's parity gap, which is held to
 # LINDLEY_TOL_S instead
+# (perf_trajectory's task, cache-hit and cache-miss counts and its worker
+# count are compared: tests/test_torch_db_bench.py shows them equal to the
+# reference's)
 ROW_VOLATILE = frozenset({
     "wall_clock_s", "fleet_wall_s", "serial_wall_s", "speedup",
     "structural_s", "temporal_s", "lindley_s", "finalize_s", "cache_hit",
-    "executor_wall_s", "serial_equiv_s", "cache_hits", "cache_misses",
-    "tasks", "workers", "index_backend", "backend"})
+    "executor_wall_s", "serial_equiv_s", "index_backend", "backend"})
 ROW_ROUNDED = {"p50_get_ms": 3, "p99_get_ms": 3, "p999_get_ms": 3,
+               "p99_ms": 3, "p999_ms": 3,
                "p99_put_ms": 3, "p999_put_ms": 3, "p50_scan_ms": 3,
                "p99_scan_ms": 3, "p999_scan_ms": 3, "stall_total_s": 4,
                "stall_max_ms": 2, "stall_s": 4, "chain_stall_s": 4,
                "stall_attributed_s": 4, "p50_critical_path_ms": 3,
                "p99_critical_path_ms": 3}
 ROW_PARITY = "parity_max_abs_latency_s"
+CARD_STATE = ("uuid,driver_version,clocks.sm,clocks.max.sm,clocks.mem,"
+              "temperature.gpu,power.draw")
 FLEET_OPS, FLEET_POP = 30_000, 40_000   # db_bench's fleet_sweep, full size
+# phase 3d: db_bench's pinned serve spec at the paper's byte scale (2,000,000
+# ops offered over 8,000,000 preloaded keys), at 4,000, 8,000 and 32,000
+# ops/s: the last is past the admission knee (the pre-pass sheds the
+# priority-1 and -2 tenants there), and the FleetEngine is held to the serial engine at the last two
+SERVE_DURATION_S, SERVE_POPULATION = 500.0, 8_000_000
+SERVE_OPEN_FACTORS = (1.0, 2.0, 8.0)
+SERVE_FLEET_FACTORS = (2.0, 8.0)
+SERVE_POLICIES = ("vlsm", "rocksdb")
+# phase 3e: ShardedStore over 4 hash shards at the paper's byte scale
+SHARD_COUNT, SHARD_LOAD, SHARD_OPS, SHARD_BATCH = 4, 400_000, 100_000, 10_000
 
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def card_line() -> str:
+def card_query(fields: str) -> str:
+    """nvidia-smi's csv line of ``fields`` for the first card."""
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def card_line() -> str:
+    return card_query("name,power.limit")
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -238,9 +302,11 @@ def kernel_times_us(prof) -> list[tuple[str, float, int]]:
     return sorted(rows, key=lambda r: -r[1])
 
 
-def device_ms(torch, fn, reps: int) -> float | None:
+def device_ms(torch, fn, reps: int) -> tuple[float | None, float]:
     """Device time per call: the durations of the kernels ``reps`` calls
-    launch, from torch.profiler (None when it records no device time)."""
+    launch, from torch.profiler (None when it records no device time); and
+    the device events recorded per call (a window that holds every call's
+    kernels counts as many as one call launches)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -249,21 +315,25 @@ def device_ms(torch, fn, reps: int) -> float | None:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(us for _, us, _ in kernel_times_us(prof))
-    return total / reps / 1e3 if total > 0 else None
+    rows = kernel_times_us(prof)
+    total = sum(us for _, us, _ in rows)
+    return (total / reps / 1e3 if total > 0 else None,
+            sum(c for _, _, c in rows) / reps)
 
 
 def time_all(torch, kernel, plain, library, reps: int) -> dict:
     """``*ms``: CUDA-event time per call of back-to-back calls, median of
     five trials, host launch work included; ``*device_ms``: the kernels' own
-    device time per call from torch.profiler (None if it records none)."""
+    device time per call from torch.profiler (None if it records none) and
+    ``*device_events``, the device events it recorded per call."""
     out = {"library_ms": None, "library_device_ms": None}
     for key, fn, n in (("", kernel, reps), ("plain_", plain, max(1, reps // 4)),
                        ("library_", library, reps)):
         if fn is None:
             continue
         out[f"{key}ms"] = cuda_ms(torch, fn, n)
-        out[f"{key}device_ms"] = device_ms(torch, fn, n)
+        out[f"{key}device_ms"], out[f"{key}device_events"] = device_ms(
+            torch, fn, n)
     return out
 
 
@@ -783,17 +853,16 @@ def time_lindley_ragged(torch, np, arrivals, rows: int) -> dict:
 
 
 # ----------------------------------------------------- where time goes
-def profile_main_path(torch, np, trace, policy: str = "vlsm",
-                      host_profile: bool = True) -> dict:
-    """The store path of ``policy`` once more under torch.profiler for the
-    device's busy time by kernel, and (``host_profile``) once more under
-    cProfile for the host's hot spots."""
+def profile_main_path(torch, np, trace) -> dict:
+    """vlsm's store path once more under torch.profiler for the device's
+    busy time by kernel (only the device's activity is recorded: sorting
+    the host's events of a store path takes the profiler minutes), and
+    once more under cProfile for the host's hot spots."""
     import cProfile
     import pstats
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, _, wall = run_main_path(torch, np, policy, trace, "cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, _, wall = run_main_path(torch, np, "vlsm", trace, "cuda")
     rows = kernel_times_us(prof)
     busy_ms = sum(us for _, us, _ in rows) / 1e3
     out = {
@@ -803,11 +872,9 @@ def profile_main_path(torch, np, trace, policy: str = "vlsm",
         "top_device": [{"name": n[:90], "ms": us / 1e3, "count": c}
                        for n, us, c in rows[:12]],
     }
-    if not host_profile:
-        return out
     host = cProfile.Profile()
     host.enable()
-    _, _, host_wall = run_main_path(torch, np, policy, trace, "cuda")
+    _, _, host_wall = run_main_path(torch, np, "vlsm", trace, "cuda")
     host.disable()
     stats = pstats.Stats(host).stats
     top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:15]
@@ -816,6 +883,36 @@ def profile_main_path(torch, np, trace, policy: str = "vlsm",
                         "calls": nc}
                        for (f, line, fn), (_cc, nc, tt, _ct, _cl) in top]
     return out
+
+
+def profile_serve_open(torch, np) -> dict:
+    """Phase 3d's admission-on ``Simulator.serve`` of vlsm at load factor 2
+    once more under torch.profiler: the device's busy share of the whole call
+    (materialize and the admission pre-pass included) by kernel.  Only the
+    device's activity is recorded: the host's events of a call this long
+    take the profiler minutes to sort."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.bench_kv.db_bench import make_serve_spec
+    from repro_torch.core import (DeviceModel, Simulator, UidNamespace,
+                                  get_policy)
+    policy, factor = "vlsm", 2.0
+    cfg = get_policy(policy).default_config(scale=64 << 20).with_(
+        n_shards=2)
+    spec = make_serve_spec(duration_s=SERVE_DURATION_S,
+                           population=SERVE_POPULATION, admission=True)
+    sim = Simulator(cfg, DeviceModel.scaled(1.0), uids=UidNamespace())
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.serve(spec, load_factor=factor)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = kernel_times_us(prof)
+    busy_ms = sum(us for _, us, _ in rows) / 1e3
+    return {"policy": policy, "load_factor": factor,
+            "profiled_wall_s": wall, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / 1e3 / wall,
+            "top_device": [{"name": n[:90], "ms": us / 1e3, "count": c}
+                           for n, us, c in rows[:8]]}
 
 
 # ------------------------------------------------------- store benches
@@ -869,17 +966,23 @@ def compare_row(got, want, where: str, flips: list) -> None:
 class RecordLindley:
     """Records every call of the list-of-queues Lindley front end the fleet
     engine makes (queues in, departures out), by wrapping its name in
-    ``repro_torch.core.fleet``; the package is left as it is."""
+    ``repro_torch.core.fleet``; the package is left as it is.  ``benches``
+    (a ``BenchLaunches``) tags each call with the db_bench bench that made
+    it (``calls[i][0]``; None without)."""
+
+    def __init__(self, benches=None):
+        self.benches = benches
 
     def __enter__(self):
         from repro_torch.core import fleet
         self.calls: list = []
         self._orig = orig = fleet.lindley_batch_np
-        calls = self.calls
+        calls, benches = self.calls, self.benches
 
         def recorded(services, arrivals, d0=None, compute_device="cuda"):
             deps = orig(services, arrivals, d0, compute_device)
-            calls.append((services, arrivals, deps))
+            calls.append((benches and benches.current, services, arrivals,
+                          deps))
             return deps
         fleet.lindley_batch_np = recorded
         return self
@@ -893,25 +996,32 @@ class BenchLaunches:
     """Kernel launches per db_bench bench: wraps the bench functions that
     ``db_bench.main`` calls by their module names and adds each call's
     launches to its bench (``fill_sim``'s to fillrandom, whose runs
-    chain_report reuses); the package is left as it is."""
+    chain_report reuses); ``current`` names the bench running (None
+    between benches).  The package is left as it is."""
 
     BENCH_OF = {"fill_sim": "fillrandom", "fillrandom": "fillrandom",
                 "read_path": "read_path", "ycsb_a": "ycsb_a",
                 "seekrandom": "seekrandom", "chain_report": "chain_report",
                 "shard_sweep": "shard_sweep",
-                "fleet_sweep_bench": "fleet_sweep"}
+                "fleet_sweep_bench": "fleet_sweep",
+                "serve_sweep_bench": "serve_sweep"}
 
     def __enter__(self):
         from repro_torch import kernels
         from repro_torch.bench_kv import db_bench
         self.per_bench: dict = {}
+        self.current = None
         self._orig = {f: getattr(db_bench, f) for f in self.BENCH_OF}
         per_bench = self.per_bench
 
         def counted(bench, fn):
             def call(*a, **kw):
                 before = kernels.launch_counts()
-                out = fn(*a, **kw)
+                self.current = bench
+                try:
+                    out = fn(*a, **kw)
+                finally:
+                    self.current = None
                 after = kernels.launch_counts()
                 tally = per_bench.setdefault(bench, dict.fromkeys(after, 0))
                 for k in after:
@@ -929,23 +1039,22 @@ class BenchLaunches:
 
 
 def db_bench_rows(torch, out: Path | None) -> tuple[dict, list]:
-    """db_bench's seven store benches at the reference's full sizes for
-    every registered policy, on the card (``db_bench.main``, from rewound
-    uid counters as in a fresh process), their rows held in order against
-    the committed ``BENCH_dbbench.json`` rows of the same benches
-    (``compare_row``); at least one row must stall.  Returns the report
-    and fleet_sweep's per-pass Lindley calls (``RecordLindley``)."""
+    """db_bench's eight benches at the reference's full sizes for every
+    registered policy, on the card (``db_bench.main``, from rewound uid
+    counters as in a fresh process), their rows held in order against
+    every committed ``BENCH_dbbench.json`` row (``compare_row``); at least
+    one row must stall.  Returns the report and fleet_sweep's per-pass
+    Lindley calls (``RecordLindley``)."""
     from repro_torch import kernels
     from repro_torch.bench_kv import db_bench
     from repro_torch.core import DEFAULT_CACHE
     from repro_torch.core.uids import reset_uid_counters
-    want = [r for r in json.loads((ROOT / "BENCH_dbbench.json").read_text())
-            if r["bench"] not in db_bench.NOT_PORTED]
+    want = json.loads((ROOT / "BENCH_dbbench.json").read_text())
     argv = [] if out is None else ["--json", str(out / "db_bench.json")]
     reset_uid_counters()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    with RecordLindley() as rec, BenchLaunches() as by_bench:
+    with BenchLaunches() as by_bench, RecordLindley(by_bench) as rec:
         rows = db_bench.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -953,7 +1062,7 @@ def db_bench_rows(torch, out: Path | None) -> tuple[dict, list]:
     DEFAULT_CACHE.clear()           # its prepared engines hold card memory
     if len(rows) != len(want):
         fail(f"db_bench: {len(rows)} rows, the committed file has "
-             f"{len(want)} of the same benches")
+             f"{len(want)}")
     flips: list[str] = []
     for i, (g, w) in enumerate(zip(rows, want)):
         if g["bench"] != w["bench"]:
@@ -974,7 +1083,8 @@ def db_bench_rows(torch, out: Path | None) -> tuple[dict, list]:
     for r in rows:
         if r["bench"] != "fleet_sweep" or r.get("engine") == "summary":
             per_bench[r["bench"]] += r["wall_clock_s"]
-    summary = rows[-2] if rows[-1]["bench"] == "perf_trajectory" else rows[-1]
+    summary = next(r for r in rows if r.get("engine") == "summary")
+    serve = [r for r in rows if r["bench"] == "serve_sweep"]
     return {"rows": len(rows), "last_digit_flips": len(flips),
             "flips": flips[:20], "stalled_rows": len(stalled),
             "stalled": stalled[:12], "wall_s": wall,
@@ -982,8 +1092,14 @@ def db_bench_rows(torch, out: Path | None) -> tuple[dict, list]:
             "fleet_summary": {k: summary[k] for k in (
                 "fleet_wall_s", "serial_wall_s", "speedup",
                 ROW_PARITY, "parity_stalls_equal") if k in summary},
+            "serve_rows": len(serve),
+            "serve_shedding_rows": sum(1 for r in serve
+                                       if r["shed_frac"] > 0),
+            "perf_trajectory": {k: rows[-1][k] for k in (
+                "tasks", "cache_hits", "cache_misses", "workers")},
             "launches": launches,
-            "launches_per_bench": by_bench.per_bench}, rec.calls
+            "launches_per_bench": by_bench.per_bench}, \
+        [c[1:] for c in rec.calls if c[0] == "fleet_sweep"]
 
 
 def fleet_matrix(torch, np, pass_calls: list) -> tuple[dict, tuple]:
@@ -1009,7 +1125,7 @@ def fleet_matrix(torch, np, pass_calls: list) -> tuple[dict, tuple]:
     if launches["lindley_scan"] != 1 or len(rec.calls) != 1:
         fail(f"fleet_sweep: {launches['lindley_scan']} lindley_scan launches "
              f"in {len(rec.calls)} calls for the matrix, not 1")
-    services, arrivals, deps = rec.calls[0]
+    _, services, arrivals, deps = rec.calls[0]
     queues = [q for c in pass_calls for q in zip(*c)]
     if len(queues) != len(services):
         fail(f"fleet_sweep: {len(services)} rows, the passes scanned "
@@ -1055,7 +1171,7 @@ def time_lindley_matrix(torch, batch) -> dict:
 def workers_rows(torch) -> dict:
     """db_bench's fleet_sweep at its quick size with 1 and with 2 spawned
     workers on the card: the rows must be identical but for the volatile
-    keys."""
+    keys and the rows' worker counts."""
     from repro_torch.bench_kv import db_bench
     got, walls = {}, {}
     for w in (1, 2):
@@ -1063,11 +1179,469 @@ def workers_rows(torch) -> dict:
         got[w] = db_bench.main(["--quick", "--bench", "fleet_sweep",
                                 "--workers", str(w)])
         walls[w] = time.perf_counter() - t0
-    if strip_volatile(got[1]) != strip_volatile(got[2]):
+    def rows(w):
+        return [{k: v for k, v in r.items() if k != "workers"}
+                for r in strip_volatile(got[w])]
+    if rows(1) != rows(2):
         fail("fleet_sweep: rows of 1 and 2 workers differ")
     return {"rows": len(got[1]), "identical": True,
             "wall_s": {f"workers_{w}": t for w, t in walls.items()}}
 
+
+# ------------------------------------------------- open-loop serving (3d)
+class ServeClock:
+    """Wall seconds spent in ``materialize`` and in the admission pre-pass
+    (``admit``) under ``repro_torch.serving.traffic``, by wrapping the two
+    names in that module; the package is left as it is.
+
+    ``memo`` (a dict the caller keeps) holds each stream ``materialize``
+    made, under its spec without the admission config (which it does not
+    read) and its load factor, and every call gets a copy of it (timed
+    apart, ``copy_s``), so that phase 3d makes each of its two streams once
+    for both policies and both arms."""
+
+    def __init__(self, memo: dict):
+        self.memo = memo
+
+    def __enter__(self):
+        import dataclasses
+
+        import numpy as np
+        from repro_torch.serving import traffic
+        self.s = {"materialize": 0.0, "admit": 0.0, "copy_s": 0.0}
+        self.hits = 0
+        self._orig = {k: getattr(traffic, k) for k in ("materialize",
+                                                        "admit")}
+        make, admit = self._orig["materialize"], self._orig["admit"]
+
+        def materialize(spec, load_factor=1.0):
+            t0 = time.perf_counter()
+            key = (dataclasses.replace(spec, admission=None), load_factor)
+            if key not in self.memo:
+                self.memo[key] = make(spec, load_factor)
+                self.s["materialize"] += time.perf_counter() - t0
+                t0 = time.perf_counter()
+            else:
+                self.hits += 1
+            st = self.memo[key]
+            out = dataclasses.replace(st, **{
+                f.name: getattr(st, f.name).copy()
+                for f in dataclasses.fields(st)
+                if isinstance(getattr(st, f.name), np.ndarray)})
+            self.s["copy_s"] += time.perf_counter() - t0
+            return out
+
+        def admitted(*a, **kw):
+            t0 = time.perf_counter()
+            out = admit(*a, **kw)
+            self.s["admit"] += time.perf_counter() - t0
+            return out
+        traffic.materialize, traffic.admit = materialize, admitted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serving import traffic
+        for k, fn in self._orig.items():
+            setattr(traffic, k, fn)
+
+
+def serve_summary(np, sr) -> dict:
+    """One open-loop run's result, checked: every tenant's offered ops got
+    exactly one verdict, the priority-0 tenant was never shed, every
+    admitted op has a finite, non-negative latency."""
+    lat = sr.res.latency
+    if lat.shape[0] != int((sr.verdicts == 0).sum()) \
+            or not np.all(np.isfinite(lat)) or np.any(lat < 0):
+        fail("serve: admitted latencies must be finite and non-negative, "
+             "one per admitted op")
+    for led in sr.tenants:
+        if led.ops_offered != led.ops_admitted + led.ops_shed \
+                + led.ops_throttled:
+            fail(f"serve: tenant {led.name} does not conserve its offered "
+                 f"ops: {led}")
+        if led.priority == 0 and led.ops_shed:
+            fail(f"serve: the priority-0 tenant {led.name} was shed "
+                 f"{led.ops_shed} times")
+    prio = [i for i, led in enumerate(sr.tenants) if led.priority == 0]
+    out = {"offered_ops": sr.offered_ops,
+           "offered_ops_s": sr.offered_ops_s,
+           "goodput_ops_s": sr.goodput_ops_s, "shed_frac": sr.shed_frac,
+           "throttled_frac": sr.throttled_frac,
+           "slo_violation_frac": sr.slo_violation_frac,
+           "run_stalls": sum(1 for i, _ in sr.res.stall_events
+                             if i >= sr.stream.n_load)}
+    for i in prio:
+        p = sr.tenant_latency(i)
+        out[f"{sr.tenants[i].name}_p99_ms"] = float(np.percentile(p, 99)) * 1e3
+        out[f"{sr.tenants[i].name}_p999_ms"] = \
+            float(np.percentile(p, 99.9)) * 1e3
+    return out
+
+
+def check_same_run(np, what: str, got, want) -> float:
+    """Two engines' results on one op stream: per-op reads and probed
+    counts and the stall events identical, latency within LINDLEY_TOL_S;
+    returns the latency gap."""
+    if not (np.array_equal(got.get_reads, want.get_reads)
+            and np.array_equal(got.get_probed, want.get_probed)):
+        fail(f"{what}: per-op reads/probed differ")
+    if got.stall_events != want.stall_events:
+        fail(f"{what}: stall events differ ({got.n_stalls} vs "
+             f"{want.n_stalls})")
+    gap = float(np.max(np.abs(got.latency - want.latency))) \
+        if got.latency.size else 0.0
+    if not gap <= LINDLEY_TOL_S:
+        fail(f"{what}: latency gap {gap} s > {LINDLEY_TOL_S}")
+    return gap
+
+
+def serve_open(torch, np, policy: str, memo: dict) -> dict:
+    """Phase 3d for one policy: db_bench's pinned three-tenant spec
+    (``make_serve_spec``) over 2 hash shards at the paper's byte scale,
+    at load factors SERVE_OPEN_FACTORS.  Admission off: ``serve_grid``
+    (one structural replay, one temporal pass and one lindley_scan launch
+    a factor), its factor-1.0 run against a serial ``Simulator.run`` on
+    the same materialized stream.  Admission on: ``Simulator.serve`` under
+    ``REPRO_SANITIZE=1`` (the sanitizer must have checked every event and
+    job and raised nothing) at each factor, the last of which must shed,
+    and at SERVE_FLEET_FACTORS a ``FleetEngine`` on the same spec:
+    verdicts, ledgers and stall events identical, latency within
+    LINDLEY_TOL_S.  Launch counts are zeroed at the start and read at the
+    end: merge_path, overlap_scan and lindley_scan must each have
+    launched.  ``memo`` is ``ServeClock``'s."""
+    import os
+    from repro_torch import kernels
+    from repro_torch.bench_kv.db_bench import make_serve_spec
+    from repro_torch.core import (DeviceModel, FleetEngine, Simulator,
+                                  UidNamespace, get_policy)
+    from repro_torch.serving import serve_grid
+    cfg = get_policy(policy).default_config(scale=64 << 20).with_(
+        n_shards=2)
+    dev = DeviceModel.scaled(1.0)
+    spec_off, spec_on = (make_serve_spec(duration_s=SERVE_DURATION_S,
+                                         population=SERVE_POPULATION,
+                                         admission=adm)
+                         for adm in (False, True))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t_phase = time.perf_counter()
+    report: dict = {"policy": policy, "factors": list(SERVE_OPEN_FACTORS)}
+
+    with ServeClock(memo) as clock:
+        t0 = time.perf_counter()
+        grid = serve_grid(cfg, dev, spec_off, SERVE_OPEN_FACTORS,
+                          compute_device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    if launches["lindley_scan"] != len(SERVE_OPEN_FACTORS):
+        fail(f"serve {policy}: the grid launched lindley_scan "
+             f"{launches['lindley_scan']} times for "
+             f"{len(SERVE_OPEN_FACTORS)} factors")
+    report["off"] = {
+        "wall_s": wall, "materialize_s": clock.s["materialize"],
+        "memo_hits": clock.hits, "copy_s": clock.s["copy_s"],
+        "engine_s": wall - clock.s["materialize"] - clock.s["copy_s"],
+        "timing": [sr.timing for sr in grid],
+        "ops": int(grid[0].stream.op_types.shape[0]),
+        "n_load": grid[0].stream.n_load, "launches": launches,
+        **{f"x{f}": serve_summary(np, sr)
+           for f, sr in zip(SERVE_OPEN_FACTORS, grid)}}
+    stream = grid[0].stream
+    t0 = time.perf_counter()
+    serial = Simulator(cfg, dev, uids=UidNamespace(),
+                       compute_device="cuda").run(
+        stream.op_types, stream.keys, stream.arrivals, stream.scan_lens)
+    torch.cuda.synchronize()
+    report["off"]["serial_run_s"] = time.perf_counter() - t0
+    report["off"]["closed_open_gap_s"] = check_same_run(
+        np, f"serve {policy}: grid at x{SERVE_OPEN_FACTORS[0]} vs serial "
+        "run", grid[0].res, serial)
+    del grid, serial, stream
+
+    saved = os.environ.get("REPRO_SANITIZE")
+    os.environ["REPRO_SANITIZE"] = "1"
+    try:
+        report["on"] = {}
+        for f in SERVE_OPEN_FACTORS:
+            with ServeClock(memo) as clock:
+                t0 = time.perf_counter()
+                sim = Simulator(cfg, dev, uids=UidNamespace(),
+                                compute_device="cuda")
+                sr = sim.serve(spec_on, load_factor=f)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            san = sim.sanitizer
+            if san is None or san.events_checked == 0 \
+                    or san.jobs_checked != len(sr.res.job_log):
+                fail(f"serve {policy}: the sanitizer did not check the run")
+            if f == SERVE_OPEN_FACTORS[-1] and not sr.shed_frac:
+                fail(f"serve {policy}: nothing shed at x{f}, past the knee")
+            on = report["on"][f"x{f}"] = {
+                "wall_s": wall, "materialize_s": clock.s["materialize"],
+                "memo_hits": clock.hits, "copy_s": clock.s["copy_s"],
+                "admit_s": clock.s["admit"],
+                "engine_s": wall - clock.s["materialize"] - clock.s["copy_s"]
+                - clock.s["admit"],
+                "sanitizer_events": san.events_checked,
+                "sanitizer_jobs": san.jobs_checked,
+                **serve_summary(np, sr)}
+            if f in SERVE_FLEET_FACTORS:
+                t0 = time.perf_counter()
+                eng = FleetEngine(cfg, dev, uids=UidNamespace(),
+                                  compute_device="cuda")
+                fsr = eng.serve(spec_on, load_factor=f)
+                torch.cuda.synchronize()
+                if not np.array_equal(fsr.verdicts, sr.verdicts):
+                    fail(f"serve {policy}: fleet and serial verdicts differ "
+                         f"at x{f}")
+                if [vars(t) for t in fsr.tenants] != \
+                        [vars(t) for t in sr.tenants]:
+                    fail(f"serve {policy}: fleet and serial ledgers differ "
+                         f"at x{f}")
+                on["fleet_serve_s"] = time.perf_counter() - t0
+                on["fleet_serial_gap_s"] = check_same_run(
+                    np, f"serve {policy}: fleet vs serial at x{f}",
+                    fsr.res, sr.res)
+                on["fleet_sanitizer_events"] = eng.sanitizer.events_checked
+                del eng, fsr
+            del sim, sr
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_SANITIZE", None)
+        else:
+            os.environ["REPRO_SANITIZE"] = saved
+    report["launches"] = kernels.launch_counts()
+    report["wall_s"] = time.perf_counter() - t_phase
+    report["max_memory_allocated_gb"] = \
+        torch.cuda.max_memory_allocated() / 1e9
+    if min(report["launches"][k] for k in STORE_KERNELS) <= 0:
+        fail(f"serve {policy}: a store kernel never launched: "
+             f"{report['launches']}")
+    return report
+
+
+# ----------------------------------------------------- ShardedStore (3e)
+def shard_batches(np) -> list:
+    """Phase 3e's op stream as (kinds, keys, scan_lens) batches: the
+    unique uniform keys of ``load_keys(SHARD_LOAD)`` as PUTs, then
+    SHARD_OPS mixed ops — 45% GET, 45% PUT, 5% DELETE, 5% SCAN of 1-100
+    keys, each key drawn from the loaded ones — SHARD_BATCH ops a batch."""
+    from repro_torch.bench_kv.workloads import load_keys
+    from repro_torch.core import OpKind
+    r = np.random.default_rng(7)
+    pop = np.unique(load_keys(SHARD_LOAD, seed=7))
+    batches = [(np.full(k.shape[0], OpKind.PUT, np.uint8), k,
+                np.zeros(k.shape[0], np.int32))
+               for k in np.array_split(pop, -(-pop.shape[0] // SHARD_BATCH))]
+    kinds = r.choice(np.array([OpKind.GET, OpKind.PUT, OpKind.DELETE,
+                               OpKind.SCAN], np.uint8), SHARD_OPS,
+                     p=[0.45, 0.45, 0.05, 0.05])
+    keys = r.choice(pop, SHARD_OPS)
+    lens = np.where(kinds == OpKind.SCAN,
+                    r.integers(1, 101, SHARD_OPS), 0).astype(np.int32)
+    for lo in range(0, SHARD_OPS, SHARD_BATCH):
+        sl = slice(lo, lo + SHARD_BATCH)
+        batches.append((kinds[sl], keys[sl], lens[sl]))
+    return batches
+
+
+def drive_store(cfg, batches: list, compute_device: str):
+    """A ``ShardedStore`` fed every batch, sealed between batches as a
+    harness seals it; returns the store, its results and every background
+    job it drained (its own memtable rolls' and the seals')."""
+    from repro_torch.core import RequestBatch, ShardedStore
+    store = ShardedStore(cfg, compute_device=compute_device)
+    results, sealed = [], []
+    for kinds, keys, lens in batches:
+        results.append(store.apply_batch(RequestBatch(kinds, keys,
+                                                      scan_lens=lens)))
+        sealed.extend(store.seal_full_memtables())
+    sealed.extend(store.drain_jobs())
+    return store, results, store.job_log + sealed
+
+
+def drive_tree(cfg, batches: list):
+    """A bare ``LSMTree`` on the card fed the same batches with the store's
+    cadence: writes chunked at the memtable's room (a full memtable rolls
+    through flush and the background triggers), then the batch's reads,
+    then the seal of a full memtable; returns the tree and the reads'
+    results scattered to their batch positions."""
+    from repro_torch.core import LSMTree, OpKind, RequestBatch
+
+    def roll():
+        tree.seal_memtable()
+        while tree.immutables:
+            tree.flush_immutable()
+        tree.background_triggers()
+        tree.drain_jobs()
+    tree = LSMTree(cfg, compute_device="cuda")
+    out = []
+    for kinds, keys, lens in batches:
+        w = (kinds == OpKind.PUT) | (kinds == OpKind.DELETE)
+        wk, wt = keys[w], kinds[w] == OpKind.DELETE
+        i = 0
+        while i < wk.shape[0]:
+            if tree.memtable.room == 0:
+                roll()
+            take = min(tree.memtable.room, wk.shape[0] - i)
+            tree._write_batch(wk[i:i + take], wt[i:i + take])
+            i += take
+            if tree.memtable.full:
+                roll()
+        out.append((~w, tree.apply_batch(RequestBatch(
+            kinds[~w], keys[~w], scan_lens=lens[~w]))))
+        if tree.memtable.full:
+            roll()
+    return tree, out
+
+
+def tree_levels(tree) -> list:
+    """A tree's SSTs, level by level: uid, keys and seqnos as bytes."""
+    return [[(sst.uid, sst.keys.cpu().numpy().tobytes(),
+              sst.seqs.cpu().numpy().tobytes()) for sst in lvl]
+            for lvl in tree.levels]
+
+
+def tree_state(tree) -> dict:
+    """A tree's SSTs, its Stats counters and its chain ledger."""
+    import dataclasses
+    st = tree.stats
+    return {"levels": tree_levels(tree),
+            "stats": {f.name: getattr(st, f.name)
+                      for f in dataclasses.fields(st)
+                      if f.name not in ("chains", "chain_index")},
+            "chains": [dataclasses.asdict(c) for c in st.chains]}
+
+
+def store_state(store, jobs: list) -> dict:
+    """Everything a ``ShardedStore`` holds that two runs must agree on:
+    each shard's ``tree_state`` and the store's drained jobs."""
+    return {"jobs": [(j.kind, j.level, j.uid, j.shard, j.n_in_ssts)
+                     for j in jobs],
+            "shards": [tree_state(tree) for tree in store.shards]}
+
+
+RESULT_FIELDS = ("kinds", "seqs", "reads", "probed", "scan_offsets",
+                 "scan_keys", "scan_seqs")
+
+
+def shard_run(np, compute_device: str, n_shards: int) -> tuple:
+    """Phase 3e's store of ``n_shards`` hash shards (vlsm, 64 MiB scale)
+    on ``compute_device``, from rewound uid counters, as plain data: its
+    wall seconds, every batch's results as RESULT_FIELDS arrays,
+    ``merged_view`` and ``store_state``; and the store itself."""
+    from repro_torch.core import get_policy
+    from repro_torch.core.uids import reset_uid_counters
+    cfg = get_policy("vlsm").default_config(scale=64 << 20).with_(
+        n_shards=n_shards)
+    batches = shard_batches(np)
+    reset_uid_counters()
+    t0 = time.perf_counter()
+    store, results, jobs = drive_store(cfg, batches, compute_device)
+    return {"wall_s": time.perf_counter() - t0,
+            "results": [{f: getattr(r, f) for f in RESULT_FIELDS}
+                        for r in results],
+            "merged_view": store.merged_view(),
+            "state": store_state(store, jobs)}, store
+
+
+def cpu_runs() -> dict:
+    """The CPU tier's runs that phases 6 and 3e hold the card against,
+    computed in a spawned worker: the store path of CROSS_POLICIES (per-op
+    reads, probed counts, latencies, stall count, wall seconds) and phase
+    3e's stores of SHARD_COUNT shards and of one (``shard_run``)."""
+    import numpy as np
+    import torch
+    torch.set_num_threads(2)
+    trace = ycsb_trace(np, N_LOAD, N_RUN)
+    out: dict = {}
+    for policy in CROSS_POLICIES:
+        _, res, wall = run_main_path(torch, np, policy, trace, "cpu")
+        out[policy] = (res.get_reads, res.get_probed, res.latency,
+                       res.n_stalls, wall)
+    del trace, res
+    out["shard_store"] = {n: shard_run(np, "cpu", n)[0]
+                          for n in (SHARD_COUNT, 1)}
+    return out
+
+
+def shard_card_runs(torch, np) -> dict:
+    """Phase 3e's card side: the stores of SHARD_COUNT shards and of one
+    on the card (``shard_run``), each with its launches, and the one-shard
+    store against a bare ``LSMTree`` on the card fed the same batches:
+    per-op seqs, reads, probed and SCAN keys and seqnos, SSTs, Stats,
+    chains and ``merged_view`` identical."""
+    from repro_torch import kernels
+    from repro_torch.core import get_policy
+    from repro_torch.core.uids import reset_uid_counters
+    out: dict = {}
+    for n in (SHARD_COUNT, 1):
+        kernels.reset_launch_counts()
+        out[n], store = shard_run(np, "cuda", n)
+        torch.cuda.synchronize()
+        out[n]["launches"] = kernels.launch_counts()
+        store.check_invariants()
+    batches = shard_batches(np)
+    reset_uid_counters()
+    t0 = time.perf_counter()
+    tree, t_res = drive_tree(get_policy("vlsm").default_config(
+        scale=64 << 20), batches)
+    torch.cuda.synchronize()
+    out["tree_s"] = time.perf_counter() - t0
+    for i, (sr, (reads, tr)) in enumerate(zip(out[1]["results"], t_res,
+                                              strict=True)):
+        for f in ("seqs", "reads", "probed"):
+            if not np.array_equal(sr[f][reads], getattr(tr, f)):
+                fail(f"ShardedStore x1: batch {i}'s {f} differ from the "
+                     "bare tree's")
+        if not (np.array_equal(sr["scan_keys"], tr.scan_keys)
+                and np.array_equal(sr["scan_seqs"], tr.scan_seqs)):
+            fail(f"ShardedStore x1: batch {i}'s scans differ from the "
+                 "bare tree's")
+    if out[1]["state"]["shards"][0] != tree_state(tree) \
+            or out[1]["merged_view"] != tree.merged_view():
+        fail("ShardedStore x1: SSTs, Stats, chains or merged_view differ "
+             "from the bare tree's")
+    return out
+
+
+def shard_store_check(np, card: dict, want: dict) -> dict:
+    """Phase 3e: each of ``shard_card_runs``'s stores against the same
+    store built on the CPU (``want``, by shard count, from ``cpu_runs``):
+    every batch's per-op seqs, reads, probed and SCAN keys and seqnos,
+    ``merged_view``, every shard's SSTs, Stats and chain ledger and the
+    drained jobs identical."""
+    report: dict = {"load_keys": int(sum(
+        r["kinds"].shape[0] for r in card[1]["results"]) - SHARD_OPS),
+                    "ops": SHARD_OPS, "tree_s": card["tree_s"]}
+    for n in (SHARD_COUNT, 1):
+        got, cpu = card[n], want[n]
+        for i, (g, w) in enumerate(zip(got["results"], cpu["results"],
+                                       strict=True)):
+            for f in RESULT_FIELDS:
+                if not np.array_equal(g[f], w[f]):
+                    fail(f"ShardedStore x{n}: batch {i}'s {f} differ card "
+                         "vs cpu")
+        if got["merged_view"] != cpu["merged_view"]:
+            fail(f"ShardedStore x{n}: merged_view differs card vs cpu")
+        if got["state"] != cpu["state"]:
+            fail(f"ShardedStore x{n}: SSTs, Stats or jobs differ card vs "
+                 "cpu")
+        jobs = got["state"]["jobs"]
+        report[f"x{n}"] = {
+            "card_s": got["wall_s"], "cpu_s": cpu["wall_s"],
+            "launches": got["launches"], "batches": len(got["results"]),
+            "live_keys": len(got["merged_view"]),
+            "scan_keys": int(sum(r["scan_keys"].shape[0]
+                                 for r in got["results"])),
+            "device_reads": int(sum(r["reads"].sum()
+                                    for r in got["results"])),
+            "flushes": sum(1 for j in jobs if j[0] == "flush"),
+            "compactions": sum(1 for j in jobs if j[0] == "compact")}
+    report["identical"] = True
+    return report
 
 # ------------------------------------------------------ LM kernels: edges
 def _randn(torch, gen, shape, dtype, scale=1.0):
@@ -1679,7 +2253,7 @@ def time_ssd(torch, L: int, reps: int) -> dict:
             "without_state_dt_ms": cuda_ms(
                 torch, lambda: ssd_scan(x, dt, a, bm, cm), reps),
             "without_state_dt_device_ms": device_ms(
-                torch, lambda: ssd_scan(x, dt, a, bm, cm), reps),
+                torch, lambda: ssd_scan(x, dt, a, bm, cm), reps)[0],
             **time_all(torch, lambda: ssd_scan(x, dt, a, bm, cm,
                                                state_dt=dt32),
                        lambda: ssd_scan_plain(x, dt, a, bm, cm,
@@ -1721,6 +2295,19 @@ def main() -> int:
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
     sys.path.insert(0, str(ROOT / "src"))
+    # the CPU tier's runs go to one spawned worker (never fork: CUDA),
+    # which computes them beside the card's phases
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        return run(args, torch, pool)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def run(args, torch, pool) -> int:
+    """Every phase on the card (``main`` checks for it); ``pool`` is the
+    worker that ``cpu_runs`` goes to once phase 5's timings are taken."""
     import numpy as np
     from repro_torch import kernels
     from repro_torch.kernels import _build
@@ -1844,6 +2431,20 @@ def main() -> int:
           flush=True)
     lap("fleet_workers")
 
+    memo: dict = {}
+    for policy in SERVE_POLICIES:
+        srv = report[f"serve_open_{policy}"] = serve_open(torch, np, policy,
+                                                          memo)
+        print(f"open-loop serving {policy}: " + json.dumps(
+            {k: v for k, v in srv.items() if k not in ("off", "on")}),
+            flush=True)
+        for arm in ("off", "on"):
+            print(f"open-loop serving {policy}, admission {arm}: "
+                  + json.dumps(srv[arm]), flush=True)
+        torch.cuda.empty_cache()
+    del memo
+    lap("serve_open")
+
     serve_launches = {}
     for arch, (must_launch, _) in SERVE_PATHS.items():
         torch.cuda.empty_cache()
@@ -1866,6 +2467,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("serving")
 
+    # the card, its driver and clocks beside the device times, which have
+    # moved between calls with no kernel changed (PERF.md section 7)
+    report["card_state"] = {"fields": CARD_STATE,
+                            "torch": torch.__version__,
+                            "cuda": torch.version.cuda,
+                            "before_timings": card_query(CARD_STATE)}
     sim, res = main_sim
     timings = {"merge_path": time_merge(torch, sim),
                "overlap_scan": time_rank(torch, np, sim, trace),
@@ -1906,6 +2513,9 @@ def main() -> int:
     report["long_decode"] = {
         "paged_attention": time_paged_long(torch, 20),
         "paged_attention_b1": time_paged_long(torch, 40, 1)}
+    report["card_state"]["after_timings"] = card_query(CARD_STATE)
+    print("card state before and after the timings: "
+          + json.dumps(report["card_state"]), flush=True)
     for name, t in timings.items():
         print(f"timing {name}: " + json.dumps(t), flush=True)
     print("timing flash_attention at qwen3's prefill shape: "
@@ -1928,6 +2538,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     lap("timings")
 
+    # the CPU tier's runs go to the worker only now, so that every wall
+    # above is taken with the host to itself; the walls below share it,
+    # and vlsm's store path, run just before and just after the worker
+    # starts, gives the worker's toll on a host-bound wall
+    _, _, alone = run_main_path(torch, np, "vlsm", trace, "cuda")
+    cpu_side = pool.apply_async(cpu_runs)
+    _, _, beside = run_main_path(torch, np, "vlsm", trace, "cuda")
+    report["worker_toll"] = {"store_path_alone_s": alone,
+                             "store_path_beside_worker_s": beside}
+    print("vlsm store path without and beside the CPU worker: "
+          + json.dumps(report["worker_toll"]), flush=True)
+    card_store = shard_card_runs(torch, np)
+    torch.cuda.empty_cache()
+    lap("shard_store_card")
+
     report["zamba2_bf16_states"] = serve_state_check(torch, np)
     print("zamba2 bf16 states: " + json.dumps(
         {k: v for k, v in report["zamba2_bf16_states"].items()
@@ -1941,31 +2566,17 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     lap("serving_checks")
-    for policy in CROSS_POLICIES:
-        reads, probed, latency, n_stalls = card_runs.pop(policy)
-        _, r_cpu, w_cpu = run_main_path(torch, np, policy, trace, "cpu")
-        if not (np.array_equal(reads, r_cpu.get_reads)
-                and np.array_equal(probed, r_cpu.get_probed)):
-            fail(f"cross-check {policy}: per-op reads/probed differ")
-        err = float(np.max(np.abs(latency - r_cpu.latency)))
-        if not err < LINDLEY_TOL_S or n_stalls != r_cpu.n_stalls:
-            fail(f"cross-check {policy}: latency err {err}, stalls "
-                 f"{n_stalls} vs {r_cpu.n_stalls}")
-        report[f"cross_{policy}"] = {"max_abs_latency_err_s": err,
-                                     "cpu_wall_s": w_cpu}
-        print(f"cross-check {policy}: card vs cpu reads/probed identical, "
-              f"max |latency err| {err:.3e} s (cpu run {w_cpu:.1f} s)",
-              flush=True)
-
-    lap("store_cross_check")
-    for policy in store_policies:
-        prof = profile_main_path(torch, np, trace, policy,
-                                 host_profile=policy == "vlsm")
-        report[f"profile_{policy}"] = prof
-        print(f"profile {policy}: device busy "
-              f"{prof['device_busy_ms']:.1f} ms of "
-              f"{prof['profiled_wall_s']:.2f} s wall "
-              f"({100 * prof['device_busy_share']:.2f}%)", flush=True)
+    prof = report["profile_vlsm"] = profile_main_path(torch, np, trace)
+    print(f"profile vlsm: device busy {prof['device_busy_ms']:.1f} ms of "
+          f"{prof['profiled_wall_s']:.2f} s wall "
+          f"({100 * prof['device_busy_share']:.2f}%)", flush=True)
+    prof = report["profile_serve_open"] = profile_serve_open(torch, np)
+    print(f"profile open-loop serving {prof['policy']} (admission on, "
+          f"x{prof['load_factor']}): device busy "
+          f"{prof['device_busy_ms']:.1f} ms of "
+          f"{prof['profiled_wall_s']:.2f} s wall "
+          f"({100 * prof['device_busy_share']:.2f}%)", flush=True)
+    torch.cuda.empty_cache()
 
     for arch in SERVE_PATHS:
         sprof = profile_serve(torch, np, arch)
@@ -1975,8 +2586,32 @@ def main() -> int:
               f"{sprof['profiled_wall_s']:.2f} s wall "
               f"({100 * sprof['device_busy_share']:.2f}%)", flush=True)
         torch.cuda.empty_cache()
-
     lap("profiles")
+
+    cpu = cpu_side.get()
+    lap("worker_wait")
+    report["shard_store"] = shard_store_check(np, card_store,
+                                              cpu.pop("shard_store"))
+    del card_store
+    print("ShardedStore card vs cpu: " + json.dumps(report["shard_store"]),
+          flush=True)
+    for policy in CROSS_POLICIES:
+        reads, probed, latency, n_stalls = card_runs.pop(policy)
+        c_reads, c_probed, c_latency, c_stalls, w_cpu = cpu.pop(policy)
+        if not (np.array_equal(reads, c_reads)
+                and np.array_equal(probed, c_probed)):
+            fail(f"cross-check {policy}: per-op reads/probed differ")
+        err = float(np.max(np.abs(latency - c_latency)))
+        if not err < LINDLEY_TOL_S or n_stalls != c_stalls:
+            fail(f"cross-check {policy}: latency err {err}, stalls "
+                 f"{n_stalls} vs {c_stalls}")
+        report[f"cross_{policy}"] = {"max_abs_latency_err_s": err,
+                                     "cpu_wall_s": w_cpu}
+        print(f"cross-check {policy}: card vs cpu reads/probed identical, "
+              f"max |latency err| {err:.3e} s (cpu run {w_cpu:.1f} s)",
+              flush=True)
+
+    lap("cross_checks")
     print("phase wall s: " + json.dumps(phase_s), flush=True)
     rows = []
     for name, t in timings.items():
@@ -1992,6 +2627,7 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t.get("bound_by", "bytes"),
             "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+            "device_events": t["device_events"],
             "plain_device_ms": t["plain_device_ms"],
             "library_device_ms": t["library_device_ms"]})
     report["kernels"] = rows

@@ -16,9 +16,11 @@ contending for one device, plus a Zipf hot-shard scenario whose per-shard
 breakdown shows one shard's chains soaking up the stall attribution while
 every shard's read tail rides the same busy device.  ``fleet_sweep`` runs
 the policy × shard-count × rate matrix through the sweep executor, timed
-against the serial heap loop as its oracle.  ``--bench name[,name...]``
-restricts the sweep; the row schemas are the reference's
-(``docs/benchmarks.md``).  ``serve_sweep`` is not ported yet.
+against the serial heap loop as its oracle, and ``serve_sweep`` drives the
+pinned three-tenant open-loop scenario (``make_serve_spec``) over an
+offered-load axis, admission off and on (``repro_torch.serving``).
+``--bench name[,name...]`` restricts the sweep; the row schemas are the
+reference's (``docs/benchmarks.md``).
 
 Every bench runs the store on ``compute_device`` (``--compute-device``,
 default ``cuda``: the merge_path, overlap_scan and lindley_scan kernels);
@@ -481,10 +483,138 @@ def fleet_sweep_bench(policies: list[str], n_ops: int = 30_000,
     return rows
 
 
+def make_serve_spec(*, duration_s: float = 4.0, population: int = 8_000,
+                    seed: int = 7, admission: bool = False):
+    """The pinned multi-tenant serve_sweep scenario (see docs/benchmarks.md).
+
+    Three tenants over ``SERVE_SHARDS`` hash shards: a high-priority
+    read-heavy tenant with a tight SLO (priority 0 — never shed), a
+    bursty mixed tenant (priority 1), and a bulk write stream
+    (priority 2 — shed first).  At ``load_factor`` 1.0 the aggregate
+    offered rate is ``SERVE_BASE_RATE``; the factor axis scales every
+    tenant's rate by compressing simulated time, sweeping across the
+    saturation knee.
+    """
+    from ..serving import AdmissionConfig, TenantSpec, TrafficSpec
+    base = SERVE_BASE_RATE
+    return TrafficSpec(
+        tenants=(
+            TenantSpec("prio", rate_ops_s=0.15 * base, mix="ycsb_b",
+                       arrival="poisson", priority=0, slo_ms=25.0),
+            TenantSpec("mid", rate_ops_s=0.35 * base, mix="ycsb_a",
+                       arrival="bursty", priority=1, slo_ms=60.0),
+            TenantSpec("bulk", rate_ops_s=0.5 * base, mix="load",
+                       arrival="poisson", priority=2, slo_ms=250.0),
+        ),
+        duration_s=duration_s, population=population, seed=seed,
+        admission=AdmissionConfig() if admission else None)
+
+
+#: timing fragment for serve results that never went through the
+#: executor (direct ``serve`` calls outside the grid path)
+_NO_TIMING = {"structural_s": 0.0, "temporal_s": 0.0, "lindley_s": 0.0,
+              "finalize_s": 0.0, "cache_hit": False}
+
+
+def serve_row(cfg: LSMConfig, sr, *, factor: float, admission_on: bool,
+              wall: float) -> dict:
+    """One serve_sweep-schema row from a ``ServeResult``.
+
+    Phase timing rides in ``sr.timing`` (set by ``serve_grid``):
+    admission-off factors report the executor's per-phase split
+    (``structural_s`` on the grid's first factor, or 0.0 on a
+    structural-cache hit), admission-on factors run a serial engine
+    with no phase split, so the whole run lands in ``structural_s``."""
+    stream = sr.stream
+    timing = sr.timing if sr.timing is not None else _NO_TIMING
+    measured = (stream.tenant_ids >= 0) & ~np.isnan(sr.latency_full)
+    get_lat = sr.latency_full[measured & (stream.op_types == OpKind.GET)]
+    run_stalls = [d for i, d in sr.res.stall_events if i >= stream.n_load]
+    per_tenant = []
+    for ti, led in enumerate(sr.tenants):
+        lat = sr.tenant_latency(ti)
+        per_tenant.append({
+            "tenant": led.name, "priority": led.priority,
+            "slo_ms": led.slo_ms, "ops_offered": led.ops_offered,
+            "shed_frac": round(led.shed_frac, 4),
+            "throttled_frac": round(led.throttled_frac, 4),
+            "slo_violation_frac": round(led.slo_violation_frac, 4),
+            "goodput_ops_s": round(led.goodput_ops_s(sr.duration_s), 1),
+            "p99_ms": round(float(np.percentile(lat, 99)) * 1e3, 3)
+            if lat.size else 0.0,
+            "p999_ms": round(float(np.percentile(lat, 99.9)) * 1e3, 3)
+            if lat.size else 0.0,
+        })
+    return {
+        "bench": "serve_sweep", "workload": "multi_tenant",
+        "policy": cfg.policy, "n_shards": cfg.n_shards,
+        "admission": "on" if admission_on else "off",
+        "ops": int(sr.offered_ops), "load_factor": round(factor, 3),
+        "offered_ops_s": round(sr.offered_ops_s, 1),
+        "goodput_ops_s": round(sr.goodput_ops_s, 1),
+        "shed_frac": round(sr.shed_frac, 4),
+        "throttled_frac": round(sr.throttled_frac, 4),
+        "slo_violation_frac": round(sr.slo_violation_frac, 4),
+        "p99_get_ms": round(float(np.percentile(get_lat, 99)) * 1e3, 3)
+        if get_lat.size else 0.0,
+        "p999_get_ms": round(float(np.percentile(get_lat, 99.9)) * 1e3, 3)
+        if get_lat.size else 0.0,
+        "stall_total_s": round(sum(run_stalls), 4),
+        "structural_s": timing["structural_s"],
+        "temporal_s": timing["temporal_s"],
+        "lindley_s": timing["lindley_s"],
+        "finalize_s": timing["finalize_s"],
+        "cache_hit": timing["cache_hit"],
+        "per_tenant": per_tenant,
+        "wall_clock_s": round(wall, 3),
+    }
+
+
+def serve_sweep_bench(policies: list[str], *, duration_s: float = 4.0,
+                      population: int = 8_000,
+                      factors: tuple[float, ...] = None,
+                      scale: int | None = None, seed: int = 7,
+                      compute_device: str | torch.device = "cuda",
+                      workers: int = 1, cache=None) -> list[dict]:
+    """Goodput-vs-offered-load curves per policy, admission off and on.
+
+    The offered-load axis is swept with ``repro_torch.serving.serve_grid``
+    through the sweep executor: admission-off curves amortize ONE fleet
+    structural replay per policy (the stream is factor-invariant, only
+    arrivals compress) — or skip it entirely on a structural-cache hit —
+    and admission-on points run a fresh serial engine each (the admitted
+    subset differs per factor), dispatched over the executor's spawn pool
+    when ``workers > 1``.  Rows are identical at every worker count.  Off curves show the open-loop collapse past the knee —
+    vlsm's narrow chains push the knee right — and on curves show the
+    controller buying bounded high-priority tails with ``shed_frac`` > 0.
+    """
+    from ..serving import serve_grid
+    if factors is None:
+        factors = SERVE_FACTORS
+    scale = scale or (1 << 18)
+    lam = scale / (64 << 20)
+    device = DeviceModel.scaled(lam)
+    rows = []
+    for nm in policies:
+        for adm in (False, True):
+            spec = make_serve_spec(duration_s=duration_s,
+                                   population=population, seed=seed,
+                                   admission=adm)
+            cfg = get_policy(nm).default_config(scale=scale) \
+                .with_(n_shards=SERVE_SHARDS)
+            t0 = time.perf_counter()
+            results = serve_grid(cfg, device, spec, factors,
+                                 compute_device=compute_device,
+                                 workers=workers, cache=cache)
+            wall = (time.perf_counter() - t0) / len(factors)
+            for f, sr in zip(factors, results):
+                rows.append(serve_row(cfg, sr, factor=f, admission_on=adm,
+                                      wall=wall))
+    return rows
+
+
 BENCHES = ("fillrandom", "read_path", "ycsb_a", "seekrandom",
-           "chain_report", "shard_sweep", "fleet_sweep")
-#: the reference's benches that this package does not run yet
-NOT_PORTED = ("serve_sweep",)
+           "chain_report", "shard_sweep", "fleet_sweep", "serve_sweep")
 SHARD_COUNTS = (1, 2, 4)      # the sweep axis (fixed aggregate rate)
 SWEEP_RATE = 5_000.0          # aggregate ops/s: stresses x1, easy at x4
 # fleet_sweep: the batched-engine matrix — the rate axis is the paper's
@@ -494,6 +624,13 @@ FLEET_RATES = tuple(
     float(r) for r in np.geomspace(1_250.0, 20_000.0, 32))
 FLEET_RATES_QUICK = tuple(
     float(r) for r in np.geomspace(2_000.0, 8_000.0, 4))
+# serve_sweep: the open-loop multi-tenant traffic layer — offered load
+# swept by compressing simulated time (the stream is factor-invariant,
+# so admission-off curves share one fleet structural replay per policy)
+SERVE_BASE_RATE = 4_000.0     # aggregate offered ops/s at load_factor 1.0
+SERVE_SHARDS = 2              # shards of the pinned serve scenario
+SERVE_FACTORS = (0.5, 1.0, 1.5, 2.0, 2.5, 3.0)
+SERVE_FACTORS_QUICK = (0.5, 1.5, 3.0)
 HOT_SHARDS = 4                # shard count of the Zipf hot-shard scenario
 HOT_RATE = 14_000.0           # hot scenario rate: the hot shard saturates
                               # and write-stops while its chains keep the
@@ -518,9 +655,9 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--seed", type=int, default=7,
                     help="base RNG seed for every workload (default 7)")
     ap.add_argument("--workers", type=int, default=1,
-                    help="sweep-executor spawn-pool size for fleet_sweep "
-                         "(1 = in-process; rows are identical at every "
-                         "worker count)")
+                    help="sweep-executor spawn-pool size for fleet_sweep/"
+                         "serve_sweep (1 = in-process; rows are identical "
+                         "at every worker count)")
     ap.add_argument("--compute-device", default="cuda",
                     help="torch device of the store (default cuda; 'cpu' "
                          "runs the kernels' plain versions)")
@@ -530,9 +667,6 @@ def main(argv=None) -> list[dict]:
         benches = set(BENCHES)
     else:
         benches = {b.strip() for b in args.bench.split(",")}
-        missing = benches & set(NOT_PORTED)
-        if missing:
-            ap.error(f"bench(es) {sorted(missing)} not ported yet")
         unknown = benches - set(BENCHES)
         if unknown:
             ap.error(f"unknown bench(es) {sorted(unknown)}; "
@@ -642,6 +776,25 @@ def main(argv=None) -> list[dict]:
                                   cache=DEFAULT_CACHE)
         rows.extend(frows)
         print(f"db_bench.fleet_sweep: {frows[-1]}")
+    # serve_sweep: goodput vs offered load for the pinned multi-tenant
+    # scenario, admission off (open-loop collapse past the knee) and on
+    # (priority-aware shedding keeps high-priority tails bounded).
+    if "serve_sweep" in benches:
+        sfactors = SERVE_FACTORS_QUICK if args.quick else SERVE_FACTORS
+        sdur = 1.5 if args.quick else 4.0
+        spop = 3_000 if args.quick else 8_000
+        srows = serve_sweep_bench(chosen, duration_s=sdur, population=spop,
+                                  factors=sfactors, scale=scale, seed=seed,
+                                  compute_device=dev, workers=args.workers,
+                                  cache=DEFAULT_CACHE)
+        rows.extend(srows)
+        for r in srows:
+            if r["load_factor"] == sfactors[-1]:
+                print(f"db_bench.serve_sweep.{r['policy']}."
+                      f"adm_{r['admission']}.x{r['load_factor']}: "
+                      f"goodput={r['goodput_ops_s']} "
+                      f"shed={r['shed_frac']} "
+                      f"p999_get_ms={r['p999_get_ms']}")
     # perf_trajectory: this run's executor activity — wall-clock vs the
     # summed per-task compute (the serial single-process cost of the same
     # tasks).

@@ -7,7 +7,8 @@ Public API::
                                   CompactionPolicy, get_policy, policies)
 
 ``LSMTree.apply_batch(RequestBatch) -> ResultBatch`` is the single typed
-operation entry point.  ``LSMTree``, ``Simulator``, ``FleetEngine``, the
+operation entry point (``ShardedStore.apply_batch`` the same over N
+shards).  ``LSMTree``, ``ShardedStore``, ``Simulator``, ``FleetEngine``, the
 sweeps (``fleet_sweep``, ``sweep_execute``, ...) and
 ``repro_torch.bench_kv.ycsb.run_ycsb`` take ``compute_device`` (default
 ``"cuda"``); ``device`` keeps its reference meaning, the storage
@@ -22,7 +23,7 @@ from .level_index import LevelIndex
 from .lsm import Job, LSMTree
 from .memtable import Memtable
 from .policies import CompactionPolicy, get_policy
-from .shard import ShardRouter
+from .shard import ShardedStore, ShardRouter
 from .sim import SimResult, Simulator
 from .sst import SST
 from .stats import ChainRecord, FleetStats, Stats, TenantLedger
@@ -38,7 +39,7 @@ __all__ = [
     "ExecutorLedger", "FleetEngine", "FleetStats", "Job", "LEDGER",
     "LSMConfig", "LSMTree", "LevelIndex", "Memtable", "OpKind",
     "PendingRun", "PointTiming", "Policy", "RequestBatch", "ResultBatch",
-    "SST", "ShardRouter", "SimResult", "Simulator", "Stats",
+    "SST", "ShardRouter", "ShardedStore", "SimResult", "Simulator", "Stats",
     "StructuralCache", "SweepPoint", "TenantLedger", "UidNamespace",
     "fleet_sweep", "get_policy", "parallel_map", "point_key", "policies",
     "reset_uid_counters", "resolve_compute_device", "run_point",

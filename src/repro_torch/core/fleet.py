@@ -232,9 +232,12 @@ class FleetEngine(Simulator):
         n_trees = self.n_shards * self.n_regions
         self.l0_entries = [[] for _ in range(n_trees)]
         self.flush_inflight = [[] for _ in range(n_trees)]
-        self.flush_pool = SlotPool(1)
+        if self.sanitizer is not None:
+            self.sanitizer.reset()    # each pass is its own timeline
+        self.flush_pool = SlotPool(1, sanitizer=self.sanitizer)
         self.compact_pool = ChainScheduler(
-            max(1, self.device.compaction_slots - 1))
+            max(1, self.device.compaction_slots - 1),
+            sanitizer=self.sanitizer)
         self.job_log = []
         self.stall_events = []
         for stats in self.shard_stats:
@@ -275,6 +278,8 @@ class FleetEngine(Simulator):
             stage(s)
         while heap:
             t, op_i, s, ti = heapq.heappop(heap)
+            if self.sanitizer is not None:
+                self.sanitizer.on_event(ti, t)
             stall = self._wb_stall(ti, t)
             for plan in self._batches[s][ptrs[s]]:
                 self._schedule_planned(plan, ti, t)

@@ -55,6 +55,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..analysis.sanitizer import maybe_sanitizer
 from ..kernels.lindley_scan.ops import lindley_batch
 from .lsm import Job, LSMTree
 from .policies import get_policy
@@ -234,11 +235,17 @@ class _RunState:
 
 class SlotPool:
     """Background executor: earliest-free-slot scheduling with job deps and
-    per-(region, source-level) exclusivity."""
+    per-(region, source-level) exclusivity.
 
-    def __init__(self, n_slots: int):
+    ``sanitizer`` (``REPRO_SANITIZE=1``) audits every assignment it makes
+    — chain edges honoured, no double-occupied (tree, level) slot — at
+    the cost of one ``None`` check per job otherwise.
+    """
+
+    def __init__(self, n_slots: int, sanitizer=None):
         self.free_at = [0.0] * max(1, n_slots)
         self.level_free: dict[tuple[int, int], float] = {}
+        self.sanitizer = sanitizer
 
     def schedule(self, job: Job, ready: float, duration: float,
                  region: int = 0) -> None:
@@ -252,6 +259,8 @@ class SlotPool:
         job.scheduled = True
         self.free_at[slot] = job.t_finish
         self.level_free[lkey] = job.t_finish
+        if self.sanitizer is not None:
+            self.sanitizer.on_schedule(region, job)
 
 
 class ChainScheduler(SlotPool):
@@ -355,9 +364,12 @@ class Simulator:
         # high-priority flush pool vs low-priority compaction pool) —
         # shared across ALL shards: the device doesn't grow with the
         # fleet, which is exactly the contention under study.
-        self.flush_pool = SlotPool(1)
+        # REPRO_SANITIZE=1: runtime schedule sanitizer (None when off)
+        self.sanitizer = maybe_sanitizer()
+        self.flush_pool = SlotPool(1, sanitizer=self.sanitizer)
         self.compact_pool = ChainScheduler(
-            max(1, self.device.compaction_slots - 1))
+            max(1, self.device.compaction_slots - 1),
+            sanitizer=self.sanitizer)
         # temporal L0 occupancy per tree: [appear_t, clears_at,
         # clearing_chain_id] entries (chain_id -1 until consumed — used to
         # attribute write-stop stall time to the chain that clears it)
@@ -441,6 +453,8 @@ class Simulator:
         slot the queue waits for (-1 when unknown); the caller attributes
         the stall to that chain only when the L0 wait is the binding
         component of the fill event's delay."""
+        if self.sanitizer is not None:
+            self.sanitizer.on_gate(tree_idx, t)
         stop = self.policy.l0_stop_ssts(self.cfg)
         entries = self.l0_entries[tree_idx]
         # Per-tree event times are nondecreasing (global event heap), so an
@@ -461,6 +475,8 @@ class Simulator:
 
     def _wb_stall(self, tree_idx: int, t: float) -> float:
         """Write-buffer stall: previous flush still in flight."""
+        if self.sanitizer is not None:
+            self.sanitizer.on_gate(tree_idx, t)
         unfinished = sorted(f for f in self.flush_inflight[tree_idx] if f > t)
         self.flush_inflight[tree_idx] = unfinished  # finished never gate again
         allowed = self.policy.write_buffer_limit(self.cfg) - 1
@@ -646,6 +662,8 @@ class Simulator:
             stage(s)
         while heap:
             t, op_i, s, ti = heapq.heappop(heap)
+            if self.sanitizer is not None:
+                self.sanitizer.on_event(ti, t)
             # t = D[s]: the fill happens when its last write is serviced
             tree = self.trees[ti]
             tree.seal_memtable()
@@ -693,6 +711,22 @@ class Simulator:
         ends = offsets[1:][offsets[1:] > offsets[:-1]] - 1
         makespan = float(departures[ends].max()) if ends.size else 0.0
         return self._make_result(st, latency, makespan)
+
+    def serve(self, spec, *, load_factor: float = 1.0):
+        """Drive the store from a ``TrafficSpec`` (open-loop serving).
+
+        The serving layer (``repro_torch.serving.traffic``) materializes
+        the spec's tenants into one interleaved arrival schedule, runs the
+        admission pre-pass, and feeds the admitted stream through
+        :meth:`run` — so ``FleetEngine`` inherits this entry point and
+        both engines accept the same spec.  With admission disabled the
+        result is identical to :meth:`run` on the materialized arrays (the
+        closed↔open parity gate).  Returns a ``ServeResult`` (per-tenant
+        ledgers, goodput, SLO accounting).
+        """
+        # function-scoped: serving sits above core in the layer order
+        from ..serving.traffic import serve as _serve
+        return _serve(self, spec, load_factor=load_factor)
 
     # ------------------------------------------------------------------
     def _advance_clock(self, shard: int, D: float, idx: np.ndarray,

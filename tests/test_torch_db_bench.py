@@ -1,6 +1,6 @@
-"""The port's db_bench store benches against the JAX package's reference on
-the CPU (``compute_device="cpu"``), at reduced op counts, for every
-registered policy.
+"""The port's db_bench benches against the JAX package's reference on the CPU
+(``compute_device="cpu"``), at reduced op counts (serve_sweep at its
+``--quick`` size), for every registered policy.
 
 Rows must be equal once the keys a run may change are dropped: the timing
 and machine keys ``scripts/check_row_parity.py`` drops, and the two keys
@@ -136,11 +136,16 @@ def test_fleet_sweep_rows():
 def test_bench_constants_match_reference():
     for name in ("SHARD_COUNTS", "SWEEP_RATE", "FLEET_SHARD_COUNTS",
                  "FLEET_RATES", "FLEET_RATES_QUICK", "HOT_SHARDS",
-                 "HOT_RATE"):
+                 "HOT_RATE", "SERVE_BASE_RATE", "SERVE_SHARDS",
+                 "SERVE_FACTORS", "SERVE_FACTORS_QUICK", "_NO_TIMING"):
         assert getattr(db_bench, name) == getattr(ref_bench, name), name
-    assert set(db_bench.BENCHES) | set(db_bench.NOT_PORTED) == \
-        set(ref_bench.BENCHES)
+    assert db_bench.BENCHES == ref_bench.BENCHES
     assert len(db_bench.FLEET_RATES) == 32
+    spec, ref_spec = db_bench.make_serve_spec(admission=True), \
+        ref_bench.make_serve_spec(admission=True)
+    assert [vars(t) for t in spec.tenants] == \
+        [vars(t) for t in ref_spec.tenants]
+    assert vars(spec.admission) == vars(ref_spec.admission)
 
 
 def test_main_rows_match_reference_main(tmp_path):
@@ -156,6 +161,42 @@ def test_main_rows_match_reference_main(tmp_path):
     assert [r["bench"] for r in got] == [r["bench"] for r in want]
     assert got[-1]["bench"] == "perf_trajectory"
     assert _strip(got) == _strip(want)
+
+
+def test_main_fleet_and_serve_sweep_match_reference(tmp_path):
+    """``--quick`` fleet_sweep and serve_sweep for every policy: the rows
+    equal the reference's in order (serve_sweep's 6 policies x 2
+    admission arms x 3 factors), and the perf_trajectory row counts the
+    reference's executor tasks, cache hits and misses."""
+    argv = ["--quick", "--bench", "fleet_sweep,serve_sweep"]
+    ref_reset()
+    ref_bench.main(argv + ["--json", str(tmp_path / "ref.json")])
+    want = json.loads((tmp_path / "ref.json").read_text())
+    port_reset()
+    got = db_bench.main(argv + ["--compute-device", "cpu"])
+    assert [r["bench"] for r in got] == [r["bench"] for r in want]
+    assert _strip(got) == _strip(want)
+    serve = [r for r in got if r["bench"] == "serve_sweep"]
+    assert len(serve) == len(POLICIES) * 2 * len(db_bench.SERVE_FACTORS_QUICK)
+    assert any(r["shed_frac"] > 0 for r in serve if r["admission"] == "on")
+    counts = ("tasks", "cache_hits", "cache_misses", "workers")
+    assert {k: got[-1][k] for k in counts} == {k: want[-1][k] for k in counts}
+    assert got[-1]["tasks"] == len(POLICIES) * (
+        3 + 1 + len(db_bench.SERVE_FACTORS_QUICK))
+
+
+def test_main_serve_sweep_alone(tmp_path):
+    """``--bench serve_sweep`` runs on its own and its rows equal the
+    reference's (its engines draw from their own uid namespaces)."""
+    argv = ["--quick", "--bench", "serve_sweep", "--policy", "lsmi,vlsm"]
+    ref_bench.main(argv + ["--json", str(tmp_path / "ref.json")])
+    want = json.loads((tmp_path / "ref.json").read_text())
+    got = db_bench.main(argv + ["--compute-device", "cpu"])
+    assert [r["bench"] for r in got] == ["serve_sweep"] * 12 + \
+        ["perf_trajectory"]
+    assert _strip(got) == _strip(want)
+    for r in got[:-1]:
+        assert set(db_bench._NO_TIMING) <= set(r)
 
 
 def test_main_writes_no_file_unless_asked(tmp_path, monkeypatch):
@@ -174,7 +215,10 @@ def test_main_writes_no_file_unless_asked(tmp_path, monkeypatch):
 
 
 def test_main_refuses_serve_sweep_and_unknown_names(capsys):
-    for argv, msg in ((["--bench", "serve_sweep"], "not ported"),
+    """Only unknown names are refused: serve_sweep is a bench like the
+    others (``test_main_fleet_and_serve_sweep_match_reference``)."""
+    for argv, msg in ((["--bench", "serve_sweep,nope"],
+                       "unknown bench(es) ['nope']"),
                       (["--bench", "nope"], "unknown bench"),
                       (["--policy", "nope", "--compute-device", "cpu"],
                        "unknown policy")):
