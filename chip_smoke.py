@@ -18,7 +18,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    255, 257 and 3,007 keys, strided keys and on a side stream; flash_attention
    over S 1..384 and 63/64/65, head_dim 64/128, GQA and windows, S 4,096
    with a 128-token window and with GQA rep 2 at D 128, and B 8 grids at
-   ragged S 777 and 1,000; ssd_scan's y and final state over L 1..300,
+   ragged S 777 and 1,000, then head_dim 256 (gemma3: GQA 4 over 1) over
+   the same S with windows, and windows 1, 16 and 512 at S 1,000 and
+   4,096 and global at 4,096; ssd_scan's y and final state over L 1..300,
    63/64/65 and 189, G < H, dt from 1e-4 to 10, contiguous inputs and
    strided views of one xbc buffer, and L 4,096 at B 2 and at zamba2's
    64 heads, half of them with the final state from an fp32 state_dt;
@@ -26,8 +28,14 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    16/32, shuffled page tables with repeats and garbage past the length,
    lengths 0, 1, PS, PS+1 and MAXP*PS, then lengths at the boundaries of
    the kernel's split over blocks, an all-empty batch and a B 1 x 4,096
-   decode; every element within atol + rtol * |plain| as TOL below
-   states).
+   decode; then sliding windows: head_dim 256 at G 1, 4 and 8, fp32 and
+   bf16, windows 1, PS-1, PS, PS+1, 512 and past the length, lengths at
+   the window's, pages' and splits' edges, the D 64/128 cases again with
+   windows, and gemma3's B 1 x 4,096 with its window and global, every
+   windowed case given NaN in every row before the window and -1 or
+   2**30 in the table entries of pages wholly before it, against the plain
+   version on clean inputs; every element within atol + rtol * |plain| as
+   TOL below states).
 3. Store path: ``Simulator.run`` on the card for every registered policy
    (vlsm, rocksdb, rocksdb_io, adoc, lsmi, lazy) at the paper's byte scale
    (64 MiB scale, ``DeviceModel.scaled(1.0)``, 200-byte pairs): 8,000,000
@@ -96,12 +104,21 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    plus 8-63-token tails; 16 greedy tokens each; 32-token prefix blocks;
    max_seq 512), bf16 weights from a seeded generator, at full width and
    depth, for zamba2-1.2b (38 Mamba2 layers, d_model 2048, the shared
-   attention block applied 6 times) and qwen3-1.7b (28 GQA layers,
-   d_model 2048, 16 query heads over 8 kv heads of 128).  Launch counts
-   are zeroed just before each run and read just after: flash_attention,
-   overlap_scan and paged_attention (and ssd_scan for zamba2) must have
-   launched, paged_attention once per attention layer and decode step
-   (6 x 15 x 8 = 720 for zamba2, 28 x 15 x 8 = 3,360 for qwen3).
+   attention block applied 6 times), qwen3-1.7b (28 GQA layers, d_model
+   2048, 16 query heads over 8 kv heads of 128), gemma3-1b (26 layers,
+   d_model 1152, 4 query heads over 1 kv head of 256, 5:1 local:global
+   with a 512-token window) and deepseek-v2-lite (27 layers, the first
+   dense, MLA, 64 routed experts top-6 plus 2 shared; 15.7 B parameters,
+   its peak memory recorded).  Launch counts are zeroed just before each
+   run and read just after: overlap_scan must have launched, and
+   flash_attention and paged_attention (and ssd_scan for zamba2) where
+   the model has attention layers, paged_attention once per attention
+   layer and decode step (6 x 15 x 8 = 720 for zamba2, 28 x 15 x 8 =
+   3,360 for qwen3, 26 x 15 x 8 = 3,120 for gemma3, 0 for deepseek's MLA)
+   and flash_attention once per attention layer and request (48, 224,
+   208, 0).  Then gemma3-1b's long windowed decode: a 4,096-token prefill
+   and 16 decode steps in bf16 at full size, ms a token (finite logits,
+   26 flash and 416 paged launches).
 5. Kernel timings at the main paths' shapes: kernel, plain version and
    library call — ``ms``, the median of five CUDA-event-timed trials of
    back-to-back calls, and ``device_ms``, the kernels' own device time from
@@ -116,7 +133,11 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    kernels are also
    timed at a 4,096-token prefill (flash_attention at zamba2's and at
    qwen3-1.7b's heads), paged_attention at 8 sequences and at 1 sequence
-   of 4,096 tokens over a shuffled pool.
+   of 4,096 tokens over a shuffled pool; and gemma3-1b's attention: flash
+   at its serving prefill and at 4,096 tokens with its window and global,
+   paged at its serving decode and at 4,096 tokens with its window
+   (bound: the window's rows) and global, beside SDPA with an explicit
+   window mask.
 6. Cross-checks: zamba2-1.2b in bf16 at full width and depth, every
    Mamba2 layer's final state from the kernel against a sequential fp32
    scan with fp32 dt (the reference's ``ssd_final_state``) on the layer's
@@ -128,14 +149,20 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    ``compute_device="cpu"`` (per-op reads/probed and stall counts
    identical, latency within 1e-9 s); each
    serving model in float32 at full width, depth cut (zamba2 to 7 layers,
-   one shared-attention application; qwen3 to 2), card against CPU on the
-   first request's prefill and 4 greedy decode steps (tokens identical,
-   logits within 1e-3 of max(1, max|logit|)).
+   one shared-attention application; qwen3 to 2; deepseek-v2-lite to 2,
+   its dense layer and one MoE layer, decoded absorbed and expanded),
+   card against CPU on the first request's prefill and 4 greedy decode
+   steps (tokens identical, logits within 1e-3 of max(1, max|logit|));
+   gemma3-1b the same at 6 layers, five local and one global, on a seeded
+   1,000-token prompt with a 1,024-token cache and 16 greedy steps, so
+   that its window bites in the prefill and in every step.
 7. Where the time goes: vlsm's store path under torch.profiler (device
    activity only) and under cProfile (the other five policies are not
    profiled, to keep the run's time: PERF.md section 4); phase 3d's
    admission-on serve of vlsm at factor 2 under torch.profiler; a
-   2-request serving run of each model under torch.profiler.  Every
+   2-request serving run of zamba2-1.2b and of qwen3-1.7b under
+   torch.profiler (gemma3-1b's and deepseek-v2-lite's take
+   ``scripts/probe.py serve_gemma3 serve_deepseek``).  Every
    phase's wall seconds go into the report.
 
 The CPU tier's runs that phases 3e and 6 compare against are computed by
@@ -190,14 +217,29 @@ SERVE_REQUESTS = 8             # serve.run's default, the reference's
 DECODE_TOKENS = 16             # serve.run's default, the reference's
 PROFILE_REQUESTS = 2           # the profiled serving runs (phase 7)
 # serving model -> (kernels its run must launch, depth of the float32
-# card-vs-CPU cross-check)
+# card-vs-CPU cross-check); deepseek-v2-lite's MLA and MoE run no kernel of
+# their own, so only the prefix cache's overlap_scan launches there
 SERVE_PATHS = {
     "zamba2_1_2b": (("flash_attention", "ssd_scan", "overlap_scan",
                      "paged_attention"), 7),
     "qwen3_1_7b": (("flash_attention", "overlap_scan", "paged_attention"),
-                   2)}
+                   2),
+    "gemma3_1b": (("flash_attention", "overlap_scan", "paged_attention"), 6),
+    "deepseek_v2_lite": (("overlap_scan",), 2)}
+# cross-checks whose prompt is not the first serving request's: (seeded
+# prompt tokens, cache length, greedy steps); gemma3's 1,000 tokens pass
+# its 512-token window in the prefill and in every decode step (its 6
+# layers are 5 local and 1 global)
+CROSS_LONG = {"gemma3_1b": (1000, 1024, 16)}
+LONG_WINDOW_DECODE = 16        # gemma3-1b's decode steps after 4,096 tokens
+# the serving paths phase 7 profiles; gemma3-1b's and deepseek-v2-lite's
+# (scripts/probe.py serve_gemma3 serve_deepseek) would add to a run that
+# already nears its time limit
+PROFILE_PATHS = ("zamba2_1_2b", "qwen3_1_7b")
 CROSS_TOL = 1e-3               # of max(1, max|logit|), see serve_cross_check
 LONG_PREFILL = 4096
+GEMMA_WINDOW = 512             # gemma3-1b's local layers
+GEMMA_WINDOWS = (1, 16, GEMMA_WINDOW)   # flash_attention's D 256 edge cases
 LONG_DECODE = (8, 4096, 2048)  # sequences, tokens each, pages in the pool
 STORE_KERNELS = ("merge_path", "overlap_scan", "lindley_scan")
 # the serving path whose launches each LM kernel's row reports
@@ -1669,7 +1711,10 @@ def edge_flash(torch) -> float:
     128; fp32 and bf16; plus two non-causal cases and two at S 4,096 (a
     128-token window at D 64, GQA rep 2 at D 128).  Then, in bf16, B 8 grids
     of 512 to 1,024 blocks: ragged S 777 and 1,000, windows, GQA and a
-    non-causal case.  Returns the largest |err|."""
+    non-causal case.  Then head_dim 256 (gemma3: 4 query heads over 1 kv
+    head) in fp32 and bf16: the same S with window None and 16, a
+    non-causal case, windows 1, 16 and 512 at S 1,000 and 4,096 and global
+    at 4,096.  Returns the largest |err|."""
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_plain)
     gen = torch.Generator(device="cuda")
@@ -1689,6 +1734,14 @@ def edge_flash(torch) -> float:
               for hq, hkv, s, d, win, causal in (
                   (16, 8, 1000, 128, None, True), (16, 8, 1000, 128, 128, True),
                   (8, 8, 777, 64, 128, True), (8, 8, 1000, 64, None, False))]
+    for dt in ("float32", "bfloat16"):
+        cases += [(2, 4, 1, s, 256, win, dt, True)
+                  for s in (1, 63, 64, 65, 127, 128, 130, 384)
+                  for win in (None, 16)]
+        cases += [(2, 4, 1, 130, 256, None, dt, False)]
+        cases += [(1, 4, 1, s, 256, win, dt, True)
+                  for s in (1000, LONG_PREFILL) for win in GEMMA_WINDOWS]
+        cases += [(1, 4, 1, LONG_PREFILL, 256, None, dt, True)]
     for b, hq, hkv, s, d, win, dt, causal in cases:
         dtype = getattr(torch, dt)
         rep = hq // hkv
@@ -1858,15 +1911,94 @@ def edge_paged(torch, np) -> float:
                 f"paged_attention split case B={b} Hkv={hkv} G={g} D={d} "
                 f"PS={ps} lengths={lengths} ({ns} splits of {per}) {dt}",
                 "paged_attention", got, want))
+
+    # sliding windows, poisoned before the window: head_dim 256 (gemma3's
+    # G 4 over 1 kv head, and G 1 and 8 over 2) at every window, then the
+    # D 64/128 cases above again, each with a window
+    for g, hkv in ((1, 2), (4, 1), (8, 2)):
+        for w in (1, 31, 32, 33, GEMMA_WINDOW, 10 ** 6):
+            for dt in ("float32", "bfloat16"):
+                worst = max(worst, paged_window_case(
+                    torch, np, gen, rng, n_sm, hkv, g, 256, 32, 24, w, dt))
+    for i, (hkv, g, d, ps) in enumerate(cases):
+        w = (1, ps - 1, ps, ps + 1, 2 * ps + 3, 10 ** 6)[i % 6]
+        for dt in ("float32", "bfloat16"):
+            worst = max(worst, paged_window_case(
+                torch, np, gen, rng, n_sm, hkv, g, d, ps, 5, w, dt))
+    for w in (GEMMA_WINDOW, None):      # gemma3's long decode, B 1
+        worst = max(worst, paged_window_case(
+            torch, np, gen, rng, n_sm, 1, 4, 256, 32, LONG_PREFILL // 32, w,
+            "bfloat16", lengths=[LONG_PREFILL]))
     return worst
+
+
+def paged_window_case(torch, np, gen, rng, n_sm, hkv, g, d, ps, maxp,
+                      window, dt, lengths=None) -> float:
+    """paged_attention with ``window`` over 18 sequences (or ``lengths``)
+    whose lengths sit at the kernel's edges: 0, 1, a page (PS, PS+1), a
+    split of the window's span (per-1, per, per+1), the window (w-1, w,
+    w+1), the first live token at a page edge (w+PS-1, w+PS, w+PS+1), a
+    split past the window and MAXP*PS.  Every page is some sequence's once
+    (a shuffled pool).  The kernel gets poisoned inputs: NaN in every row
+    before the window's first token (the rest of its first live page's
+    and every page wholly before it) and page-table entries -1 or 2**30
+    for those pages and for those past the length; it must match the plain
+    version on the clean inputs, so it read nothing before the window."""
+    from repro_torch.kernels.paged_attention.ops import (
+        RESIDENT_BLOCKS_D256, RESIDENT_BLOCKS_PER_SM, paged_attention,
+        paged_attention_plain, split_plan)
+    dtype = getattr(torch, dt)
+    cap = maxp * ps
+    w = window or 0
+    b = 18 if lengths is None else len(lengths)
+    _, per = split_plan(min(cap, w) if w else cap, b, hkv, n_sm,
+                        RESIDENT_BLOCKS_D256[dtype] if d == 256
+                        else RESIDENT_BLOCKS_PER_SM)
+    if lengths is None:
+        edges = {0, 1, ps, ps + 1, per - 1, per, per + 1, cap}
+        if w:
+            edges |= {w + x for x in (-1, 0, 1, ps - 1, ps, ps + 1,
+                                      per - 1, per, per + 1)}
+        lengths = sorted(x for x in edges if 0 <= x <= cap)[:b]
+        lengths += [int(x) for x in rng.integers(0, cap + 1,
+                                                 b - len(lengths))]
+    n_pages = b * maxp
+    table = rng.permutation(n_pages).reshape(b, maxp)
+    bad = table.copy()
+    q = _randn(torch, gen, (b, g * hkv, d), dtype)
+    kp = _randn(torch, gen, (n_pages, ps, hkv, d), dtype)
+    vp = _randn(torch, gen, (n_pages, ps, hkv, d), dtype)
+    kp_bad, vp_bad = kp.clone(), vp.clone()
+    for row, n in enumerate(lengths):
+        fill = (-1, 2 ** 30)[row % 2]
+        table[row, -(-n // ps):] = fill
+        bad[row, -(-n // ps):] = fill
+        lo = max(0, n - w) if w else 0
+        dead = [int(p) for p in bad[row, :lo // ps]]
+        bad[row, :lo // ps] = fill
+        for x in (kp_bad, vp_bad):
+            x[dead] = float("nan")
+            if lo % ps:
+                x[int(table[row, lo // ps]), :lo % ps] = float("nan")
+    pt, pt_bad = (torch.tensor(t, dtype=torch.int32, device="cuda")
+                  for t in (table, bad))
+    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    got = paged_attention(q, kp_bad, vp_bad, pt_bad, ln, window=window)
+    want = paged_attention_plain(q, kp, vp, pt, ln, window=window)
+    return check_close(
+        f"paged_attention window case B={b} Hkv={hkv} G={g} D={d} PS={ps} "
+        f"MAXP={maxp} window={window} lengths={lengths} {dt}, poisoned "
+        "before the window", "paged_attention", got, want)
 
 
 # --------------------------------------------------------- serving path
 def attention_layers(cfg) -> int:
-    """Attention layers a decode step runs: every layer of a decoder, each
-    shared-block application of a hybrid."""
+    """Attention layers a decode step runs through the attention kernels:
+    every layer of a GQA decoder, none of an MLA one (its attention is
+    plain torch, as the reference's), each shared-block application of a
+    hybrid."""
     if cfg.family == "decoder":
-        return cfg.n_layers
+        return cfg.n_layers if cfg.attn_kind == "gqa" else 0
     return len(range(cfg.attn_every, cfg.n_layers, cfg.attn_every))
 
 
@@ -1913,18 +2045,93 @@ def serve_path(torch, np, arch: str) -> dict:
         "decode_ms_per_token_after_first": sum(s["decode_ms"][1:])
         / (steps * (len(outs) - 1)),
         "paged_launches_expected": attention_layers(cfg) * steps * len(outs),
+        "flash_launches_expected": attention_layers(cfg) * len(outs),
         "prefix_cache": s["prefix_cache"], "outputs": outs,
     }
 
 
+def serve_phase(torch, np, arch: str) -> dict:
+    """``serve_path`` with the launch counts zeroed just before and read
+    just after, and the device's peak memory: every kernel of
+    SERVE_PATHS[arch] must have launched, paged_attention once per
+    attention layer and decode step, flash_attention once per attention
+    layer and request."""
+    from repro_torch import kernels
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    srv = serve_path(torch, np, arch)
+    counts = srv["launches"] = kernels.launch_counts()
+    srv["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    if not all(counts[k] > 0 for k in SERVE_PATHS[arch][0]):
+        fail(f"serving path {arch}: a kernel never launched: {counts}")
+    for name in ("paged", "flash"):
+        want = srv[f"{name}_launches_expected"]
+        if counts[f"{name}_attention"] != want:
+            fail(f"serving path {arch}: {name}_attention launched "
+                 f"{counts[f'{name}_attention']} times, not {want}")
+    return srv
+
+
+def long_window_decode(torch, np) -> dict:
+    """gemma3-1b at full size in bf16 on the card: a 4,096-token prefill
+    (seeded tokens), then LONG_WINDOW_DECODE greedy steps, each through 26
+    paged_attention calls of which the local layers' read their 512-token
+    window.  Logits must be finite, flash_attention launch once a layer and
+    paged_attention once a layer and step.  Reports ms a decode token."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, forward, init_model
+    cfg = get_config("gemma3_1b")
+    params = init_model(cfg, 0, compute_device="cuda")
+    tokens = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (1, LONG_PREFILL)).astype(np.int32)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = forward(cfg, params, {"tokens": tokens},
+                            cache_len=LONG_PREFILL + LONG_WINDOW_DECODE,
+                            compute_device="cuda")
+    tok = torch.argmax(logits[:, -1:], -1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    finite = bool(logits.float().isfinite().all())
+    pos = torch.tensor([LONG_PREFILL], device="cuda")
+    step_ms = []
+    for t in range(LONG_WINDOW_DECODE):
+        s0 = time.perf_counter()
+        logits, cache = decode_step(cfg, params, tok, pos + t, cache,
+                                    compute_device="cuda")
+        tok = torch.argmax(logits[:, -1:], -1)
+        finite &= bool(logits.float().isfinite().all())   # waits
+        step_ms.append((time.perf_counter() - s0) * 1e3)
+    counts = kernels.launch_counts()
+    want = {"flash_attention": cfg.n_layers,
+            "paged_attention": cfg.n_layers * LONG_WINDOW_DECODE}
+    if not finite or any(counts[k] != v for k, v in want.items()):
+        fail(f"long windowed decode: finite logits {finite}, launches "
+             f"{counts} (want {want})")
+    local = sum(1 for w in cfg.layer_windows() if w > 0)
+    return {"prefill_tokens": LONG_PREFILL, "steps": LONG_WINDOW_DECODE,
+            "local_layers": local, "global_layers": cfg.n_layers - local,
+            "prefill_s": t1 - t0, "decode_ms_per_token": step_ms,
+            "decode_ms_per_token_after_first":
+                sum(step_ms[1:]) / (len(step_ms) - 1),
+            "launches": counts}
+
+
 def serve_cross_check(torch, np, arch: str, layers: int) -> dict:
     """The serving model ``arch`` in float32 at full width, depth cut to
-    ``layers`` (zamba2's 7 keep one shared-attention application), card
-    against the CPU tier with the same weights: the first request's
-    prefill and 4 greedy decode steps.  Tokens must be identical and logits
-    within CROSS_TOL of max(1, max|logit|): fp32 sums over 2048-8192 terms
-    taken in another order on each side (the smoke-size CPU parity, 128
-    wide, measured 3.5e-6), while a wrong kernel moves logits by O(0.1)."""
+    ``layers`` (zamba2's 7 keep one shared-attention application, gemma3's
+    6 five local layers and a global one, deepseek-v2-lite's 2 its dense
+    layer and one MoE layer), card against the CPU tier with the same
+    weights: the first request's prefill and 4 greedy decode steps (or
+    CROSS_LONG's seeded prompt, cache and steps), MLA in both decode forms
+    from the one prefill.  Tokens must be identical and logits within
+    CROSS_TOL of max(1, max|logit|): fp32 sums over 2048-10944 terms taken
+    in another order on each side (the smoke-size CPU parity, 128 wide,
+    measured 3.5e-6), while a wrong kernel moves logits by O(0.1)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import make_requests
     from repro_torch.models import decode_step, forward, init_model
@@ -1936,21 +2143,30 @@ def serve_cross_check(torch, np, arch: str, layers: int) -> dict:
                 for k, v in tree.items()}
     cpu_params = to_cpu(params)
     tokens = make_requests(SERVE_REQUESTS, cfg.vocab_size)[0]
+    cache_len, n_steps = 512, 4
+    if arch in CROSS_LONG:
+        n_tok, cache_len, n_steps = CROSS_LONG[arch]
+        tokens = np.random.default_rng(6).integers(
+            0, cfg.vocab_size, n_tok).astype(np.int32)
+    forms = (True, False) if cfg.attn_kind == "mla" else (True,)
     runs = {}
     for dev, p in (("cuda", params), ("cpu", cpu_params)):
         t0 = time.perf_counter()
-        logits, cache = forward(cfg, p, {"tokens": tokens[None]},
-                                cache_len=512, compute_device=dev)
-        steps = [logits.float().cpu()]
-        tok = torch.argmax(logits[:, -1:], -1)
-        toks = [int(tok[0, 0])]
-        pos = torch.tensor([len(tokens)], device=dev)
-        for t in range(4):
-            logits, cache = decode_step(cfg, p, tok, pos + t, cache,
-                                        compute_device=dev)
-            steps.append(logits.float().cpu())
-            tok = torch.argmax(logits[:, -1:], -1)
-            toks.append(int(tok[0, 0]))
+        logits0, cache0 = forward(cfg, p, {"tokens": tokens[None]},
+                                  cache_len=cache_len, compute_device=dev)
+        steps = [logits0.float().cpu()]
+        toks = [int(torch.argmax(logits0[0, -1]))]
+        for absorbed in forms:
+            cache = {k: v.clone() for k, v in cache0.items()}
+            tok = torch.argmax(logits0[:, -1:], -1)
+            pos = torch.tensor([len(tokens)], device=dev)
+            for t in range(n_steps):
+                logits, cache = decode_step(cfg, p, tok, pos + t, cache,
+                                            absorbed_mla=absorbed,
+                                            compute_device=dev)
+                steps.append(logits.float().cpu())
+                tok = torch.argmax(logits[:, -1:], -1)
+                toks.append(int(tok[0, 0]))
         runs[dev] = (steps, toks, time.perf_counter() - t0)
     (c_steps, c_toks, c_wall), (h_steps, h_toks, h_wall) = \
         runs["cuda"], runs["cpu"]
@@ -1960,6 +2176,7 @@ def serve_cross_check(torch, np, arch: str, layers: int) -> dict:
         fail(f"serving cross-check {arch}: tokens {c_toks} vs {h_toks}, "
              f"logits max |err| per step {errs} (scale {scale})")
     return {"layers": layers, "prompt_tokens": len(tokens),
+            "cache_len": cache_len, "decode_forms": len(forms),
             "tokens": c_toks, "max_abs_logit_err": errs,
             "max_abs_logit": scale, "card_s": c_wall, "cpu_s": h_wall}
 
@@ -2083,23 +2300,27 @@ def serve_state_check(torch, np) -> dict:
 
 # ----------------------------------------------------- LM kernel timings
 def flash_bound(bh: int, s: int, d: int, bkv: int | None = None,
-                nbytes_el: int = 2):
+                nbytes_el: int = 2, window: int | None = None):
     """q, k, v read and o written once (k and v of ``bkv`` heads); 4*D
-    operations per unmasked (query, key) pair, S(S+1)/2 pairs per head
-    (causal)."""
+    operations per unmasked (query, key) pair: S(S+1)/2 pairs per head
+    (causal), each query's min(i + 1, window) with a window."""
     bkv = bh if bkv is None else bkv
+    w = window or s
+    pairs = w * (w + 1) // 2 + max(0, s - w) * w
     return roofline((2 * bh + 2 * bkv) * s * d * nbytes_el,
-                    2 * d * s * (s + 1) * bh)
+                    4 * d * pairs * bh)
 
 
 def paged_bound(b: int, hq: int, hkv: int, d: int, length: int,
-                maxp: int, nbytes_el: int = 2):
-    """q read and o written once, the K and V rows of each sequence's
-    ``length`` live tokens read once, the page table and lengths read once;
-    4*D operations per (query head, live token)."""
-    nbytes = nbytes_el * (2 * b * hq * d + 2 * b * length * hkv * d) \
+                maxp: int, nbytes_el: int = 2, window: int | None = None):
+    """q read and o written once, the K and V rows of each sequence's live
+    tokens (``length``, or the last ``window`` of them) read once, the page
+    table and lengths read once; 4*D operations per (query head, live
+    token)."""
+    live = min(length, window) if window else length
+    nbytes = nbytes_el * (2 * b * hq * d + 2 * b * live * hkv * d) \
         + 4 * b * (maxp + 1)
-    return roofline(nbytes, 4 * d * b * hq * length)
+    return roofline(nbytes, 4 * d * b * hq * live)
 
 
 def ssd_bound(b: int, L: int, h: int, g: int, n: int, p: int,
@@ -2113,10 +2334,13 @@ def ssd_bound(b: int, L: int, h: int, g: int, n: int, p: int,
 
 
 def time_flash(torch, s: int, reps: int, hq: int = 32, hkv: int = 32,
-               d: int = 64) -> dict:
+               d: int = 64, window: int | None = None) -> dict:
     """A serving model's attention prefill, B 1, bf16, causal, at S tokens
     (seeded random inputs): zamba2-1.2b's shared block by default (32 heads
-    of 64, kv 32), qwen3-1.7b's with hq 16, hkv 8, d 128."""
+    of 64, kv 32), qwen3-1.7b's with hq 16, hkv 8, d 128, gemma3-1b's with
+    hq 4, hkv 1, d 256 (a local layer's with window 512).  Library: SDPA
+    (``enable_gqa``), with an explicit causal and window mask for a
+    window."""
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_plain)
     import torch.nn.functional as F
@@ -2125,34 +2349,48 @@ def time_flash(torch, s: int, reps: int, hq: int = 32, hkv: int = 32,
     q = _randn(torch, gen, (1, hq, s, d), torch.bfloat16)
     k, v = (_randn(torch, gen, (1, hkv, s, d), torch.bfloat16)
             for _ in range(2))
-    err = check_close(f"flash_attention at S={s} H={hq}/{hkv} D={d}",
-                      "flash_attention", flash_attention(q, k, v),
-                      flash_attention_plain(q, k, v))
-    bound, by = flash_bound(hq, s, d, hkv)
-    return {"shape": f"BH {hq} (kv {hkv}), S {s}, D {d}, bf16, causal",
+    err = check_close(f"flash_attention at S={s} H={hq}/{hkv} D={d} "
+                      f"window={window}", "flash_attention",
+                      flash_attention(q, k, v, window=window),
+                      flash_attention_plain(q, k, v, window=window))
+    bound, by = flash_bound(hq, s, d, hkv, window=window)
+    if window is None:
+        def library():
+            return F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=hq != hkv)
+    else:
+        i = torch.arange(s, device="cuda")
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=hq != hkv)
+    return {"shape": f"BH {hq} (kv {hkv}), S {s}, D {d}, bf16, causal"
+                     + (f", window {window}" if window else ""),
             "max_abs_err": err, "bound_ms": bound, "bound_by": by,
-            **time_all(torch, lambda: flash_attention(q, k, v),
-                       lambda: flash_attention_plain(q, k, v),
-                       lambda: F.scaled_dot_product_attention(
-                           q, k, v, is_causal=True, enable_gqa=hq != hkv),
-                       reps)}
+            **time_all(torch, lambda: flash_attention(q, k, v, window=window),
+                       lambda: flash_attention_plain(q, k, v, window=window),
+                       library, reps)}
 
 
 def time_paged(torch, length: int, reps: int, hq: int = 16, hkv: int = 8,
-               d: int = 128) -> dict:
+               d: int = 128, window: int | None = None,
+               smax: int = 512) -> dict:
     """A serving model's decode attention as its serving path calls it:
-    B 1, bf16, the 512-token decode cache viewed as 16 pages of 32 through
-    the identity table, ``length`` live tokens (seeded random cache):
-    qwen3-1.7b's by default (16 query heads over 8 kv heads of 128),
-    zamba2-1.2b's shared block with hq 32, hkv 32, d 64.  Library: SDPA
-    over the dense cache with a length mask, transposes included (the same
-    function only because the table is the identity)."""
+    B 1, bf16, the ``smax``-token decode cache (the serving path's 512 by
+    default) viewed as pages of 32 through the identity table, ``length``
+    live tokens (seeded random cache): qwen3-1.7b's by default (16 query
+    heads over 8 kv heads of 128), zamba2-1.2b's shared block with hq 32,
+    hkv 32, d 64, gemma3-1b's with hq 4, hkv 1, d 256 (a local layer's
+    with window 512: the last 512 tokens are live).  Library: SDPA over the
+    dense cache with a length (and window) mask, transposes included (the
+    same function only because the table is the identity)."""
     from repro_torch.kernels.paged_attention.ops import (
         paged_attention, paged_attention_plain)
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda")
     gen.manual_seed(16)
-    smax, ps = 512, 32
+    ps = 32
     bf = torch.bfloat16
     q = _randn(torch, gen, (1, hq, d), bf)
     kc, vc = (_randn(torch, gen, (1, smax, hkv, d), bf) for _ in range(2))
@@ -2160,26 +2398,35 @@ def time_paged(torch, length: int, reps: int, hq: int = 16, hkv: int = 8,
     pt = torch.arange(smax // ps, dtype=torch.int32,
                       device="cuda").view(1, -1)
     ln = torch.tensor([length], dtype=torch.int32, device="cuda")
-    mask = (torch.arange(smax, device="cuda") < length).view(1, 1, 1, smax)
+    tok = torch.arange(smax, device="cuda")
+    live = tok < length
+    if window:
+        live &= tok >= length - window
+    mask = live.view(1, 1, 1, smax)
 
     def library():
         return F.scaled_dot_product_attention(
             q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
             attn_mask=mask, enable_gqa=hq != hkv)[:, :, 0]
-    got = paged_attention(q, kp, vp, pt, ln)
+
+    def kernel():
+        return paged_attention(q, kp, vp, pt, ln, window=window)
+
+    def plain():
+        return paged_attention_plain(q, kp, vp, pt, ln, window=window)
+    got = kernel()
     err = check_close(f"paged_attention at length {length} H={hq}/{hkv} "
-                      f"D={d}",
-                      "paged_attention", got,
-                      paged_attention_plain(q, kp, vp, pt, ln))
-    bound, by = paged_bound(1, hq, hkv, d, length, smax // ps)
+                      f"D={d} window={window}", "paged_attention", got,
+                      plain())
+    bound, by = paged_bound(1, hq, hkv, d, length, smax // ps,
+                            window=window)
     return {"shape": f"B 1, H {hq} (kv {hkv}), D {d}, PS {ps}, MAXP "
-                     f"{smax // ps}, length {length}, bf16, identity table",
+                     f"{smax // ps}, length {length}, bf16, identity table"
+                     + (f", window {window}" if window else ""),
             "max_abs_err": err, "bound_ms": bound, "bound_by": by,
             "library_max_abs_err": float((library() - got).float().abs()
                                          .max()),
-            **time_all(torch, lambda: paged_attention(q, kp, vp, pt, ln),
-                       lambda: paged_attention_plain(q, kp, vp, pt, ln),
-                       library, reps)}
+            **time_all(torch, kernel, plain, library, reps)}
 
 
 def time_paged_long(torch, reps: int, b: int = LONG_DECODE[0]) -> dict:
@@ -2260,14 +2507,36 @@ def time_ssd(torch, L: int, reps: int) -> dict:
                                               state_dt=dt32), None, reps)}
 
 
+def gemma3_timings(torch, s_serve: int) -> dict:
+    """gemma3-1b's attention kernels at its shapes (4 query heads over 1 kv
+    head of 256, bf16): flash_attention at its serving prefill (S of the
+    longest prompt) and at 4,096 tokens with its 512-token window and
+    global; paged_attention at its serving decode (the longest prompt's
+    last position, global and windowed alike there) and at 4,096 tokens of
+    a 4,096-token cache with the window and global.  The windowed paged
+    call's bound is the window's rows: its time beside the global call's
+    shows whether the kernel reads only the window."""
+    w, n = GEMMA_WINDOW, LONG_PREFILL
+    return {
+        "flash_prefill": time_flash(torch, s_serve, 40, 4, 1, 256),
+        "flash_4096_window": time_flash(torch, n, 10, 4, 1, 256, w),
+        "flash_4096_global": time_flash(torch, n, 10, 4, 1, 256),
+        "paged_decode": time_paged(torch, s_serve + DECODE_TOKENS - 1, 200,
+                                   4, 1, 256, w),
+        "paged_4096_window": time_paged(torch, n, 200, 4, 1, 256, w, n),
+        "paged_4096_global": time_paged(torch, n, 200, 4, 1, 256, None, n)}
+
+
 def profile_serve(torch, np, arch: str) -> dict:
     """A 2-request full-size serving run of ``arch`` under torch.profiler:
-    the device's busy time by kernel against the run's wall time."""
+    the device's busy time by kernel against the run's wall time.  Only the
+    device's activity is recorded: with the host's ~2,000 ops a decode
+    token too, sorting the events took ~45 s a model (gemma3-1b's run
+    itself 2.6 s)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import serve
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         serve.run(arch, smoke=False, n_requests=PROFILE_REQUESTS,
                   compute_device="cuda")
@@ -2446,24 +2715,14 @@ def run(args, torch, pool) -> int:
     lap("serve_open")
 
     serve_launches = {}
-    for arch, (must_launch, _) in SERVE_PATHS.items():
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launch_counts()
-        srv = serve_path(torch, np, arch)
-        counts = serve_launches[arch] = kernels.launch_counts()
-        srv["launches"] = counts
-        srv["max_memory_allocated_gb"] = \
-            torch.cuda.max_memory_allocated() / 1e9
-        report[f"serve_{arch}"] = srv
+    for arch in SERVE_PATHS:
+        srv = report[f"serve_{arch}"] = serve_phase(torch, np, arch)
+        serve_launches[arch] = srv["launches"]
         print(f"serving path {arch}: " + json.dumps(
             {k: v for k, v in srv.items() if k != "outputs"}), flush=True)
-        if min(counts[k] for k in must_launch) <= 0:
-            fail(f"serving path {arch}: a kernel never launched: {counts}")
-        if counts["paged_attention"] != srv["paged_launches_expected"]:
-            fail(f"serving path {arch}: paged_attention launched "
-                 f"{counts['paged_attention']} times, not "
-                 f"{srv['paged_launches_expected']}")
+    report["long_window_decode"] = long_window_decode(torch, np)
+    print("gemma3-1b long windowed decode: "
+          + json.dumps(report["long_window_decode"]), flush=True)
     torch.cuda.empty_cache()
     lap("serving")
 
@@ -2497,12 +2756,18 @@ def run(args, torch, pool) -> int:
     report["qwen3_prefill_flash"] = time_flash(torch, s_serve, 40, 16, 8, 128)
     report["zamba2_decode_paged"] = time_paged(
         torch, s_serve + DECODE_TOKENS - 1, 200, 32, 32, 64)
+    report["gemma3"] = gemma3_timings(
+        torch, max(report["serve_gemma3_1b"]["prompt_tokens"]))
     edge_err["flash_attention"] = max(
         edge_err["flash_attention"],
-        report["qwen3_prefill_flash"]["max_abs_err"])
+        report["qwen3_prefill_flash"]["max_abs_err"],
+        *(t["max_abs_err"] for k, t in report["gemma3"].items()
+          if k.startswith("flash")))
     edge_err["paged_attention"] = max(
         edge_err["paged_attention"],
-        report["zamba2_decode_paged"]["max_abs_err"])
+        report["zamba2_decode_paged"]["max_abs_err"],
+        *(t["max_abs_err"] for k, t in report["gemma3"].items()
+          if k.startswith("paged")))
     for name, err in edge_err.items():
         timings[name]["max_abs_err"] = max(timings[name]["max_abs_err"], err)
     report["long_prefill"] = {
@@ -2535,6 +2800,8 @@ def run(args, torch, pool) -> int:
               flush=True)
     for name, t in report["long_decode"].items():
         print(f"timing {name}, long decode: " + json.dumps(t), flush=True)
+    for name, t in report["gemma3"].items():
+        print(f"timing gemma3-1b {name}: " + json.dumps(t), flush=True)
     torch.cuda.empty_cache()
     lap("timings")
 
@@ -2578,7 +2845,7 @@ def run(args, torch, pool) -> int:
           f"({100 * prof['device_busy_share']:.2f}%)", flush=True)
     torch.cuda.empty_cache()
 
-    for arch in SERVE_PATHS:
+    for arch in PROFILE_PATHS:
         sprof = profile_serve(torch, np, arch)
         report[f"profile_serve_{arch}"] = sprof
         print(f"profile serving {arch} ({PROFILE_REQUESTS} requests): device "

@@ -25,6 +25,16 @@ Phases, each made of ``chip_smoke.py``'s own functions:
     paged     paged_attention at qwen3's and zamba2's decode shapes and at
               8 and 1 sequences of 4,096 tokens
     ssd       ssd_scan at zamba2's L 189 and 4,096
+    gemma3    flash_attention and paged_attention at gemma3-1b's shapes
+              (head_dim 256, 4 query heads over 1 kv head): its serving
+              prefill and decode, and 4,096 tokens with its 512-token window
+              and global
+    serve_gemma3 serve_deepseek
+              a model's serving path at full size (``chip_smoke.py`` phase
+              4: launches, peak memory), and its 2-request profile
+    long_decode gemma3-1b's 4,096-token prefill and 16 windowed decode steps
+    cross_gemma3 cross_deepseek
+              a model's float32 card-vs-CPU cross-check (phase 6)
     seekrandom db_bench's seekrandom at full size for every policy, from
               rewound uid counters: its wall, its launches and its rows
     serve_sweep db_bench's serve_sweep at full size for every policy: its
@@ -104,6 +114,29 @@ def paged(torch, np, cs, ctx) -> dict:
             "zamba2_decode": cs.time_paged(torch, length, 200, 32, 32, 64),
             "long_b8": cs.time_paged_long(torch, 20),
             "long_b1": cs.time_paged_long(torch, 40, 1)}
+
+
+def gemma3(torch, np, cs, ctx) -> dict:
+    return cs.gemma3_timings(torch, 189)
+
+
+def serve_model(arch: str):
+    def run(torch, np, cs, ctx) -> dict:
+        t0 = time.perf_counter()
+        out = cs.serve_phase(torch, np, arch)
+        out["phase_wall_s"] = time.perf_counter() - t0
+        out.pop("outputs")
+        t0 = time.perf_counter()
+        out["profile"] = cs.profile_serve(torch, np, arch)
+        out["profile"]["phase_wall_s"] = time.perf_counter() - t0
+        return out
+    return run
+
+
+def cross_model(arch: str):
+    def run(torch, np, cs, ctx) -> dict:
+        return cs.serve_cross_check(torch, np, arch, cs.SERVE_PATHS[arch][1])
+    return run
 
 
 def ssd(torch, np, cs, ctx) -> dict:
@@ -303,6 +336,7 @@ def shard_store(torch, np, cs, ctx) -> dict:
 
 
 STORE = ("merge_path", "overlap_scan", "lindley_scan")
+LM = ("overlap_scan", "flash_attention", "paged_attention")
 # phase: (kernels it builds, what it runs)
 PHASES = {
     "edge_merge": (("merge_path",), lambda torch, np, cs, ctx: {
@@ -326,6 +360,13 @@ PHASES = {
     "flash": (("flash_attention",), flash),
     "paged": (("paged_attention",), paged),
     "ssd": (("ssd_scan",), ssd),
+    "gemma3": (("flash_attention", "paged_attention"), gemma3),
+    "serve_gemma3": (LM, serve_model("gemma3_1b")),
+    "serve_deepseek": (LM, serve_model("deepseek_v2_lite")),
+    "long_decode": (LM, lambda torch, np, cs, ctx:
+                    cs.long_window_decode(torch, np)),
+    "cross_gemma3": (LM, cross_model("gemma3_1b")),
+    "cross_deepseek": (LM, cross_model("deepseek_v2_lite")),
     "seekrandom": (STORE, seekrandom),
     "serve_sweep": (STORE, serve_sweep),
     "serve_open": (STORE, serve_open),
@@ -368,7 +409,8 @@ def main() -> int:
         for name, log in _build.ptxas_reports.items():
             print(f"== {name} ==\n" + "\n".join(
                 ln for ln in log.splitlines()
-                if "Used" in ln or "error" in ln.lower()
+                if "Used" in ln or "Function properties" in ln
+                or "error" in ln.lower()
                 or "warning" in ln.lower() or "spill" in ln), flush=True)
     print(f"built in {time.time() - t0:.1f}s", flush=True)
     out: dict = {"card": cs.card_line(), "src": str(args.src)}

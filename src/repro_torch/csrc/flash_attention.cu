@@ -1,5 +1,5 @@
 // Causal / sliding-window attention with an online softmax, fp32
-// accumulation, for bf16 or fp32 q/k/v of head_dim 64 or 128.
+// accumulation, for bf16 or fp32 q/k/v of head_dim 64, 128 or 256.
 //
 // Replaces the flash_attention TPU kernel: src/repro/kernels/
 // flash_attention/kernel.py, _flash_kernel / flash_attention_call (wrapper
@@ -32,7 +32,13 @@
 //   into the async proxy (fence.proxy.async) before the barrier that
 //   precedes the wgmmas.  At D 64 the ring has two stages (tile t+1 in
 //   flight while t is computed) so that four blocks of 128 registers share
-//   an SM; at D 128, three (tiles t+1 and t+2), two blocks.  The grid is
+//   an SM; at D 128, three (tiles t+1 and t+2), two blocks.  At D 256
+//   (gemma3) P.V is one m64n256k16 wgmma whose accumulator is 128 fp32
+//   registers a thread; with 64-key tiles the 32 scores and P's 32
+//   A-fragment registers on top spilled 332 bytes at the 255 registers
+//   that __launch_bounds__(128, 1) allows, so D 256 takes 32-key tiles
+//   (Q.K^T as m64n32k16) through four stages of 32 KB beside Q's 32 KB,
+//   one block an SM.  The grid is
 //   (bh, q tile) with the q tiles in reverse order on blockIdx.y, so the
 //   longest causal rows start first and the short ones fill in behind;
 //   64-row blocks keep 96 blocks at zamba2's serving prefill (S 189, 32
@@ -49,7 +55,8 @@
 // * fp32 (flash_fwd): both products on the CUDA cores in fp32 (4 threads
 //   per query row: each scores a quarter of the tile's keys and
 //   accumulates a quarter of the output columns), which the reference's
-//   fp32 tolerance needs; no bf16 or TF32 operand meets it.
+//   fp32 tolerance needs; no bf16 or TF32 operand meets it.  At D 256 its
+//   q/k/v/p tiles take 217,088 bytes: one block an SM.
 
 #include <cstdint>
 #include <type_traits>
@@ -299,6 +306,35 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (64 x 32, fp32) (+)= A (64 x 16, bf16, shared, K-major) * B (16 x 32,
+// bf16, shared, K-major); scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+      "%12, %13, %14, %15"
+      "}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The scores of a BK-key tile: Q.K^T as one wgmma of N = BK.
+template <int BK>
+__device__ __forceinline__ void wgmma_qk(float (&d)[BK / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (BK == 64)
+    wgmma_ss_n64(d, da, db, scale_d);
+  else
+    wgmma_ss_n32(d, da, db, scale_d);
+}
+
 // d (64 x 64, fp32) += A (64 x 16, bf16, registers) * B (16 x 64, bf16,
 // shared, MN-major: the descriptor's transpose).
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
@@ -356,19 +392,78 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 256, fp32) += A (64 x 16, bf16, registers) * B (16 x 256, bf16,
+// shared, MN-major: the descriptor's transpose).
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69,"
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89,"
+      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99,"
+      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109,"
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 constexpr int kWgThreads = 128;   // one warpgroup: 64 query rows
 
 template <int D>
 struct WCfg {
+  // keys per tile: 64, but 32 at D 256, where 64 keys' scores and P
+  // fragments on top of the 128 accumulators spilled 332 bytes at 255
+  // registers
+  static constexpr int BK = D == 256 ? 32 : kBK;
   // K/V ring depth and blocks per SM: at D 64, two stages (41 KB) let four
-  // blocks of <= 128 registers share an SM; at D 128, three (113 KB), two
-  static constexpr int NS = D == 64 ? 2 : 3;
-  static constexpr int MIN_BLOCKS = D == 64 ? 4 : 2;
+  // blocks of <= 128 registers share an SM; at D 128, three (113 KB), two;
+  // at D 256, four stages of 32 KB (161 KB), one
+  static constexpr int NS = D == 64 ? 2 : D == 128 ? 3 : 4;
+  static constexpr int MIN_BLOCKS = D == 64 ? 4 : D == 128 ? 2 : 1;
   static constexpr int Q_BYTES = kBQ * D * 2;
-  static constexpr int T_BYTES = kBK * D * 2;     // one K or V tile
+  static constexpr int T_BYTES = BK * D * 2;      // one K or V tile
   static constexpr int STAGE = 2 * T_BYTES;       // K tile then V tile
   // + 1024 to align the tiles to the swizzle's 1024-byte period
   static constexpr size_t SMEM = 1024 + Q_BYTES + NS * STAGE;
+  static_assert(SMEM <= 232448, "a block's shared memory");
 };
 
 template <int D>
@@ -377,8 +472,10 @@ __device__ __forceinline__ void wgmma_pv(float (&acc)[D / 2],
                                          uint64_t db) {
   if constexpr (D == 64)
     wgmma_rs_n64(acc, a, db);
-  else
+  else if constexpr (D == 128)
     wgmma_rs_n128(acc, a, db);
+  else
+    wgmma_rs_n256(acc, a, db);
 }
 
 // bf16 inputs: Q.K^T and P.V on the tensor cores with wgmma (fp32
@@ -400,8 +497,9 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
                 int causal, int window, float scale2) {
   using C = WCfg<D>;
   constexpr int NS = C::NS;
+  constexpr int BK = C::BK;
   constexpr int KS = D / 16;     // k-steps of Q.K^T
-  constexpr int NT = kBK / 8;    // 8-key groups of a tile
+  constexpr int NT = BK / 8;    // 8-key groups of a tile
   constexpr int DT = D / 8;      // 8-column groups of the output
   constexpr int CPR = D / 8;     // 16-byte chunks per row
   extern __shared__ unsigned char smem_raw[];
@@ -423,9 +521,9 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
   const int qa = q0 + warp * 16 + g, qb = qa + 8;  // this thread's rows
   const int q_last = min(q0 + kBQ - 1, s - 1);
   // the key tiles some row of the block can see (the reference's test)
-  const int n_kt = (s + kBK - 1) / kBK;
-  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / kBK : 0;
-  const int kt_hi = causal ? min(n_kt, q_last / kBK + 1) : n_kt;
+  const int n_kt = (s + BK - 1) / BK;
+  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  const int kt_hi = causal ? min(n_kt, q_last / BK + 1) : n_kt;
   const int n_tiles = max(0, kt_hi - kt_lo);
 
   for (int idx = tid; idx < kBQ * CPR; idx += kWgThreads) {
@@ -436,16 +534,16 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
   }
   cp_async_commit();
   auto load_tile = [&](int i) {
-    const int k0 = (kt_lo + i) * kBK;
+    const int k0 = (kt_lo + i) * BK;
     const uint32_t base = skv + (i % NS) * C::STAGE;
 #pragma unroll
-    for (int j = 0; j < 2 * kBK * CPR / kWgThreads; ++j) {
+    for (int j = 0; j < 2 * BK * CPR / kWgThreads; ++j) {
       const int idx = tid + j * kWgThreads;
-      const int kv = idx / (kBK * CPR);
-      const int r = (idx / CPR) % kBK, c = idx % CPR;
+      const int kv = idx / (BK * CPR);
+      const int r = (idx / CPR) % BK, c = idx % CPR;
       const bool in = k0 + r < s;
       const __nv_bfloat16* src = kv ? vg : kg;
-      cp_async16(base + kv * C::T_BYTES + swz(r, c, kBK),
+      cp_async16(base + kv * C::T_BYTES + swz(r, c, BK),
                  in ? src + (size_t)(k0 + r) * D + c * 8 : kg, in ? 16 : 0);
     }
   };
@@ -467,7 +565,7 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
     if (i + NS - 1 < n_tiles) load_tile(i + NS - 1);
     cp_async_commit();
 
-    const int k0 = (kt_lo + i) * kBK;
+    const int k0 = (kt_lo + i) * BK;
     const uint32_t sk = skv + (i % NS) * C::STAGE;
     const uint32_t sv = sk + C::T_BYTES;
     float sc[NT * 4];   // the first k-step overwrites it (scale_d 0)
@@ -476,9 +574,9 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
       const uint32_t off = (ks & 3) * 32;   // 16 columns = 32 bytes
-      wgmma_ss_n64(sc,
+      wgmma_qk<BK>(sc,
                    smem_desc(sq + (ks >> 2) * kBQ * 128 + off, 16, 1024),
-                   smem_desc(sk + (ks >> 2) * kBK * 128 + off, 16, 1024),
+                   smem_desc(sk + (ks >> 2) * BK * 128 + off, 16, 1024),
                    ks > 0);
     }
     wgmma_commit();
@@ -536,7 +634,7 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
           if (e < 2) sum_a += p; else sum_b += p;
         }
     };
-    const bool masked = k0 + kBK > s || (causal && k0 + kBK - 1 > q0) ||
+    const bool masked = k0 + BK > s || (causal && k0 + BK - 1 > q0) ||
                         (window > 0 && q0 + kBQ - 1 - k0 >= window);
     if (masked)
       softmax(std::true_type{});
@@ -559,9 +657,9 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
       acc[dt * 4 + 2] *= al_b;
       acc[dt * 4 + 3] *= al_b;
     }
-    uint32_t ph[kBK / 16][4], pl[kBK / 16][4];
+    uint32_t ph[BK / 16][4], pl[BK / 16][4];
 #pragma unroll
-    for (int j = 0; j < kBK / 16; ++j) {
+    for (int j = 0; j < BK / 16; ++j) {
       split(sc[8 * j + 0], sc[8 * j + 1], ph[j][0], pl[j][0]);
       split(sc[8 * j + 2], sc[8 * j + 3], ph[j][1], pl[j][1]);
       split(sc[8 * j + 4], sc[8 * j + 5], ph[j][2], pl[j][2]);
@@ -569,16 +667,16 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
     }
     fence_regs(acc);
 #pragma unroll
-    for (int j = 0; j < kBK / 16; ++j) {
+    for (int j = 0; j < BK / 16; ++j) {
       fence_regs(ph[j]);
       fence_regs(pl[j]);
     }
     wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kBK / 16; ++j) {
+    for (int j = 0; j < BK / 16; ++j) {
       // keys 16j..16j+15: two 8-key groups of 1024 bytes; the 64-column
-      // blocks of V lie kBK * 128 bytes apart
-      const uint64_t db = smem_desc(sv + j * 2048, kBK * 128, 1024);
+      // blocks of V lie BK * 128 bytes apart
+      const uint64_t db = smem_desc(sv + j * 2048, BK * 128, 1024);
       wgmma_pv<D>(acc, ph[j], db);
       wgmma_pv<D>(acc, pl[j], db);
     }
@@ -586,7 +684,7 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
     wgmma_wait<0>();
     fence_regs(acc);
 #pragma unroll
-    for (int j = 0; j < kBK / 16; ++j) {
+    for (int j = 0; j < BK / 16; ++j) {
       fence_regs(ph[j]);
       fence_regs(pl[j]);
     }
@@ -657,7 +755,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; d: 64 or 128; window <= 0 = global.
+// dtype: 0 = float32, 1 = bfloat16; d: 64, 128 or 256; window <= 0 =
+// global.
 // q: [b*hq, s, d], k/v: [b*hkv, s, d], o: [b*hq, s, d], all contiguous.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int b, int hq,
@@ -674,11 +773,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (dtype == 0 && d == 128)
     return launch<float, 128>(q, k, v, o, b, hq, hkv, s, causal, window,
                               scale, st);
+  if (dtype == 0 && d == 256)
+    return launch<float, 256>(q, k, v, o, b, hq, hkv, s, causal, window,
+                              scale, st);
   if (dtype == 1 && d == 64)
     return launch_wgmma<64>(q, k, v, o, b, hq, hkv, s, causal, window,
                             scale, st);
   if (dtype == 1 && d == 128)
     return launch_wgmma<128>(q, k, v, o, b, hq, hkv, s, causal, window,
+                             scale, st);
+  if (dtype == 1 && d == 256)
+    return launch_wgmma<256>(q, k, v, o, b, hq, hkv, s, causal, window,
                              scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,6 +1,7 @@
 // Single-token (decode) attention over a page pool through a page table,
 // query heads grouped per kv head, fp32 online softmax, for bf16 or fp32
-// q and pages of head_dim 64 or 128.
+// q and pages of head_dim 64, 128 or 256, over the whole prefix or over a
+// sliding window of its last `window` tokens.
 //
 // Replaces the paged_attention TPU kernel: src/repro/kernels/
 // paged_attention/kernel.py, _paged_kernel / paged_attention_call (wrapper
@@ -17,10 +18,17 @@
 // would bind, so the products stay on the CUDA cores in fp32 and the design
 // is about keeping enough bytes in flight:
 //
+// * A sliding window (gemma3's local layers; the reference's attn_decode
+//   masks pos - kj < window with pos = length - 1) makes the live tokens
+//   [lo, length) with lo = max(0, length - window), and the block visits
+//   only those: a local layer's decode costs its window, not its prefix.
+//   lo need not be page-aligned; the first live page is read from row
+//   lo % PS on, and no page-table entry or page row before lo is read.
 // * Split over blocks (flash-decoding).  The grid is (kv head, sequence,
-//   split); split z owns tokens [z * split_tokens, (z + 1) * split_tokens)
-//   of its sequence, clipped to min(length, MAXP * PS).  The wrapper picks
-//   the split from MAXP * PS, B * Hkv and the SM count (ops.py,
+//   split); split z owns tokens [lo + z * split_tokens, lo + (z + 1) *
+//   split_tokens) of its sequence, clipped to min(length, MAXP * PS).  The
+//   wrapper picks the split from the span min(MAXP * PS, window), B * Hkv,
+//   the SM count and the blocks that fit an SM at this D (ops.py,
 //   split_plan), never from the device-side lengths, so nothing syncs.  A
 //   split past the length writes an empty partial (m = -1e30, l = 0) and
 //   exits; the others write their (m, l, unnormalised acc) for their G
@@ -139,6 +147,11 @@ struct Cfg {
   static constexpr int STAGE = 2 * TILE;           // K tile then V tile
   static constexpr int QCH = CPR / 4;              // chunks per quarter row
   static constexpr int CPL = D / 32;               // output columns a lane
+  // a lane's CPL columns of a V row: VN reads of VW elements (two 16-byte
+  // chunks for fp32 at D 256, part of one chunk otherwise)
+  static constexpr int VW =
+      CPL * (int)sizeof(T) <= 16 ? CPL : 16 / (int)sizeof(T);
+  static constexpr int VN = CPL / VW;
   static constexpr int RING = kStages * STAGE;
   static constexpr size_t SMEM =
       (size_t)RING + sizeof(float) * (kMaxG * D + kWarps * 8 * kMaxG);
@@ -147,14 +160,17 @@ struct Cfg {
                 "the warp merge reuses the ring");
 };
 
-// bf16: four blocks of <= 128 registers and 53 KB (D 128) share an SM
+// bf16: four blocks of <= 128 registers and 53 KB (D 128) share an SM; at
+// D 256 (105 KB) two, whose 255 registers hold the 64 accumulators a lane
+// keeps; fp32 takes 201 KB at D 256, one block
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 4 : 1)
+__global__ void __launch_bounds__(kThreads,
+                                  sizeof(T) == 2 ? (D == 256 ? 2 : 4) : 1)
 paged_split(const T* __restrict__ q, const T* __restrict__ kp,
             const T* __restrict__ vp, const int* __restrict__ page_table,
             const int* __restrict__ lengths, T* __restrict__ o,
             float* __restrict__ part, int hkv, int g, int ps, int maxp,
-            int split_tokens, float scale) {
+            int split_tokens, float scale, int window) {
   using C = Cfg<T, D>;
   extern __shared__ __align__(16) unsigned char smem[];
   float* sq = reinterpret_cast<float*>(smem + C::RING);   // [kMaxG][D]
@@ -171,7 +187,8 @@ paged_split(const T* __restrict__ q, const T* __restrict__ kp,
   const int length = lengths[b];
   const long long cap = (long long)maxp * ps;
   const int n_tok = length <= 0 ? 0 : (int)(length < cap ? length : cap);
-  const int t_begin = split * split_tokens;
+  const int lo = window > 0 && length > window ? length - window : 0;
+  const int t_begin = lo + split * split_tokens;
   const int t_end = min(t_begin + split_tokens, n_tok);
   // partials of row (b, h * g + gi, split): m, l at part[2 * i], acc at
   // part[2 * rows * ns + D * i], i = (b * hq + h * g + gi) * ns + split
@@ -295,9 +312,13 @@ paged_split(const T* __restrict__ q, const T* __restrict__ kp,
     for (int t = 0; t < 8; ++t) {
       const int rr = warp * 8 + t;
       float vx[C::CPL];
-      widen<T, C::CPL>(st + C::TILE + rr * C::ROW +
-                           ((((vbyte >> 4) ^ (rr & 7)) << 4) | (vbyte & 15)),
-                       vx);
+#pragma unroll
+      for (int u = 0; u < C::VN; ++u) {
+        const int vb = vbyte + u * 16;
+        widen<T, C::VW>(st + C::TILE + rr * C::ROW +
+                            ((((vb >> 4) ^ (rr & 7)) << 4) | (vb & 15)),
+                        vx + u * C::VW);
+      }
       const float4 p0 = *reinterpret_cast<const float4*>(wp + t * kMaxG);
       const float4 p1 = *reinterpret_cast<const float4*>(wp + t * kMaxG + 4);
       const float pv[kMaxG] = {p0.x, p0.y, p0.z, p0.w,
@@ -418,7 +439,7 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* pt,
            const void* lengths, void* o, void* part, int b, int hkv, int g,
            int ps, int maxp, int ns, int split_tokens, float scale,
-           cudaStream_t stream) {
+           int window, cudaStream_t stream) {
   using C = Cfg<T, D>;
   static bool configured = false;
   if (!configured) {
@@ -433,7 +454,8 @@ int launch(const void* q, const void* k, const void* v, const void* pt,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(pt),
       static_cast<const int*>(lengths), static_cast<T*>(o),
-      static_cast<float*>(part), hkv, g, ps, maxp, split_tokens, scale);
+      static_cast<float*>(part), hkv, g, ps, maxp, split_tokens, scale,
+      window);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || ns == 1) return static_cast<int>(e);
   const size_t rows = (size_t)b * hkv * g;
@@ -445,18 +467,21 @@ int launch(const void* q, const void* k, const void* v, const void* pt,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; d: 64 or 128.  q, o: [b, hq, d];
-// k, v: [n_pages, ps, hkv, d]; page_table: [b, maxp] int32; lengths: [b]
-// int32; all contiguous, q/k/v 16-byte aligned.  ns splits of split_tokens
-// (a multiple of 32) tokens each, ns <= 4096; with ns > 1, part is fp32
-// scratch of b * hq * ns * (d + 2) floats.  Both kernels go on one stream.
+// dtype: 0 = float32, 1 = bfloat16; d: 64, 128 or 256; window <= 0 =
+// global, else the live tokens are [max(0, length - window), length).
+// q, o: [b, hq, d]; k, v: [n_pages, ps, hkv, d]; page_table: [b, maxp]
+// int32; lengths: [b] int32; all contiguous, q/k/v 16-byte aligned.  ns
+// splits of split_tokens (a multiple of 32) tokens each, ns <= 4096, whose
+// ns * split_tokens cover min(maxp * ps, window); with ns > 1, part is
+// fp32 scratch of b * hq * ns * (d + 2) floats.  Both kernels go on one
+// stream.
 extern "C" int paged_attention_launch(const void* q, const void* k,
                                       const void* v, const void* page_table,
                                       const void* lengths, void* o,
                                       void* part, int b, int hq, int hkv,
                                       int d, int ps, int maxp, int ns,
                                       int split_tokens, float scale,
-                                      int dtype, void* stream) {
+                                      int window, int dtype, void* stream) {
   if (b <= 0 || hq <= 0) return 0;
   if (hkv <= 0 || hq % hkv != 0 || hq / hkv > kMaxG || ps <= 0 || maxp < 0 ||
       b > 65535 || ns < 1 || ns > 4096 || split_tokens <= 0 ||
@@ -464,19 +489,16 @@ extern "C" int paged_attention_launch(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int g = hq / hkv;
-  if (dtype == 0 && d == 64)
-    return launch<float, 64>(q, k, v, page_table, lengths, o, part, b, hkv,
-                             g, ps, maxp, ns, split_tokens, scale, st);
-  if (dtype == 0 && d == 128)
-    return launch<float, 128>(q, k, v, page_table, lengths, o, part, b, hkv,
-                              g, ps, maxp, ns, split_tokens, scale, st);
-  if (dtype == 1 && d == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, page_table, lengths, o, part,
-                                     b, hkv, g, ps, maxp, ns, split_tokens,
-                                     scale, st);
-  if (dtype == 1 && d == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, page_table, lengths, o, part,
-                                      b, hkv, g, ps, maxp, ns, split_tokens,
-                                      scale, st);
+#define PAGED_CASE(DT, T, DIM)                                               \
+  if (dtype == DT && d == DIM)                                               \
+    return launch<T, DIM>(q, k, v, page_table, lengths, o, part, b, hkv, g,  \
+                          ps, maxp, ns, split_tokens, scale, window, st);
+  PAGED_CASE(0, float, 64)
+  PAGED_CASE(0, float, 128)
+  PAGED_CASE(0, float, 256)
+  PAGED_CASE(1, __nv_bfloat16, 64)
+  PAGED_CASE(1, __nv_bfloat16, 128)
+  PAGED_CASE(1, __nv_bfloat16, 256)
+#undef PAGED_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -15,15 +15,21 @@ query heads of one kv head form a group (``h // (Hq / Hkv)``), sequence
 probabilities are zeroed and the denominator is clamped at 1e-30, so a
 length of 0 gives zeros.
 
-Page-table entries of pages past a sequence's length are never read, and
-neither are the rows of a page past the length: callers may leave garbage
-there.  The lengths are not checked on the host (that would synchronise on
-every call).
+``window`` (gemma3's local layers) keeps only the last ``window`` tokens
+of each sequence: with the reference's decode mask ``pos - kj < window``
+and ``lengths = pos + 1``, the live tokens are ``[max(0, length - window),
+length)``.  ``None`` or a window below 1 means global.
+
+Page-table entries of pages past a sequence's length, or wholly before its
+window, are never read, and neither are the rows of a page outside the
+live range: callers may leave garbage there.  The lengths are not checked
+on the host (that would synchronise on every call).
 
 The kernel splits each sequence's tokens over several blocks and combines
 their partial softmaxes (flash-decoding); :func:`split_plan` picks the
-split on the host from the capacity ``MAXP * PS``, ``B * Hkv`` and the
-card's SM count, never from the device-side lengths.  The card path is
+split on the host from the span ``min(MAXP * PS, window)``, ``B * Hkv``,
+the card's SM count and the blocks that fit an SM at this head_dim, never
+from the device-side lengths.  The card path is
 lean, as overlap_scan's is: the C entry is resolved once, the raw current
 stream is read without building a ``torch.cuda.Stream``, and contiguous,
 16-byte-aligned inputs are passed as they are.
@@ -40,17 +46,21 @@ from .. import _build
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 8
 TILE_TOKENS = 32        # the kernel's tile (kTK): splits are whole tiles
 MIN_BLOCKS_PER_SM = 2   # the split gives every SM at least this many blocks
 RESIDENT_BLOCKS_PER_SM = 4   # bf16, D 128: 53 KB of shared memory a block
+#: blocks a SM holds at head_dim 256, where shared memory allows fewer than
+#: RESIDENT_BLOCKS_PER_SM: ~105 KB a block in bf16, ~201 KB in fp32
+RESIDENT_BLOCKS_D256 = {torch.bfloat16: 2, torch.float32: 1}
 _sm_counts: dict[int, int] = {}
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p]
 _launch = None       # the C entry, resolved at the first CUDA call
 _raw_stream = None   # torch._C._cuda_getCurrentRawStream
 # per (device, stream): fp32 scratch for the splits' partials.  Reused only
@@ -60,21 +70,24 @@ _scratch: dict[tuple[int, int], torch.Tensor] = {}
 
 
 @functools.lru_cache(maxsize=256)
-def split_plan(capacity: int, b: int, hkv: int,
-               n_sm: int) -> tuple[int, int]:
-    """(splits, tokens per split) for sequences of up to ``capacity`` tokens
-    over a grid of ``b * hkv`` (sequence, kv head) pairs on ``n_sm`` SMs.
+def split_plan(capacity: int, b: int, hkv: int, n_sm: int,
+               resident: int = RESIDENT_BLOCKS_PER_SM) -> tuple[int, int]:
+    """(splits, tokens per split) for sequences of up to ``capacity`` live
+    tokens (the page table's, or a window's if that is shorter) over a grid
+    of ``b * hkv`` (sequence, kv head) pairs on ``n_sm`` SMs, each of which
+    holds ``resident`` blocks at once.
 
     Enough splits that the grid gives every SM ``MIN_BLOCKS_PER_SM`` blocks,
-    or as many as fit ``RESIDENT_BLOCKS_PER_SM`` per SM in one wave if that
-    is more; never a split shorter than one tile.  Each split is a whole
-    number of tiles and split ``z`` covers tokens ``[z * per, min((z + 1) *
-    per, capacity))``, so the splits cover the capacity exactly, the last
-    one possibly short.  One split means no combine pass."""
+    or as many as fit ``resident`` per SM in one wave if that is more;
+    never a split shorter than one tile.  Each split is a whole number of
+    tiles and split ``z`` covers live tokens ``[z * per, min((z + 1) * per,
+    capacity))`` (counted from the window's first token), so the splits
+    cover the capacity exactly, the last one possibly short.  One split
+    means no combine pass."""
     tiles = max(1, -(-capacity // TILE_TOKENS))
     pairs = max(1, b * hkv)
     want = max(-(-MIN_BLOCKS_PER_SM * n_sm // pairs),
-               RESIDENT_BLOCKS_PER_SM * n_sm // pairs)
+               resident * n_sm // pairs)
     n = max(1, min(want, tiles))
     per = -(-tiles // n) * TILE_TOKENS
     return max(1, -(-capacity // per)), per
@@ -104,24 +117,34 @@ def _partials(device: torch.device, stream: int, numel: int) -> torch.Tensor:
     return buf
 
 
+def _window(window: int | None) -> int:
+    """The kernel's window argument: 0 for global."""
+    return int(window) if window is not None and int(window) > 0 else 0
+
+
 def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
                           v_pages: torch.Tensor, page_table: torch.Tensor,
                           lengths: torch.Tensor, *,
+                          window: int | None = None,
                           scale: float | None = None) -> torch.Tensor:
     """The kernel's function in plain torch, fp32 throughout: gather every
-    sequence's pages (entries past its length read page 0 instead), then
-    one masked softmax per query head."""
+    sequence's pages (entries past its length or wholly before its window
+    read page 0 instead), then one masked softmax per query head."""
     b, hq, d = q.shape
     _, ps, hkv, _ = k_pages.shape
     maxp = page_table.shape[1]
     g = hq // hkv
     scale = scale if scale is not None else d ** -0.5
     lengths = lengths.long().clamp(min=0)
+    w = _window(window)
+    lo = (lengths - w).clamp(min=0) if w else torch.zeros_like(lengths)
     n_pages = (lengths + ps - 1) // ps
-    live = torch.arange(maxp, device=q.device)[None, :] < n_pages[:, None]
+    page = torch.arange(maxp, device=q.device)[None, :]
+    live = (page < n_pages[:, None]) & (page >= (lo // ps)[:, None])
     pt = torch.where(live, page_table.long(), 0)
     t = maxp * ps
-    mask = torch.arange(t, device=q.device)[None, :] < lengths[:, None]
+    tok = torch.arange(t, device=q.device)[None, :]
+    mask = (tok < lengths[:, None]) & (tok >= lo[:, None])
     k = k_pages[pt].reshape(b, t, hkv, d).float()
     v = v_pages[pt].reshape(b, t, hkv, d).float()
     v = torch.where(mask[:, :, None, None], v, 0.0)
@@ -138,11 +161,12 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, page_table: torch.Tensor,
-                    lengths: torch.Tensor, *,
+                    lengths: torch.Tensor, *, window: int | None = None,
                     scale: float | None = None) -> torch.Tensor:
     """q: [B, Hq, D]; k_pages, v_pages: [NP, PS, Hkv, D] with Hq % Hkv == 0;
-    page_table: [B, MAXP] int32; lengths: [B] int32.  Returns [B, Hq, D] in
-    q's dtype."""
+    page_table: [B, MAXP] int32; lengths: [B] int32; ``window``: None (or
+    < 1) for global, else the last ``window`` tokens.  Returns [B, Hq, D]
+    in q's dtype."""
     b, hq, d = q.shape
     n_pages, ps, hkv = k_pages.shape[:3]
     maxp = page_table.shape[1] if page_table.dim() == 2 else -1
@@ -160,7 +184,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError("all arguments must be on one device")
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, page_table,
-                                     lengths, scale=scale)
+                                     lengths, window=window, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in _DTYPES:
@@ -187,7 +211,11 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if _launch is None:
         _resolve()
     dev = q.get_device()
-    ns, per = split_plan(maxp * ps, b, hkv, _sm_count(dev))
+    w = _window(window)
+    span = min(maxp * ps, w) if w else maxp * ps
+    ns, per = split_plan(span, b, hkv, _sm_count(dev),
+                         RESIDENT_BLOCKS_D256[q.dtype] if d == 256
+                         else RESIDENT_BLOCKS_PER_SM)
     stream = _raw_stream(dev)
     # per split and output row: m and l, then the unnormalised acc
     part = _partials(q.device, stream, b * hq * ns * (d + 2)) \
@@ -196,7 +224,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                   page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
                   None if part is None else part.data_ptr(), b, hq, hkv, d,
                   ps, maxp, ns, per,
-                  float(scale if scale is not None else d ** -0.5),
+                  float(scale if scale is not None else d ** -0.5), w,
                   _DTYPES[q.dtype], stream)
     if err:
         _build.check(err, "paged_attention")

@@ -6,10 +6,11 @@ the flash_attention kernel wrapper: the reference's ``use_pallas`` switch
 has no counterpart.  :func:`attn_decode` runs the paged_attention kernel wrapper over
 the dense decode cache: ``[B, Smax, Hk, Dh]`` viewed as ``B * Smax / PS``
 pages of PS tokens (a view, not a copy) through an identity page table,
-with ``lengths = pos + 1``.  That is the reference's ``attn_decode``
-exactly for a global window; the kernel visits only the ``pos + 1`` live
-tokens.  A window of -1 (or None) means global; decode with a sliding
-window (gemma3's local layers) waits for its slice (ROADMAP).
+with ``lengths = pos + 1`` and the layer's window.  That is the
+reference's ``attn_decode`` exactly: its mask keeps ``kj <= pos`` and, for
+a window ``w``, ``pos - kj < w``, and the kernel visits only those live
+tokens, ``[max(0, pos + 1 - w), pos + 1)`` (gemma3's local layers read
+their window, not the prefix).  A window of -1 (or None) means global.
 """
 
 from __future__ import annotations
@@ -93,12 +94,9 @@ def attn_decode(cfg, p, x, pos, theta, window, k_cache, v_cache, pages):
     """Single-step decode.  x: [B,1,D]; pos: [B] current index;
     k_cache/v_cache: [B, Smax, Hk, Dh], written in place at ``pos`` (the
     reference returns updated copies); ``pages``: :func:`decode_pages` of
-    this step.  Attention runs through the paged_attention kernel wrapper.
-    Returns (out, k_cache, v_cache)."""
-    if window is not None and window >= 0:
-        raise NotImplementedError(
-            "decode with a sliding window is not ported yet: see ROADMAP.md, "
-            "queue 1, item 8 (gemma3)")
+    this step.  Attention runs through the paged_attention kernel wrapper,
+    over the last ``window`` tokens for a window > 0.  Returns (out,
+    k_cache, v_cache)."""
     b, smax = x.shape[0], k_cache.shape[1]
     positions = pos[:, None]                                   # [B,1]
     if cfg.mrope_sections:
@@ -111,7 +109,7 @@ def attn_decode(cfg, p, x, pos, theta, window, k_cache, v_cache, pages):
     hk, dh = cfg.n_kv_heads, cfg.head_dim
     o = paged_attention(q[:, 0], k_cache.view(b * smax // ps, ps, hk, dh),
                         v_cache.view(b * smax // ps, ps, hk, dh), table,
-                        lengths)
+                        lengths, window=window)
     out = o.reshape(b, 1, cfg.n_heads * dh) @ p["wo"]
     return out, k_cache, v_cache
 

@@ -6,15 +6,16 @@ Parameters are plain dicts with the reference's keys and its stacked
 reference scans.
 
 Families:
-  decoder — GQA attention × dense SwiGLU MLP (qwen3, llama3.2, yi,
-            qwen2-vl's backbone) with global attention on every layer;
-            sliding windows (gemma3), MLA and MoE routing (deepseek-v2)
-            are not ported yet (ROADMAP queue 1, item 8).
+  decoder — GQA or MLA attention × dense SwiGLU or MoE MLP (qwen3,
+            llama3.2, yi, qwen2-vl's backbone, gemma3 with its 5:1
+            local:global sliding windows, deepseek-v2 with MLA, MoE
+            routing and its first ``first_dense_layers`` layers dense,
+            held apart as ``dense{i}`` before the stacked layers).
   ssm     — pure Mamba2 (SSD) stack.
   hybrid  — Mamba2 backbone with ONE shared attention block applied after
             every full ``attn_every``-layer segment (zamba2), each
             application with its own KV cache.
-  encdec  — not ported yet (ROADMAP queue 1, item 8).
+  encdec  — whisper: not ported yet (ROADMAP queue 1, item 8).
 
 Every entry point takes ``compute_device`` (default ``"cuda"``, which
 raises without a GPU; ``"cpu"`` runs the kernels' plain versions) and runs
@@ -27,6 +28,7 @@ import torch
 
 from ..core.types import resolve_compute_device
 from . import attention as attn
+from . import mla as mla_mod
 from . import moe as moe_mod
 from . import ssd as ssd_mod
 from .common import dense_spec, materialize, norm, norm_params, stack_specs
@@ -44,20 +46,10 @@ def exact_fp32() -> None:
 
 
 def require_ported(cfg) -> None:
-    what = None
     if cfg.family not in PORTED_FAMILIES:
-        what = f"family {cfg.family!r}"
-    elif cfg.family == "decoder" and cfg.attn_kind != "gqa":
-        what = f"attention {cfg.attn_kind!r}"
-    elif cfg.family == "decoder" and (cfg.mlp_kind == "moe"
-                                      or cfg.first_dense_layers):
-        what = "MoE routing"
-    elif cfg.family == "decoder" and cfg.window is not None:
-        what = "sliding-window attention"
-    if what is not None:
         raise NotImplementedError(
-            f"{what} ({cfg.name}) is not ported yet: see ROADMAP.md, queue "
-            "1, item 8 (gemma3's windows, then MLA/MoE, encdec)")
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet: see "
+            "ROADMAP.md, queue 1, item 8 (whisper's encdec, then training)")
 
 
 # ===================================================================== init
@@ -72,9 +64,10 @@ def model_specs(cfg) -> dict:
         p["lm_head"] = dense_spec((cfg.d_model, cfg.vocab_size),
                                   cfg.param_dtype)
     if cfg.family == "decoder":
-        block = {**attn.block_norm_specs(cfg), "attn": attn.attn_specs(cfg),
-                 "mlp": moe_mod.mlp_specs(cfg, d_ff=cfg.d_ff)}
-        p["layers"] = stack_specs(block, cfg.n_layers)
+        p["layers"] = stack_specs(decoder_block_specs(cfg, dense=False),
+                                  cfg.n_layers - cfg.first_dense_layers)
+        for i in range(cfg.first_dense_layers):
+            p[f"dense{i}"] = decoder_block_specs(cfg, dense=True)
         return p
     block = {"norm": norm_params(cfg, cfg.d_model),
              "ssd": ssd_mod.ssd_specs(cfg)}
@@ -84,6 +77,21 @@ def model_specs(cfg) -> dict:
                             "mlp_norm": norm_params(cfg, cfg.d_model),
                             "attn": attn.attn_specs(cfg),
                             "mlp": moe_mod.mlp_specs(cfg, d_ff=cfg.d_ff)}
+    return p
+
+
+def decoder_block_specs(cfg, *, dense: bool) -> dict:
+    """One decoder block: GQA or MLA attention, and an MoE MLP unless the
+    model has none or the block is one of the first dense layers (d_ff
+    ``dense_d_ff`` where given)."""
+    p = attn.block_norm_specs(cfg)
+    p["attn"] = (mla_mod.mla_specs(cfg) if cfg.attn_kind == "mla"
+                 else attn.attn_specs(cfg))
+    if cfg.mlp_kind == "moe" and not dense:
+        p["mlp"] = moe_mod.moe_specs(cfg)
+    else:
+        d_ff = cfg.dense_d_ff if (dense and cfg.dense_d_ff) else cfg.d_ff
+        p["mlp"] = moe_mod.mlp_specs(cfg, d_ff=d_ff)
     return p
 
 
@@ -124,22 +132,43 @@ def scale_embeds(cfg, h: torch.Tensor) -> torch.Tensor:
     return h
 
 
-def mlp_step(cfg, p, h):
+def mlp_step(cfg, p, h, *, dense: bool):
     """The residual MLP half of a decoder block (the reference's
-    ``_mlp_step`` for a dense MLP)."""
-    m_out = moe_mod.mlp_forward(cfg, p["mlp"], norm(cfg, h, p["mlp_norm"]))
+    ``_mlp_step``): the MoE unless the model has none or the block is
+    dense; the aux loss is dropped (training needs it)."""
+    m_in = norm(cfg, h, p["mlp_norm"])
+    if cfg.mlp_kind == "moe" and not dense:
+        m_out, _aux = moe_mod.moe_forward(cfg, p["mlp"], m_in)
+    else:
+        m_out = moe_mod.mlp_forward(cfg, p["mlp"], m_in)
     if cfg.post_norm:
         m_out = norm(cfg, m_out, p["post_mlp_norm"])
     return h + m_out
 
 
-def _decoder_block_fwd(cfg, p, h, positions, theta, window):
-    a_out, kv = attn.attn_forward(cfg, p["attn"],
-                                  norm(cfg, h, p["attn_norm"]), positions,
-                                  theta, window)
+def _decoder_block_fwd(cfg, p, h, positions, theta, window, *, dense: bool):
+    a_in = norm(cfg, h, p["attn_norm"])
+    if cfg.attn_kind == "mla":
+        a_out, kv = mla_mod.mla_forward(cfg, p["attn"], a_in, positions)
+    else:
+        a_out, kv = attn.attn_forward(cfg, p["attn"], a_in, positions, theta,
+                                      window)
     if cfg.post_norm:
         a_out = norm(cfg, a_out, p["post_attn_norm"])
-    return mlp_step(cfg, p, h + a_out), kv
+    return mlp_step(cfg, p, h + a_out, dense=dense), kv
+
+
+def decoder_layers(cfg, params: Params) -> list[tuple]:
+    """(parameters, rope theta, window, dense, cache index) of every
+    decoder layer in order: the ``dense{i}`` blocks, then the stacked
+    layers, each indexing its own cache stack (``d_ckv``/``d_kr`` or
+    ``ckv``/``kr``, ``k``/``v``)."""
+    meta = layer_meta(cfg)
+    nd = cfg.first_dense_layers
+    out = [(params[f"dense{i}"], *meta[i], True, i) for i in range(nd)]
+    out += [(layer_params(params["layers"], j), *meta[nd + j], False, j)
+            for j in range(cfg.n_layers - nd)]
+    return out
 
 
 def _decoder_forward(cfg, params, batch, dev, cache_len):
@@ -159,18 +188,26 @@ def _decoder_forward(cfg, params, batch, dev, cache_len):
             positions = positions[..., None].expand(b, s, 3)
     else:
         positions = torch.as_tensor(positions, device=dev)
-    ks, vs = [], []
-    for i, (theta, window) in enumerate(layer_meta(cfg)):
-        h, (k, v) = _decoder_block_fwd(cfg, layer_params(params["layers"], i),
-                                       h, positions, theta, window)
-        ks.append(k)
-        vs.append(v)
+    kvs = {True: [], False: []}      # dense blocks' caches, the stack's
+    for lp, theta, window, dense, _ in decoder_layers(cfg, params):
+        h, kv = _decoder_block_fwd(cfg, lp, h, positions, theta, window,
+                                   dense=dense)
+        kvs[dense].append(kv)
     h = norm(cfg, h, params["final_norm"])
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    pad = (0, 0, 0, 0, 0, (cache_len or s) - s)
-    cache: Cache = {"k": torch.nn.functional.pad(torch.stack(ks), pad),
-                    "v": torch.nn.functional.pad(torch.stack(vs), pad),
-                    "pos": torch.full((1,), s, dtype=torch.int32, device=dev)}
+
+    def grow(xs):                   # [L, B, S, ...] padded to cache_len
+        x = torch.stack(xs)
+        pad = [0, 0] * (x.dim() - 3) + [0, (cache_len or s) - s]
+        return torch.nn.functional.pad(x, pad)
+    cache: Cache = {}
+    names = ("ckv", "kr") if cfg.attn_kind == "mla" else ("k", "v")
+    for j, name in enumerate(names):
+        cache[name] = grow([kv[j] for kv in kvs[False]])
+    if cfg.attn_kind == "mla" and kvs[True]:
+        for j, name in enumerate(names):
+            cache[f"d_{name}"] = grow([kv[j] for kv in kvs[True]])
+    cache["pos"] = torch.full((1,), s, dtype=torch.int32, device=dev)
     return h[:, -1:] @ head, cache
 
 
@@ -201,12 +238,15 @@ def forward(cfg, params: Params, batch: dict, *, mode: str = "prefill",
             cache_len: int | None = None,
             compute_device: str | torch.device = "cuda"):
     """mode='prefill': returns (last_logits [B, 1, V], cache) with the KV
-    caches (the decoder's ``k``/``v`` [L, B, S, Hk, Dh], the hybrid shared
-    block's ``attn_k``/``attn_v``) sized ``cache_len or S``.
+    caches (the decoder's ``k``/``v`` [L, B, S, Hk, Dh], or for MLA the
+    latents ``ckv`` [L, B, S, lora] and ``kr`` [L, B, S, rope] of the
+    stacked layers and ``d_ckv``/``d_kr`` of the dense ones; the hybrid
+    shared block's ``attn_k``/``attn_v``) sized ``cache_len or S``.
     ``batch["tokens"]`` is [B, S] (a tensor or an array); the decoder
     family also takes ``batch["embeds"]`` [B, S, D] in its place and
     ``batch["positions"]`` ([B, S], or [B, S, 3] for M-RoPE).
-    ``mode='train'`` waits for the training slice (ROADMAP)."""
+    ``mode='train'`` waits for the training slice (ROADMAP.md, queue 1,
+    item 8)."""
     require_ported(cfg)
     if mode != "prefill":
         raise NotImplementedError(

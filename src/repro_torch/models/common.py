@@ -104,12 +104,14 @@ def sinusoidal_positions(s: int, d: int, device=None) -> torch.Tensor:
 def dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
                scale: float | None = None) -> torch.Tensor:
     """Normal(0, std) in fp32, cast to ``dtype``; std is ``scale`` or
-    fan_in ** -0.5 (fan_in = shape[-2], as in the reference)."""
+    fan_in ** -0.5 (fan_in = shape[-2], as in the reference).  Scaled in
+    place: one fp32 temporary, not two (deepseek-v2-lite's stacked experts
+    are 19.2 GB each in fp32)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else fan_in ** -0.5
     w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                     device=gen.device)
-    return (w * std).to(dtype)
+    return w.mul_(std).to(dtype)
 
 
 def dense_spec(shape, dtype: str, scale: float | None = None) -> tuple:

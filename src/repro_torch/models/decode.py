@@ -2,13 +2,18 @@
 hybrid families — the port of ``repro/models/decode.py``.
 
 The cache layout is the reference's: the decoder's ``k``/``v``
-``[L, B, S, Hk, Dh]``; the ssm and hybrid families' ``conv [L, B, k-1, C]``
+``[L, B, S, Hk, Dh]``, or with MLA the latents ``ckv [L, B, S, lora]`` and
+``kr [L, B, S, rope]`` of the stacked layers and ``d_ckv``/``d_kr`` of the
+dense ones; the ssm and hybrid families' ``conv [L, B, k-1, C]``
 (pre-conv features), ``state [L, B, H, N, P]`` fp32 and ``attn_k``/
 ``attn_v`` ``[apps, B, S, Hk, Dh]`` (one per shared-attention
 application); and ``pos``.  :func:`decode_step` updates the cache tensors
 in place (the reference returns updated copies) and returns a new dict
-holding them.  Every attention layer of a step runs the paged_attention
-kernel over its cache through one page table (``attention.decode_pages``).
+holding them.  Every GQA attention layer of a step runs the
+paged_attention kernel over its cache through one page table
+(``attention.decode_pages``); a local layer (gemma3's sliding window)
+reads only its window's tokens, a global one its whole prefix.  MLA
+decodes in plain torch, absorbed or expanded, as the reference does.
 """
 
 from __future__ import annotations
@@ -17,9 +22,10 @@ import torch
 
 from ..core.types import resolve_compute_device
 from . import attention as attn
+from . import mla as mla_mod
 from . import moe as moe_mod
 from . import ssd as ssd_mod
-from .blocks import (check_params_device, exact_fp32, layer_meta,
+from .blocks import (check_params_device, decoder_layers, exact_fp32,
                      layer_params, mlp_step, require_ported, scale_embeds,
                      segments)
 from .common import dtype_of, norm
@@ -31,10 +37,23 @@ def init_cache(cfg, batch: int, max_seq: int, *,
     dev = resolve_compute_device(compute_device)
     dt = dtype_of(cfg)
     if cfg.family == "decoder":
-        shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=dt, device=dev),
-                "v": torch.zeros(shape, dtype=dt, device=dev),
-                "pos": torch.zeros((1,), dtype=torch.int32, device=dev)}
+        n_scan = cfg.n_layers - cfg.first_dense_layers
+        if cfg.attn_kind == "mla":
+            cache = {}
+            for pre, n in (("", n_scan), ("d_", cfg.first_dense_layers)):
+                if n:
+                    cache[pre + "ckv"] = torch.zeros(
+                        (n, batch, max_seq, cfg.kv_lora_rank), dtype=dt,
+                        device=dev)
+                    cache[pre + "kr"] = torch.zeros(
+                        (n, batch, max_seq, cfg.qk_rope_dim), dtype=dt,
+                        device=dev)
+        else:
+            shape = (n_scan, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+            cache = {"k": torch.zeros(shape, dtype=dt, device=dev),
+                     "v": torch.zeros(shape, dtype=dt, device=dev)}
+        cache["pos"] = torch.zeros((1,), dtype=torch.int32, device=dev)
+        return cache
     cache = {
         "conv": torch.zeros((cfg.n_layers, batch, cfg.conv_kernel - 1,
                              ssd_mod.conv_dim(cfg)), dtype=dt, device=dev),
@@ -53,9 +72,11 @@ def init_cache(cfg, batch: int, max_seq: int, *,
 
 
 def decode_step(cfg, params, tokens, pos, cache, *,
+                absorbed_mla: bool = True,
                 compute_device: str | torch.device = "cuda"):
     """tokens: [B, 1] int; pos: [B] int write index; cache: as
-    :func:`init_cache`.  Returns (logits [B, 1, V], new_cache)."""
+    :func:`init_cache`; ``absorbed_mla`` picks MLA's decode form.  Returns
+    (logits [B, 1, V], new_cache)."""
     require_ported(cfg)
     dev = resolve_compute_device(compute_device)
     check_params_device(params, dev)
@@ -64,7 +85,7 @@ def decode_step(cfg, params, tokens, pos, cache, *,
     pos = torch.as_tensor(pos, device=dev).long()
     h = scale_embeds(cfg, params["embed"][tokens])
     if cfg.family == "decoder":
-        h = _decode_decoder(cfg, params, h, pos, cache)
+        h = _decode_decoder(cfg, params, h, pos, cache, absorbed_mla)
     else:
         h = _decode_ssm(cfg, params, h, pos, cache)
     h = norm(cfg, h, params["final_norm"])
@@ -74,16 +95,23 @@ def decode_step(cfg, params, tokens, pos, cache, *,
     return h @ head, new_cache
 
 
-def _decode_decoder(cfg, params, h, pos, cache):
-    pages = attn.decode_pages(pos, cache["k"].shape[2])
-    for i, (theta, window) in enumerate(layer_meta(cfg)):
-        lp = layer_params(params["layers"], i)
-        a_out, _, _ = attn.attn_decode(
-            cfg, lp["attn"], norm(cfg, h, lp["attn_norm"]), pos, theta,
-            window, cache["k"][i], cache["v"][i], pages)
+def _decode_decoder(cfg, params, h, pos, cache, absorbed_mla):
+    mla = cfg.attn_kind == "mla"
+    pages = None if mla else attn.decode_pages(pos, cache["k"].shape[2])
+    for lp, theta, window, dense, i in decoder_layers(cfg, params):
+        a_in = norm(cfg, h, lp["attn_norm"])
+        if mla:
+            pre = "d_" if dense else ""
+            a_out, _, _ = mla_mod.mla_decode(
+                cfg, lp["attn"], a_in, pos, cache[pre + "ckv"][i],
+                cache[pre + "kr"][i], absorbed=absorbed_mla)
+        else:
+            a_out, _, _ = attn.attn_decode(
+                cfg, lp["attn"], a_in, pos, theta, window, cache["k"][i],
+                cache["v"][i], pages)
         if cfg.post_norm:
             a_out = norm(cfg, a_out, lp["post_attn_norm"])
-        h = mlp_step(cfg, lp, h + a_out)
+        h = mlp_step(cfg, lp, h + a_out, dense=dense)
     return h
 
 

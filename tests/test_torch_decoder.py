@@ -1,7 +1,14 @@
-"""Port of the decoder family (GQA attention, dense SwiGLU MLP) against the
-JAX reference on the CPU, at smoke size: qwen3-1.7b (qk-norm; 4 query
-heads over 4 kv heads, and over 2 so that GQA is covered), llama3.2-3b,
-yi-6b (untied ``lm_head``) and qwen2-vl-2b (M-RoPE).
+"""Port of the decoder family against the JAX reference on the CPU, at
+smoke size: qwen3-1.7b (qk-norm; 4 query heads over 4 kv heads, and over 2
+so that GQA is covered), llama3.2-3b, yi-6b (untied ``lm_head``),
+qwen2-vl-2b (M-RoPE), gemma3-1b (sliding window 16 on every other layer,
+dual RoPE theta, sandwich norms; also at its real head_dim of 256, with a
+cache of two 32-token pages and of one 48-token page: decode at positions
+37-40 moves the window's first token across tokens 22-25 while the last
+crosses no page edge, and the window spans the page edge at 32) and
+deepseek-v2 (MLA and MoE routing with a dense first layer; the lite and
+the 236b configs, the same at smoke size; decode both absorbed and
+expanded).
 
 The reference initialises its parameters; ``params_from_jax`` carries them
 across, so both packages compute the same function.  The reference runs
@@ -39,7 +46,14 @@ ARCHS = {"qwen3": ("qwen3_1_7b", {}, 64),
          "qwen3-gqa": ("qwen3_1_7b", {"n_kv_heads": 2}, 48),
          "llama3.2": ("llama3_2_3b", {}, 64),
          "yi": ("yi_6b", {}, 48),
-         "qwen2-vl": ("qwen2_vl_2b", {}, 64)}
+         "qwen2-vl": ("qwen2_vl_2b", {}, 64),
+         "gemma3": ("gemma3_1b", {}, 64),
+         "gemma3-d256": ("gemma3_1b", {"head_dim": 256}, 64),
+         "gemma3-d256-one-page": ("gemma3_1b", {"head_dim": 256}, 48),
+         "deepseek-v2-lite": ("deepseek_v2_lite", {}, 64),
+         "deepseek-v2-236b": ("deepseek_v2_236b", {}, 48)}
+CACHE_KEYS = {"gqa": {"k", "v", "pos"},
+              "mla": {"ckv", "kr", "d_ckv", "d_kr", "pos"}}
 
 
 def _close(got: torch.Tensor, want, what: str) -> None:
@@ -75,7 +89,7 @@ def test_prefill_logits_and_cache(pair):
     tl, tc = forward(tcfg, tp, {"tokens": toks}, cache_len=cache_len,
                      compute_device="cpu")
     _close(tl, rl, "logits")
-    assert set(tc) == set(rc) == {"k", "v", "pos"}
+    assert set(tc) == set(rc) == CACHE_KEYS[cfg.attn_kind]
     for k in rc:
         _close(tc[k], rc[k], k)
     empty = init_cache(tcfg, 2, cache_len, compute_device="cpu")
@@ -84,22 +98,29 @@ def test_prefill_logits_and_cache(pair):
 
 
 def test_four_decode_steps(pair):
-    cfg, tcfg, rp, tp, toks, cache_len, rl, rc = pair
-    _, tc = forward(tcfg, tp, {"tokens": toks}, cache_len=cache_len,
-                    compute_device="cpu")
-    tok_r = jnp.argmax(rl[:, -1:], -1).astype(jnp.int32)
-    tok_t = torch.from_numpy(np.array(tok_r))
-    pos = np.full(2, S, np.int32)
-    for step in range(4):
-        rl2, rc = ref_decode(cfg, rp, tok_r, jnp.asarray(pos + step), rc)
-        tl2, tc = decode_step(tcfg, tp, tok_t, torch.from_numpy(pos + step),
-                              tc, compute_device="cpu")
-        _close(tl2, rl2, f"decode step {step} logits")
-        for k in rc:
-            _close(tc[k], rc[k], f"decode step {step} {k}")
-        tok_r = jnp.argmax(rl2[:, -1:], -1).astype(jnp.int32)
-        tok_t = torch.argmax(tl2[:, -1:], -1)
-        np.testing.assert_array_equal(tok_t.numpy(), np.asarray(tok_r))
+    """Four greedy steps from the prefill's cache; MLA in both decode
+    forms, each from its own copy of the cache."""
+    cfg, tcfg, rp, tp, toks, cache_len, rl, rc0 = pair
+    for absorbed in ((True, False) if cfg.attn_kind == "mla" else (True,)):
+        rc = rc0
+        _, tc = forward(tcfg, tp, {"tokens": toks}, cache_len=cache_len,
+                        compute_device="cpu")
+        tok_r = jnp.argmax(rl[:, -1:], -1).astype(jnp.int32)
+        tok_t = torch.from_numpy(np.array(tok_r))
+        pos = np.full(2, S, np.int32)
+        for step in range(4):
+            what = f"decode step {step} (absorbed={absorbed})"
+            rl2, rc = ref_decode(cfg, rp, tok_r, jnp.asarray(pos + step), rc,
+                                 absorbed_mla=absorbed)
+            tl2, tc = decode_step(tcfg, tp, tok_t,
+                                  torch.from_numpy(pos + step), tc,
+                                  absorbed_mla=absorbed, compute_device="cpu")
+            _close(tl2, rl2, f"{what} logits")
+            for k in rc:
+                _close(tc[k], rc[k], f"{what} {k}")
+            tok_r = jnp.argmax(rl2[:, -1:], -1).astype(jnp.int32)
+            tok_t = torch.argmax(tl2[:, -1:], -1)
+            np.testing.assert_array_equal(tok_t.numpy(), np.asarray(tok_r))
 
 
 def test_seeded_init_matches_the_layout(pair):

@@ -31,6 +31,11 @@ CASES = [  # b, hq, hkv, s, d, window, dtype
     (1, 2, 2, 384, 64, None, "bfloat16"),
     (1, 1, 1, 130, 64, None, "float32"),
     (2, 4, 2, 1, 64, None, "float32"),           # one token
+    # gemma3's head_dim 256, 4 query heads over 1 kv head, its windows
+    (1, 4, 1, 256, 256, None, "float32"),
+    (1, 4, 1, 256, 256, 16, "float32"),
+    (2, 4, 1, 128, 256, 64, "bfloat16"),
+    (1, 4, 1, 130, 256, 1, "float32"),
 ]
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 

@@ -197,7 +197,12 @@ def test_seeded_init_matches_the_layout(pair):
 
 
 def test_unported_families_raise():
-    for arch in ("gemma3_1b", "deepseek_v2_lite", "whisper_tiny"):
-        cfg = port_configs.get_config(arch).smoke()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_model(cfg, compute_device="cpu")
+    """Only whisper's encdec family and training are left to port."""
+    cfg = port_configs.get_config("whisper_tiny").smoke()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        init_model(cfg, compute_device="cpu")
+    cfg = port_configs.get_config("gemma3_1b").smoke().with_(n_layers=1)
+    params = init_model(cfg, compute_device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        forward(cfg, params, {"tokens": np.zeros((1, 4), np.int32)},
+                mode="train", compute_device="cpu")

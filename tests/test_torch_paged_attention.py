@@ -73,6 +73,9 @@ CASES = {
     # the serving shapes: qwen3 (G 2, D 128) and zamba2 (G 1, D 64)
     "qwen3": (1, 16, 8, 128, 16, 32, 16, "bfloat16"),
     "zamba2": (1, 32, 32, 64, 16, 32, 16, "float32"),
+    # gemma3's head_dim 256: its decode shape (G 4 over 1 kv head), and G 8
+    "gemma3": (1, 4, 1, 256, 16, 32, 16, "bfloat16"),
+    "d256-g8": (2, 8, 1, 256, 12, 16, 5, "float32"),
 }
 
 
@@ -193,11 +196,12 @@ def test_split_plan_covers_every_capacity():
         assert n <= wanted
 
 
-def _split_mirror(q, kp, vp, pt, ln, ns, per, scale=None):
+def _split_mirror(q, kp, vp, pt, ln, ns, per, scale=None, window=None):
     """The kernel's arithmetic in torch, fp32: each split's partial (m, l,
-    unnormalised acc) over its own tokens, an empty split (m -1e30, l 0),
-    then the combine in split order.  Only page-table entries of live
-    tokens are read."""
+    unnormalised acc) over its own tokens (from the window's first token,
+    ``max(0, length - window)``, if there is a window), an empty split (m
+    -1e30, l 0), then the combine in split order.  Only page-table entries
+    of live tokens are read."""
     b, hq, d = q.shape
     _, ps, hkv, _ = kp.shape
     g = hq // hkv
@@ -206,9 +210,10 @@ def _split_mirror(q, kp, vp, pt, ln, ns, per, scale=None):
     out = torch.zeros((b, hq, d), dtype=torch.float32)
     for bi in range(b):
         n_tok = max(0, min(int(ln[bi]), cap))
+        first = max(0, int(ln[bi]) - window) if window else 0
         parts = []
         for z in range(ns):
-            lo, hi = z * per, min((z + 1) * per, n_tok)
+            lo, hi = first + z * per, min(first + (z + 1) * per, n_tok)
             if lo >= hi:
                 parts.append((torch.full((hq,), -1e30), torch.zeros(hq),
                               torch.zeros((hq, d))))
@@ -263,3 +268,118 @@ def test_split_combine_mirror(n_sm):
         *(jnp.asarray(x) for x in (q, kp, vp)), jnp.asarray(safe, jnp.int32),
         jnp.asarray(ln)).astype(jnp.float32))
     assert np.max(np.abs(got - oracle)) < TOL["float32"]
+
+
+# --------------------------------------------------------------------------
+# Sliding windows (gemma3's local layers): the plain version against the
+# reference's own decode attention, ``attention._sdpa(..., window=w,
+# q_offset=pos)`` over each sequence's gathered K/V, with garbage before the
+# window; the split plan over the window's span; the split mirror with a
+# window.
+
+from repro.models import attention as ref_attention  # noqa: E402
+from repro_torch.kernels.paged_attention.ops import (  # noqa: E402
+    RESIDENT_BLOCKS_D256)
+
+
+def _sdpa_reference(q, kp, vp, table, lengths, window):
+    """The reference's ``_sdpa`` for one query at position length - 1 per
+    sequence, over its pages gathered in table order (fp32)."""
+    b, hq, d = q.shape
+    _, ps, hkv, _ = kp.shape
+    out = np.zeros((b, hq, d), np.float32)
+    for i, n in enumerate(lengths):
+        if n == 0:
+            continue
+        pages = table[i, :-(-n // ps)]
+        k = kp[pages].reshape(1, -1, hkv, d)
+        v = vp[pages].reshape(1, -1, hkv, d)
+        o = ref_attention._sdpa(jnp.asarray(q[i][None, None]), jnp.asarray(k),
+                                jnp.asarray(v), causal=True,
+                                window=jnp.int32(window), q_offset=n - 1)
+        out[i] = np.asarray(o)[0, 0]
+    return out
+
+
+@pytest.mark.parametrize("window", [1, 15, 16, 17, 40, 10 ** 6])
+@pytest.mark.parametrize("d", [64, 256])
+def test_window_matches_reference_sdpa(window, d):
+    """Lengths at the page (16) and window edges, a window past the length
+    (global) and the table's capacity; then every row before each window
+    (the rest of its first live page and every page wholly before it) set
+    to NaN and those pages' table entries to -1 or 2**30: the output must
+    not change, so nothing before the window is read."""
+    hq, hkv, ps, maxp = 4, 1, 16, 6
+    lengths = sorted({0, 1, 15, 16, 17, window - 1, window, window + 1,
+                      window + 15, window + 16, 33, maxp * ps} &
+                     set(range(maxp * ps + 1)))
+    b = len(lengths)
+    rng = np.random.default_rng(window + d)
+    table = rng.permutation(b * maxp).reshape(b, maxp).astype(np.int32)
+    q, kp, vp, _, ln, _ = _inputs(b, hq, hkv, d, b * maxp, ps, maxp,
+                                  "float32", lengths=lengths, table=table)
+    want = _sdpa_reference(q, kp, vp, table, lengths, window)
+    args = [torch.from_numpy(x) for x in (q, kp, vp, table, ln)]
+    got = paged_attention(*args, window=window).numpy()
+    assert np.max(np.abs(got - want)) < TOL["float32"]
+    bad_k, bad_v, bad_t = kp.copy(), vp.copy(), table.copy()
+    for i, n in enumerate(lengths):
+        lo = max(0, n - window)
+        for x in (bad_k, bad_v):
+            x[table[i, :lo // ps]] = np.nan
+            if lo % ps:
+                x[table[i, lo // ps], :lo % ps] = np.nan
+        bad_t[i, :lo // ps] = (-1, 2 ** 30)[i % 2]
+        bad_t[i, -(-n // ps):] = (-1, 2 ** 30)[i % 2]
+    poisoned = paged_attention(
+        *(torch.from_numpy(x) for x in (q, bad_k, bad_v, bad_t, ln)),
+        window=window).numpy()
+    np.testing.assert_array_equal(poisoned, got)
+
+
+def test_window_of_minus_one_or_none_is_global():
+    inputs = _inputs(3, 4, 2, 64, 8, 16, 4, "float32", lengths=[5, 40, 64])
+    args = [torch.from_numpy(x) for x in inputs[:5]]
+    want = paged_attention(*args)
+    for w in (None, -1, 0):
+        np.testing.assert_array_equal(paged_attention(*args, window=w), want)
+    assert not torch.equal(paged_attention(*args, window=8), want)
+
+
+def test_split_plan_follows_window_and_head_dim():
+    """The wrapper plans over the window's span, not the capacity, and at
+    head_dim 256 with the blocks that fit an SM there; the D 64/128 plans
+    are those of the default."""
+    n_sm = 132
+    # gemma3's decode: a 512-token window over a 4,096-token table plans as
+    # a 512-token table does
+    assert split_plan(512, 1, 1, n_sm, RESIDENT_BLOCKS_D256[torch.bfloat16]) \
+        == (16, 32)
+    assert split_plan(4096, 1, 1, n_sm,
+                      RESIDENT_BLOCKS_D256[torch.bfloat16]) == (128, 32)
+    assert split_plan(4096, 8, 8, n_sm) == \
+        split_plan(4096, 8, 8, n_sm, RESIDENT_BLOCKS_PER_SM) == (8, 512)
+    # fewer resident blocks, fewer splits once the grid fills the card
+    assert split_plan(4096, 8, 8, n_sm, 1) == (5, 832)
+    assert RESIDENT_BLOCKS_D256 == {torch.bfloat16: 2, torch.float32: 1}
+
+
+@pytest.mark.parametrize("window", [1, 16, 40])
+def test_split_combine_mirror_window(window):
+    """The split/combine arithmetic with a window: splits cover [lo, lo +
+    ns * per) with lo = max(0, length - window), planned over the window's
+    span; against the plain version (fp32 2e-5)."""
+    hq, hkv, d, ps, maxp = 4, 1, 256, 16, 12
+    cap = maxp * ps
+    ns, per = split_plan(min(cap, window), 6, hkv, 132, 1)
+    lengths = [0, 1, window, window + 1, window + per + 3, cap]
+    table = np.random.default_rng(window).permutation(6 * maxp).reshape(
+        6, maxp)
+    q, kp, vp, pt, ln, _ = _inputs(6, hq, hkv, d, 6 * maxp, ps, maxp,
+                                   "float32", lengths=lengths, table=table)
+    tq, tk, tv, tpt, tln = (torch.from_numpy(x) for x in (q, kp, vp, pt, ln))
+    got = _split_mirror(tq, tk, tv, tpt, tln, ns, per, window=window).numpy()
+    plain = paged_attention_plain(tq, tk, tv, tpt, tln,
+                                  window=window).numpy()
+    assert np.all(got[0] == 0.0) and np.all(np.isfinite(got))
+    assert np.max(np.abs(got - plain)) < TOL["float32"]

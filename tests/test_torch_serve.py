@@ -1,8 +1,10 @@
 """Port of the serving path (``launch/serve.py`` and ``serving/``) against
 the JAX reference on the CPU.
 
-Both packages serve the same seeded requests of zamba2-1.2b and of
-qwen3-1.7b at smoke size with the same parameters (the reference's ``init_model`` for the seed,
+Both packages serve the same seeded requests of zamba2-1.2b, qwen3-1.7b,
+gemma3-1b (sliding windows; the prompts of 136-191 tokens plus 8 decoded
+pass its smoke window of 16) and deepseek-v2-lite (MLA, MoE) at smoke size
+with the same parameters (the reference's ``init_model`` for the seed,
 carried across with ``params_from_jax``).  Greedy outputs, admission
 counts and the prefix cache's hits, reuse and stats must be identical: the
 prefix cache is a real LSM store in both (the port's GETs run the
@@ -37,7 +39,12 @@ KEYS = ("requests_offered", "requests_admitted", "requests_rejected",
     pytest.param("zamba2_1_2b", 0.0, 4.0, id="open"),
     pytest.param("zamba2_1_2b", 5.0, 1.0, id="limited"),
     pytest.param("qwen3_1_7b", 0.0, 4.0, id="qwen3_1_7b-open"),
-    pytest.param("qwen3_1_7b", 5.0, 1.0, id="qwen3_1_7b-limited")])
+    pytest.param("qwen3_1_7b", 5.0, 1.0, id="qwen3_1_7b-limited"),
+    pytest.param("gemma3_1b", 0.0, 4.0, id="gemma3_1b-open"),
+    pytest.param("gemma3_1b", 5.0, 1.0, id="gemma3_1b-limited"),
+    pytest.param("deepseek_v2_lite", 0.0, 4.0, id="deepseek_v2_lite-open"),
+    pytest.param("deepseek_v2_lite", 5.0, 1.0,
+                 id="deepseek_v2_lite-limited")])
 def test_serve_matches_reference(arch, limit, burst):
     """The open case serves all 4 requests (2 prefix hits); the limited
     one admits 1 and rejects 3."""
