@@ -6,7 +6,7 @@
 Phases, each of which must pass (any failure raises and exits non-zero):
 
 1. Card: prints ``nvidia-smi --query-gpu=name,power.limit`` and builds the
-   six kernels from ``src/repro_torch/csrc`` (one nvcc per source, in
+   seven kernels from ``src/repro_torch/csrc`` (one nvcc per source, in
    parallel) into ``build/repro_torch/``.
 2. Kernel edge cases: every kernel against its plain PyTorch version on the
    card (merge and rank exactly, Lindley within 1e-9 s and bitwise equal
@@ -35,7 +35,14 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    windowed case given NaN in every row before the window and -1 or
    2**30 in the table entries of pages wholly before it, against the plain
    version on clean inputs; every element within atol + rtol * |plain| as
-   TOL below states).
+   TOL below states).  flash_attention also non-causal with Sk keys for Sq
+   queries (Sq 1, 63, 64, 65, 189 over Sk 1, 65, 1,500; its rows'
+   log-sum-exp beside); its backward kernel (dQ, dK, dV) against
+   ``flash_attention_bwd_plain`` over S 1-384 (ragged, 63/64/65), head_dim
+   64/128/256, GQA rep 1/2/4/8, causal and windows 1/16/512 and
+   non-causal Sq != Sk, fp32 and bf16, each case launched twice and bitwise
+   equal; paged_attention over whisper's cross cache (1,500 live rows of
+   1,504, NaN in the 4 pad rows).
 3. Store path: ``Simulator.run`` on the card for every registered policy
    (vlsm, rocksdb, rocksdb_io, adoc, lsmi, lazy) at the paper's byte scale
    (64 MiB scale, ``DeviceModel.scaled(1.0)``, 200-byte pairs): 8,000,000
@@ -116,20 +123,43 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    layer and decode step (6 x 15 x 8 = 720 for zamba2, 28 x 15 x 8 =
    3,360 for qwen3, 26 x 15 x 8 = 3,120 for gemma3, 0 for deepseek's MLA)
    and flash_attention once per attention layer and request (48, 224,
-   208, 0).  Then gemma3-1b's long windowed decode: a 4,096-token prefill
+   208, 0); and whisper-tiny (4 encoder and 4 decoder layers, d_model 384,
+   6 heads of 64, 1,500 encoder frames from ``default_rng(request id)``):
+   flash_attention 12 times a request (4 encoder, 4 self, 4 cross: 96)
+   and paged_attention 8 times a decode step (self and cross: 960).
+   Then gemma3-1b's long windowed decode: a 4,096-token prefill
    and 16 decode steps in bf16 at full size, ms a token (finite logits,
    26 flash and 416 paged launches).
+4b. Training: qwen3-1.7b at full width and depth in bf16, 4 steps of
+   ``make_train_step(remat=True)`` on B 8 x S 64 batches of
+   ``TokenPipeline``: 56 flash_attention launches a step (a forward and its
+   recomputation a layer) and 28 flash_attention_bwd, finite losses, fp32
+   moments, ms a step and peak memory.  (After phase 5 and 3e's card
+   runs:) whisper-tiny at full size through
+   ``launch.train.run(smoke=False, steps=40, ckpt_every=20, fail_at=30)``:
+   one restart restoring the vLSM checkpoint of step 20 with its pipeline
+   cursor (21), losses finite and within 0.25 of ln(vocab) (40 steps of
+   512 tokens cannot learn a 51,865-token stream: train_whisper), the
+   checkpoint's pages, segments and index statistics and the store
+   kernels' launches recorded; then qwen3-1.7b cut to 2 layers and
+   whisper-tiny at full size, in float32, card against CPU:
+   ``train_loss``, every gradient leaf and the parameters after 2 AdamW
+   steps.
 5. Kernel timings at the main paths' shapes: kernel, plain version and
    library call — ``ms``, the median of five CUDA-event-timed trials of
    back-to-back calls, and ``device_ms``, the kernels' own device time from
    torch.profiler, with the device events it recorded per call — beside
    the bound: the larger of the bytes at 3.35 TB/s
    and the operations at 989 TFLOP/s (bf16).  overlap_scan and merge_path
-   are also timed at the store's commonest call shape from phase 3 (beside
-   torch.searchsorted and torch.sort), lindley_scan over a ragged batch of
-   4,096 rows and over the fleet matrix's batch (timed in 3c, so that its
-   1.3 GB leave the card before the serving paths), ssd_scan with and
-   without its final-state run.  The LM
+   are also held against their plain versions at the store's commonest
+   call shape from phase 3, lindley_scan over a ragged batch of 4,096 rows
+   (timed by ``scripts/probe.py merge rank lindley``; the fleet matrix's
+   batch by ``probe.py fleet_matrix``), ssd_scan with and without its
+   final-state run.  After whisper's training: flash_attention_bwd at the
+   training shape (B 8, 16 query heads over 8 of 128, S 64) and at 4,096
+   tokens beside SDPA's backward (bound: 10*D operations per unmasked
+   pair), flash_attention at whisper's encoder (S 1,500) and cross
+   attention (its longest prompt over 1,500 frames) beside SDPA.  The LM
    kernels are also
    timed at a 4,096-token prefill (flash_attention at zamba2's and at
    qwen3-1.7b's heads), paged_attention at 8 sequences and at 1 sequence
@@ -155,21 +185,19 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    steps (tokens identical, logits within 1e-3 of max(1, max|logit|));
    gemma3-1b the same at 6 layers, five local and one global, on a seeded
    1,000-token prompt with a 1,024-token cache and 16 greedy steps, so
-   that its window bites in the prefill and in every step.
-7. Where the time goes: vlsm's store path under torch.profiler (device
-   activity only) and under cProfile (the other five policies are not
-   profiled, to keep the run's time: PERF.md section 4); phase 3d's
-   admission-on serve of vlsm at factor 2 under torch.profiler; a
-   2-request serving run of zamba2-1.2b and of qwen3-1.7b under
-   torch.profiler (gemma3-1b's and deepseek-v2-lite's take
-   ``scripts/probe.py serve_gemma3 serve_deepseek``).  Every
+   that its window bites in the prefill and in every step; whisper-tiny
+   the same at full depth on the first request's prompt and frames.
+7. Where the time goes is read outside the smoke, to keep its time:
+   ``scripts/probe.py profiles`` (vlsm's store path under torch.profiler
+   and cProfile, phase 3d's admission-on serve of vlsm at factor 2) and
+   ``serve_zamba2 serve_qwen3 serve_gemma3 serve_deepseek
+   serve_whisper`` (the serving paths' 2-request profiles).  Every
    phase's wall seconds go into the report.
 
 The CPU tier's runs that phases 3e and 6 compare against are computed by
-one spawned worker, started once phase 5's timings are taken: 3e's card
-runs, phase 6's serving checks and phase 7 run beside it, and vlsm's
-store path, run once just before and once just after it starts, records
-its toll on a host-bound wall.
+one spawned worker, started once phase 3's store path is done, beside
+db_bench and every later phase; vlsm's store path, run once just before
+and once just after it starts, records its toll on a host-bound wall.
 
 Prints the card line, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  ``--out DIR`` also writes every number
@@ -206,8 +234,15 @@ LINDLEY_TOL_S = 1e-9
 # the kernel's y-state (no state_dt) carries ~16 significant bits of each
 # chunk's (B * w)^T X (bf16 hi + lo parts), the final-state run (state_dt,
 # the model's) ~24 (three parts).
+# The backward's fp32 entry: dK and dV sum up to 8 heads x 384 queries or
+# 1 head x 1,500 queries of products, dQ up to 1,500 keys, in another order than the plain version's
+# einsums, and P is recomputed through expf on each side (~1e-6 relative
+# each); its bf16 entry is the forward's: both sides accumulate in fp32 and
+# round once to bf16, so a group of 8 needs no more.
 TOL = {("flash_attention", "float32"): (2e-5, 0.0),
        ("flash_attention", "bfloat16"): (1e-3, 1e-2),
+       ("flash_attention_bwd", "float32"): (1e-4, 1e-4),
+       ("flash_attention_bwd", "bfloat16"): (1e-3, 1e-2),
        ("ssd_scan", "float32"): (2e-4, 1e-4),
        ("ssd_scan", "bfloat16"): (6e-2, 1e-2),
        ("paged_attention", "float32"): (2e-5, 0.0),
@@ -215,7 +250,7 @@ TOL = {("flash_attention", "float32"): (2e-5, 0.0),
 SSD_STATE_TOL = (2e-4, 1e-4)
 SERVE_REQUESTS = 8             # serve.run's default, the reference's
 DECODE_TOKENS = 16             # serve.run's default, the reference's
-PROFILE_REQUESTS = 2           # the profiled serving runs (phase 7)
+PROFILE_REQUESTS = 2           # the profiled serving runs (probe.py serve_*)
 # serving model -> (kernels its run must launch, depth of the float32
 # card-vs-CPU cross-check); deepseek-v2-lite's MLA and MoE run no kernel of
 # their own, so only the prefix cache's overlap_scan launches there
@@ -225,17 +260,41 @@ SERVE_PATHS = {
     "qwen3_1_7b": (("flash_attention", "overlap_scan", "paged_attention"),
                    2),
     "gemma3_1b": (("flash_attention", "overlap_scan", "paged_attention"), 6),
-    "deepseek_v2_lite": (("overlap_scan",), 2)}
+    "deepseek_v2_lite": (("overlap_scan",), 2),
+    "whisper_tiny": (("flash_attention", "overlap_scan", "paged_attention"),
+                     4)}
 # cross-checks whose prompt is not the first serving request's: (seeded
 # prompt tokens, cache length, greedy steps); gemma3's 1,000 tokens pass
 # its 512-token window in the prefill and in every decode step (its 6
 # layers are 5 local and 1 global)
 CROSS_LONG = {"gemma3_1b": (1000, 1024, 16)}
 LONG_WINDOW_DECODE = 16        # gemma3-1b's decode steps after 4,096 tokens
-# the serving paths phase 7 profiles; gemma3-1b's and deepseek-v2-lite's
-# (scripts/probe.py serve_gemma3 serve_deepseek) would add to a run that
-# already nears its time limit
-PROFILE_PATHS = ("zamba2_1_2b", "qwen3_1_7b")
+# whisper-tiny's encoder frames (its cross cache holds them in 1,504 rows)
+WHISPER_FRAMES = 1500
+# flash_attention's non-causal Sq != Sk edge cases (phase 2)
+CROSS_SQ = (1, 63, 64, 65, 189)
+CROSS_SK = (1, 65, WHISPER_FRAMES)
+# flash_attention_bwd's edge cases: causal S, and non-causal (Sq, Sk)
+BWD_S = (1, 17, 63, 64, 65, 130, 384)
+BWD_CROSS = ((1, WHISPER_FRAMES), (63, 65), (65, 1), (64, 64),
+             (189, WHISPER_FRAMES))
+# the training phase: qwen3-1.7b at full size, and whisper-tiny through the
+# training launcher with one injected failure
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen3_1_7b", 8, 64, 4
+WHISPER_TRAIN = {"steps": 40, "ckpt_every": 20, "fail_at": 30, "batch": 8,
+                 "seq": 64}
+# its losses' band around ln(vocab): no divergence (see train_whisper)
+WHISPER_LOSS_BAND = 0.25
+# the float32 card-vs-CPU training cross-check: arch -> (depth, None for
+# the full depth; batch; sequence)
+CROSS_TRAIN = {TRAIN_ARCH: (2, 2, 32), "whisper_tiny": (None, 2, 32)}
+# flash_attention_bwd's edge cases at whisper-tiny's training shapes (B 8,
+# 6 heads of 64): the encoder's 1,500 frames, the cross attention's 64
+# tokens over them (both non-causal), the decoder's causal 64: (Sq, Sk,
+# causal)
+BWD_WHISPER = ((WHISPER_FRAMES, WHISPER_FRAMES, False),
+               (WHISPER_TRAIN["seq"], WHISPER_FRAMES, False),
+               (WHISPER_TRAIN["seq"], WHISPER_TRAIN["seq"], True))
 CROSS_TOL = 1e-3               # of max(1, max|logit|), see serve_cross_check
 LONG_PREFILL = 4096
 GEMMA_WINDOW = 512             # gemma3-1b's local layers
@@ -244,11 +303,14 @@ LONG_DECODE = (8, 4096, 2048)  # sequences, tokens each, pages in the pool
 STORE_KERNELS = ("merge_path", "overlap_scan", "lindley_scan")
 # the serving path whose launches each LM kernel's row reports
 ROW_PATH = {"flash_attention": "zamba2_1_2b", "ssd_scan": "zamba2_1_2b",
+            "flash_attention_bwd": "train_qwen3",
             "paged_attention": "qwen3_1_7b"}
 SOURCES = {"merge_path": "kernels/merge_path/kernel.py:131",
            "overlap_scan": "kernels/overlap_scan/kernel.py:63",
            "lindley_scan": "kernels/lindley_scan/kernel.py:61",
            "flash_attention": "kernels/flash_attention/kernel.py:108",
+           # no TPU backward kernel: the gradient of this one
+           "flash_attention_bwd": "kernels/flash_attention/kernel.py:108",
            "ssd_scan": "kernels/ssd_scan/kernel.py:81",
            "paged_attention": "kernels/paged_attention/kernel.py:102"}
 # the store path's policies: every registered one (phase 3); the card-vs-CPU
@@ -768,9 +830,10 @@ def time_merge(torch, sim) -> dict:
                    40)}
 
 
-def time_merge_at(torch, np, trace, n_a: int, n_b: int) -> dict:
+def check_merge_at(torch, np, trace, n_a: int, n_b: int):
     """merge_path at the store's commonest merge shape: n_a and n_b of the
-    loaded keys, each run sorted and unique, drawn apart (seeded)."""
+    loaded keys, each run sorted and unique, drawn apart (seeded); held
+    against its plain version.  Returns the row and the four run tensors."""
     from repro_torch.kernels.merge_path.ops import (merge_two_runs,
                                                     merge_two_runs_plain)
     _, keys, _, n_load = trace
@@ -780,12 +843,21 @@ def time_merge_at(torch, np, trace, n_a: int, n_b: int) -> dict:
         k = np.sort(pick.choice(keys[:n_load], m, replace=False))
         runs += [torch.from_numpy(k).to("cuda"),
                  torch.arange(m, device="cuda") + base]
-    a_k, a_s, b_k, b_s = runs
     err = check_equal(torch, f"merge_path at {n_a} + {n_b}",
                       merge_two_runs(*runs), merge_two_runs_plain(*runs))
+    return ({"shape": f"{n_a} + {n_b} keys (the store's commonest merge)",
+             "max_abs_err": err, "bound_ms": bound_ms(32 * (n_a + n_b))},
+            runs)
+
+
+def time_merge_at(torch, np, trace, n_a: int, n_b: int) -> dict:
+    """check_merge_at's row, timed beside torch.sort."""
+    from repro_torch.kernels.merge_path.ops import (merge_two_runs,
+                                                    merge_two_runs_plain)
+    out, runs = check_merge_at(torch, np, trace, n_a, n_b)
+    a_k, _, b_k, _ = runs
     return {
-        "shape": f"{n_a} + {n_b} keys (the store's commonest merge)",
-        "max_abs_err": err, "bound_ms": bound_ms(32 * (n_a + n_b)),
+        **out,
         **time_all(torch, lambda: merge_two_runs(*runs),
                    lambda: merge_two_runs_plain(*runs),
                    lambda: torch.sort(torch.cat([a_k, b_k]), stable=True),
@@ -818,10 +890,11 @@ def time_rank(torch, np, sim, trace) -> dict:
                    lambda: torch.searchsorted(fences, k, side="left"), 40)}
 
 
-def time_rank_at(torch, np, trace, m: int, n: int) -> dict:
+def check_rank_at(torch, np, trace, m: int, n: int):
     """overlap_scan at the store's commonest call shape (m keys over n
     fences): n of the loaded keys, evenly spaced (sorted, unique), and the
-    run's first m GET keys."""
+    run's first m GET keys; held against its plain version and
+    torch.searchsorted.  Returns the row, the fences and the keys."""
     from repro_torch.kernels.overlap_scan.ops import (fence_rank,
                                                       fence_rank_plain)
     ops, keys, _, n_load = trace
@@ -835,11 +908,19 @@ def time_rank_at(torch, np, trace, m: int, n: int) -> dict:
                       [got, got], [fence_rank_plain(fences, k, "left"),
                                    torch.searchsorted(fences, k,
                                                       side="left")])
+    return ({"shape": f"{m} GET keys over {n} fences (the store's commonest "
+                      "call)", "max_abs_err": err,
+             "bound_ms": bound_ms(16 * m + 8 * distinct_probes(
+                 torch, fences, k, "left"))}, fences, k)
+
+
+def time_rank_at(torch, np, trace, m: int, n: int) -> dict:
+    """check_rank_at's row, timed beside torch.searchsorted."""
+    from repro_torch.kernels.overlap_scan.ops import (fence_rank,
+                                                      fence_rank_plain)
+    out, fences, k = check_rank_at(torch, np, trace, m, n)
     return {
-        "shape": f"{m} GET keys over {n} fences (the store's commonest call)",
-        "max_abs_err": err,
-        "bound_ms": bound_ms(16 * m + 8 * distinct_probes(torch, fences, k,
-                                                          "left")),
+        **out,
         **time_all(torch, lambda: fence_rank(fences, k, "left"),
                    lambda: fence_rank_plain(fences, k, "left"),
                    lambda: torch.searchsorted(fences, k, side="left"), 200)}
@@ -873,13 +954,12 @@ def time_lindley(torch, np, service, arrivals) -> dict:
                    lambda: lindley_batch_plain(s, a, offsets), None, 20)}
 
 
-def time_lindley_ragged(torch, np, arrivals, rows: int) -> dict:
+def check_lindley_ragged(torch, np, arrivals, rows: int):
     """A ragged batch of ``rows`` queues, as a fleet of shards sends:
     ``arrivals`` (the main path's) cut at ``rows - 1`` seeded points into
     contiguous rows (mean ~2,400 ops), service exponential with a 20 us
-    mean."""
-    from repro_torch.kernels.lindley_scan.ops import (lindley_batch,
-                                                      lindley_batch_plain)
+    mean; held against the plain version.  Returns the row and the
+    kernel's arguments."""
     n = int(arrivals.shape[0])
     cut = np.random.default_rng(25)
     offsets = np.concatenate([[0], np.sort(cut.choice(np.arange(1, n),
@@ -887,11 +967,18 @@ def time_lindley_ragged(torch, np, arrivals, rows: int) -> dict:
     s = torch.from_numpy(cut.exponential(2e-5, n)).to("cuda")
     a = torch.from_numpy(arrivals.astype(np.float64)).to("cuda")
     err = check_lindley(torch, f"over {rows} rows", s, a, offsets)
-    return {
-        "shape": f"{rows} rows, {n} ops", "max_abs_err": err,
-        "bound_ms": bound_ms(24 * n + 8 * (2 * rows + 1)),
-        **time_all(torch, lambda: lindley_batch(s, a, offsets),
-                   lambda: lindley_batch_plain(s, a, offsets), None, 8)}
+    return ({"shape": f"{rows} rows, {n} ops", "max_abs_err": err,
+             "bound_ms": bound_ms(24 * n + 8 * (2 * rows + 1))},
+            (s, a, offsets))
+
+
+def time_lindley_ragged(torch, np, arrivals, rows: int) -> dict:
+    """check_lindley_ragged's row, timed."""
+    from repro_torch.kernels.lindley_scan.ops import (lindley_batch,
+                                                      lindley_batch_plain)
+    out, args = check_lindley_ragged(torch, np, arrivals, rows)
+    return {**out, **time_all(torch, lambda: lindley_batch(*args),
+                              lambda: lindley_batch_plain(*args), None, 8)}
 
 
 # ----------------------------------------------------- where time goes
@@ -1757,6 +1844,136 @@ def edge_flash(torch) -> float:
     return worst
 
 
+def edge_flash_cross(torch) -> float:
+    """flash_attention, non-causal with Sk keys for Sq queries (whisper's
+    cross attention and bidirectional encoder), against its plain version:
+    Sq 1, 63, 64, 65 and 189 against Sk 1, 65 and 1,500, at whisper's
+    head_dim 64 (and 128 and 256 at Sq 65 over Sk 1,500), GQA rep 1 and 2,
+    fp32 and bf16; every call also writes the rows' log-sum-exp, held
+    against the plain version's under TOL's fp32 entry.  Returns the
+    largest |err|."""
+    from repro_torch.kernels.flash_attention.ops import (
+        _forward, flash_attention, flash_attention_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    worst = 0.0
+    cases = [(sq, sk, 64, rep) for sq in CROSS_SQ for sk in CROSS_SK
+             for rep in (1, 2)]
+    cases += [(65, WHISPER_FRAMES, d, 2) for d in (128, 256)]
+    for sq, sk, d, rep in cases:
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            q = _randn(torch, gen, (2, 2 * rep, sq, d), dtype)
+            k = _randn(torch, gen, (2, 2, sk, d), dtype)
+            v = _randn(torch, gen, (2, 2, sk, d), dtype)
+            what = f"flash_attention Sq={sq} Sk={sk} D={d} rep={rep} {dt}"
+            got, lse = _forward(q, k, v, False, None, None, want_lse=True)
+            want, want_lse = flash_attention_plain(q, k, v, causal=False,
+                                                   return_lse=True)
+            worst = max(worst, check_close(what, "flash_attention", got,
+                                           want))
+            check_close(what + " lse", "flash_attention", lse, want_lse,
+                        TOL["flash_attention", "float32"])
+            check_close(what + " (no lse)", "flash_attention",
+                        flash_attention(q, k, v, causal=False), want)
+    return worst
+
+
+def bwd_cases() -> list:
+    """(b, hq, hkv, sq, sk, d, causal, window, dtype) of flash_attention's
+    backward edge cases: every S of BWD_S at head_dim 64, 128 and 256,
+    causal and with windows 1, 16 and 512, fp32 and bf16, GQA rep cycling
+    through 1, 2, 4 and 8; then non-causal Sq != Sk (whisper's cross
+    attention) the same way; then BWD_WHISPER at whisper-tiny's training
+    batch and heads, fp32 and bf16."""
+    cases, i = [], 0
+    for d in (64, 128, 256):
+        for dt in ("float32", "bfloat16"):
+            for s in BWD_S:
+                for win in (None,) + GEMMA_WINDOWS:
+                    rep = (1, 2, 4, 8)[i % 4]
+                    i += 1
+                    cases.append((2, 2 * rep, 2, s, s, d, True, win, dt))
+            for sq, sk in BWD_CROSS:
+                rep = (1, 2, 4, 8)[i % 4]
+                i += 1
+                cases.append((2, 2 * rep, 2, sq, sk, d, False, None, dt))
+    b = WHISPER_TRAIN["batch"]
+    cases += [(b, 6, 6, sq, sk, 64, causal, None, dt)
+              for sq, sk, causal in BWD_WHISPER
+              for dt in ("float32", "bfloat16")]
+    return cases
+
+
+def edge_flash_bwd(torch) -> float:
+    """flash_attention's backward kernel (dQ, dK, dV) against
+    ``flash_attention_bwd_plain`` on the same q, k, v, output, log-sum-exp
+    (the forward kernel's) and dO, over ``bwd_cases()``, within TOL's
+    ``flash_attention_bwd`` entries; every case is launched twice and the
+    two results must be bitwise equal (the kernel sums in a fixed order).
+    Returns the largest |err|."""
+    from repro_torch.kernels.flash_attention.ops import (
+        _forward, flash_attention_bwd, flash_attention_bwd_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(37)
+    worst = 0.0
+    for b, hq, hkv, sq, sk, d, causal, win, dt in bwd_cases():
+        dtype = getattr(torch, dt)
+        q = _randn(torch, gen, (b, hq, sq, d), dtype)
+        k = _randn(torch, gen, (b, hkv, sk, d), dtype)
+        v = _randn(torch, gen, (b, hkv, sk, d), dtype)
+        do = _randn(torch, gen, (b, hq, sq, d), dtype)
+        o, lse = _forward(q, k, v, causal, win, None, want_lse=True)
+        args = (q, k, v, o, lse, do)
+        got = flash_attention_bwd(*args, causal=causal, window=win)
+        again = flash_attention_bwd(*args, causal=causal, window=win)
+        want = flash_attention_bwd_plain(*args, causal=causal, window=win)
+        what = (f"flash_attention_bwd B={b} H={hq}/{hkv} Sq={sq} Sk={sk} "
+                f"D={d} causal={causal} window={win} {dt}")
+        for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+            if not torch.equal(g, a):
+                fail(f"{what}: {name} differs between two calls")
+            worst = max(worst, check_close(f"{what} {name}",
+                                           "flash_attention_bwd", g, w))
+    return worst
+
+
+def edge_paged_cross(torch) -> float:
+    """paged_attention over whisper's cross cache: 1,500 live rows of
+    1,504 (B 2, 6 heads of 64, the identity page table of 47 pages of 32),
+    fp32 and bf16, with NaN in the 4 pad rows of the card's input (the
+    kernel must not read them) and zeros there in the plain version's.
+    Returns the largest |err|."""
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_attention, paged_attention_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(41)
+    b, h, d, ps = 2, 6, 64, 32
+    rows = -(-WHISPER_FRAMES // ps) * ps
+    table = torch.arange(b * rows // ps, dtype=torch.int32,
+                         device="cuda").reshape(b, -1)
+    lengths = torch.full((b,), WHISPER_FRAMES, dtype=torch.int32,
+                         device="cuda")
+    worst = 0.0
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        q = _randn(torch, gen, (b, h, d), dtype)
+        kv = [_randn(torch, gen, (b, rows, h, d), dtype) for _ in range(2)]
+        for t in kv:
+            t[:, WHISPER_FRAMES:] = 0
+        clean = [t.view(b * rows // ps, ps, h, d) for t in kv]
+        want = paged_attention_plain(q, *clean, table, lengths)
+        poisoned = [t.clone() for t in kv]
+        for t in poisoned:
+            t[:, WHISPER_FRAMES:] = float("nan")
+        got = paged_attention(q, *(t.view(b * rows // ps, ps, h, d)
+                                   for t in poisoned), table, lengths)
+        worst = max(worst, check_close(
+            f"paged_attention over the cross cache ({WHISPER_FRAMES} of "
+            f"{rows} rows, NaN pads) {dt}", "paged_attention", got, want))
+    return worst
+
+
 def ssd_inputs(torch, gen, b, L, h, g, n, p, dtype, strided=False,
                dt_range=(-4, 1)):
     """x, dt, a, B, C for ssd_scan (seeded); strided: x, B and C are views
@@ -1996,10 +2213,19 @@ def attention_layers(cfg) -> int:
     """Attention layers a decode step runs through the attention kernels:
     every layer of a GQA decoder, none of an MLA one (its attention is
     plain torch, as the reference's), each shared-block application of a
-    hybrid."""
+    hybrid, whisper's self and cross attention of every decoder layer."""
     if cfg.family == "decoder":
         return cfg.n_layers if cfg.attn_kind == "gqa" else 0
+    if cfg.family == "encdec":
+        return 2 * cfg.n_layers
     return len(range(cfg.attn_every, cfg.n_layers, cfg.attn_every))
+
+
+def prefill_attention_layers(cfg) -> int:
+    """flash_attention calls of one request's prefill: the decode step's
+    attention layers, and whisper's encoder layers."""
+    return attention_layers(cfg) + (cfg.enc_layers
+                                    if cfg.family == "encdec" else 0)
 
 
 def serve_path(torch, np, arch: str) -> dict:
@@ -2045,7 +2271,7 @@ def serve_path(torch, np, arch: str) -> dict:
         "decode_ms_per_token_after_first": sum(s["decode_ms"][1:])
         / (steps * (len(outs) - 1)),
         "paged_launches_expected": attention_layers(cfg) * steps * len(outs),
-        "flash_launches_expected": attention_layers(cfg) * len(outs),
+        "flash_launches_expected": prefill_attention_layers(cfg) * len(outs),
         "prefix_cache": s["prefix_cache"], "outputs": outs,
     }
 
@@ -2149,11 +2375,15 @@ def serve_cross_check(torch, np, arch: str, layers: int) -> dict:
         tokens = np.random.default_rng(6).integers(
             0, cfg.vocab_size, n_tok).astype(np.int32)
     forms = (True, False) if cfg.attn_kind == "mla" else (True,)
+    batch = {"tokens": tokens[None]}
+    if cfg.family == "encdec":      # the first request's frames, as served
+        batch["encoder_embeds"] = np.random.default_rng(0).standard_normal(
+            (1, cfg.enc_seq, cfg.d_model)).astype(np.float32)
     runs = {}
     for dev, p in (("cuda", params), ("cpu", cpu_params)):
         t0 = time.perf_counter()
-        logits0, cache0 = forward(cfg, p, {"tokens": tokens[None]},
-                                  cache_len=cache_len, compute_device=dev)
+        logits0, cache0 = forward(cfg, p, batch, cache_len=cache_len,
+                                  compute_device=dev)
         steps = [logits0.float().cpu()]
         toks = [int(torch.argmax(logits0[0, -1]))]
         for absorbed in forms:
@@ -2507,6 +2737,297 @@ def time_ssd(torch, L: int, reps: int) -> dict:
                                               state_dt=dt32), None, reps)}
 
 
+def train_qwen3(torch, np) -> dict:
+    """qwen3-1.7b at full width and depth in bf16 (seeded weights):
+    TRAIN_STEPS steps of ``make_train_step(remat=True)`` with the
+    reference's AdamW defaults on B x S batches from ``TokenPipeline``.
+    Launch counts are zeroed just before each step and read just after:
+    flash_attention twice a layer (the forward and its recomputation under
+    remat), flash_attention_bwd once.  The losses and grad norms must be
+    finite and the moments fp32.  Reports ms a step and the peak memory."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineState, TokenPipeline
+    from repro_torch.models import init_model
+    from repro_torch.training import (AdamWConfig, init_opt_state,
+                                      make_train_step)
+    from repro_torch.training.tree import leaves
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_model(cfg, 0, compute_device="cuda")
+    opt = init_opt_state(params)
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                         PipelineState(seed=0, rank=0, world=1))
+    step = make_train_step(cfg, AdamWConfig(), remat=True,
+                           compute_device="cuda")
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers}
+    losses, gnorms, step_ms, total = [], [], [], collections.Counter()
+    for i in range(TRAIN_STEPS):
+        batch = pipe.next_batch()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = kernels.launch_counts()
+        total.update(counts)
+        if any(counts[k] != v for k, v in want.items()):
+            fail(f"training {TRAIN_ARCH} step {i}: launches {counts}, want "
+                 f"{want} a step")
+    moments = leaves(opt["m"]) + leaves(opt["v"])
+    if not (all(math.isfinite(x) for x in losses + gnorms)
+            and all(m.dtype == torch.float32 for m in moments)
+            and int(opt["step"]) == TRAIN_STEPS):
+        fail(f"training {TRAIN_ARCH}: losses {losses}, grad norms {gnorms}, "
+             f"moment dtypes {set(str(m.dtype) for m in moments)}, step "
+             f"{int(opt['step'])}")
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "params": cfg.param_count(), "param_dtype": cfg.param_dtype,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "remat": True, "losses": losses, "grad_norms": gnorms,
+           "step_ms": step_ms,
+           "step_ms_after_first": sum(step_ms[1:]) / (len(step_ms) - 1),
+           "launches_per_step": want, "launches": dict(total),
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
+           / 1e9}
+    del params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_whisper(torch, np) -> dict:
+    """whisper-tiny at full size (4 + 4 layers, d_model 384, 1,500 encoder
+    frames, bf16) through the training launcher,
+    ``launch.train.run(smoke=False, **WHISPER_TRAIN)`` with the reference's
+    B 8 x S 64 and lr: an injected failure at step 30 must restore the
+    vLSM checkpoint of step 20 (its pipeline cursor 21) once, and every
+    loss must be finite and within WHISPER_LOSS_BAND of ln(vocab), the
+    uniform prediction's (a guard against divergence only).  The loss is
+    not required to fall: at 51,865 tokens the synthetic stream (next =
+    3 tok + noise) cannot be learnt from 50 steps of 512 tokens, each
+    token seen about once, nor does the reference's loss fall (PERF.md,
+    PR 20); the mean of the first and of the last 5 losses is reported.
+    The gradients this run takes are held to the CPU's by
+    ``train_cross_check``.  Launch counts are zeroed just before the run
+    and read just after:
+    flash_attention, flash_attention_bwd and the checkpoint index's
+    overlap_scan must have launched.  Reports every checkpoint's pages
+    written of pages in all, the restore's segments, the index's stats and
+    the store kernels' launches."""
+    import shutil
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    ln_v = math.log(get_config("whisper_tiny").vocab_size)
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train.run("whisper_tiny", smoke=False, ckpt_dir=str(ckpt),
+                    compute_device="cuda", **WHISPER_TRAIN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    losses = out["losses"]
+    every, fail_at = WHISPER_TRAIN["ckpt_every"], WHISPER_TRAIN["fail_at"]
+    restored = fail_at // every * every
+    restores = out["restores"]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    n_steps = WHISPER_TRAIN["steps"] + fail_at - restored
+    # the first save writes every page; the same step saved again after
+    # the restore, and the last, only the pages that changed
+    saves = out["saves"]
+    if not (len(saves) == 3
+            and saves[0]["pages_written"] == saves[0]["pages_total"] > 0
+            and [x["step"] for x in saves] == [restored, restored,
+                                               WHISPER_TRAIN["steps"]]):
+        fail(f"training whisper-tiny: checkpoints {saves}")
+    if not (out["restarts"] == 1 and len(restores) == 1
+            and restores[0]["step"] == restored
+            and restores[0]["pipe_cursor"] == restored + 1
+            and len(losses) == n_steps
+            and all(abs(x - ln_v) < WHISPER_LOSS_BAND for x in losses)):
+        fail(f"training whisper-tiny: restarts {out['restarts']}, restores "
+             f"{restores}, {len(losses)} losses (want {n_steps}), losses "
+             f"{min(losses)}..{max(losses)} against ln V {ln_v}")
+    need = ("flash_attention", "flash_attention_bwd", "overlap_scan")
+    if min(counts[k] for k in need) <= 0:
+        fail(f"training whisper-tiny: a kernel never launched: {counts}")
+    return {"wall_s": wall, "steps_run": len(losses), "losses": losses,
+            "loss_first5": first, "loss_last5": last, "ln_vocab": ln_v,
+            "restarts": out["restarts"], "restores": restores,
+            "saves": saves, "final_ckpt": out["final_ckpt"],
+            "index_stats": out["index_stats"], "launches": counts,
+            "stragglers": out["stragglers"],
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
+            / 1e9}
+
+
+def train_cross_check(torch, np, arch: str) -> dict:
+    """``arch`` in float32 at full width, depth as CROSS_TRAIN says, card
+    against the CPU tier from the same weights on one batch of
+    ``TokenPipeline`` (an encdec model's encoder frames seeded too):
+    ``train_loss`` within 1e-5 of the CPU's relatively; each gradient leaf
+    within 1e-3 of its largest |element| and its norm within 1e-4
+    relatively (fp32 sums over up to 151,936 logits, 6,144 features or
+    1,500 frames taken in another order on each side); then the
+    parameters after 2 AdamW steps (lr 3e-4): no element apart by more
+    than 4 lr (two steps each move a parameter by at most ~lr: where a
+    gradient's sign is rounding noise, Adam's normalised step can take
+    either sign) and at most 1e-3 of the elements apart by more than
+    1e-5.  whisper-tiny's run holds its encoder, cross attention and the
+    backward kernel's non-causal shapes to the CPU's autograd."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineState, TokenPipeline
+    from repro_torch.models import init_model
+    from repro_torch.training import AdamWConfig, init_opt_state, \
+        make_train_step
+    from repro_torch.training.step import value_and_grad
+    from repro_torch.training.tree import leaf_paths, leaves, tree_map
+    layers, b, seq = CROSS_TRAIN[arch]
+    cfg = get_config(arch).with_(param_dtype="float32")
+    if layers is not None:
+        cfg = cfg.with_(n_layers=layers)
+    params = init_model(cfg, 0, compute_device="cuda")
+    cpu = tree_map(lambda p: p.cpu(), params)
+    batch = TokenPipeline(cfg.vocab_size, seq, b,
+                          PipelineState(seed=1, rank=0, world=1)).next_batch()
+    frames = None
+    if cfg.family == "encdec":
+        frames = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (b, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    opt_cfg = AdamWConfig()
+    out: dict = {"layers": cfg.n_layers, "batch": b, "seq": seq}
+    res = {}
+    for dev, p in (("cuda", params), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        if frames is not None:
+            batch = {**batch, "encoder_embeds": frames.to(dev)}
+        loss, grads = value_and_grad(cfg, p, batch, compute_device=dev)
+        step = make_train_step(cfg, opt_cfg, compute_device=dev)
+        opt = init_opt_state(p)
+        for _ in range(2):
+            p, opt, _ = step(p, opt, batch)
+        res[dev] = (float(loss), leaf_paths(grads), leaves(p),
+                    time.perf_counter() - t0)
+    (c_loss, c_grads, c_params, c_s), (h_loss, h_grads, h_params, h_s) = \
+        res["cuda"], res["cpu"]
+    out["loss"], out["loss_cpu"] = c_loss, h_loss
+    if not abs(c_loss - h_loss) <= 1e-5 * abs(h_loss):
+        fail(f"training cross-check {arch}: loss {c_loss} vs {h_loss}")
+    worst_g = worst_n = 0.0
+    for (path, g), (_, h) in zip(c_grads, h_grads):
+        g, h = g.cpu(), h
+        scale = float(h.abs().max())
+        err = float((g - h).abs().max()) / max(scale, 1e-30)
+        n_err = abs(float(g.norm()) - float(h.norm())) / max(
+            float(h.norm()), 1e-30)
+        worst_g, worst_n = max(worst_g, err), max(worst_n, n_err)
+        if err > 1e-3 or n_err > 1e-4:
+            fail(f"training cross-check {arch}: grad {'/'.join(path)} max "
+                 f"|err| "
+                 f"{err} of its max, norm {n_err} relative")
+    bound = 4 * opt_cfg.lr
+    worst_p, apart, n = 0.0, 0, 0
+    for c, h in zip(c_params, h_params):
+        d = (c.cpu() - h).abs()
+        worst_p = max(worst_p, float(d.max()))
+        apart += int((d > 1e-5).sum())
+        n += d.numel()
+    if worst_p > bound or apart > 1e-3 * n:
+        fail(f"training cross-check {arch}: parameters after 2 steps max "
+             f"|err| "
+             f"{worst_p} (bound {bound}), {apart} of {n} apart by > 1e-5")
+    out.update({"grad_max_rel_err": worst_g, "grad_norm_rel_err": worst_n,
+                "params_max_abs_err": worst_p, "params_apart": apart,
+                "params_total": n, "card_s": c_s, "cpu_s": h_s})
+    del params, cpu, res
+    return out
+
+
+def bwd_bound(b: int, hq: int, hkv: int, sq: int, sk: int, d: int,
+              causal: bool, nbytes_el: int = 2):
+    """q, k, v, o, dO read and dq, dk, dv written once, lse read once (fp32);
+    10*D operations per unmasked (query, key) pair (Q.K^T and dO.V^T
+    recomputed, dV, dK, dQ)."""
+    pairs = (sq * (sq + 1) // 2 if causal else sq * sk) * b * hq
+    nbytes = nbytes_el * (4 * b * hq * sq * d + 4 * b * hkv * sk * d) \
+        + 4 * b * hq * sq
+    return roofline(nbytes, 10 * d * pairs)
+
+
+def time_flash_bwd(torch, b: int, s: int, reps: int, hq: int = 16,
+                   hkv: int = 8, d: int = 128) -> dict:
+    """flash_attention's backward, causal, bf16, at B x S with qwen3-1.7b's
+    heads by default (seeded inputs; o and lse from the forward kernel),
+    beside its plain version and SDPA's backward (``enable_gqa``,
+    ``torch.autograd.grad`` of one forward, the library yardstick only)."""
+    from repro_torch.kernels.flash_attention.ops import (
+        _forward, flash_attention_bwd, flash_attention_bwd_plain)
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(43)
+    q = _randn(torch, gen, (b, hq, s, d), torch.bfloat16)
+    k, v = (_randn(torch, gen, (b, hkv, s, d), torch.bfloat16)
+            for _ in range(2))
+    do = _randn(torch, gen, (b, hq, s, d), torch.bfloat16)
+    o, lse = _forward(q, k, v, True, None, None, want_lse=True)
+    args = (q, k, v, o, lse, do)
+    err = max(check_close(f"flash_attention_bwd at B={b} S={s} H={hq}/{hkv} "
+                          f"D={d} {name}", "flash_attention_bwd", g, w)
+              for name, g, w in zip(("dq", "dk", "dv"),
+                                    flash_attention_bwd(*args),
+                                    flash_attention_bwd_plain(*args)))
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
+                                             enable_gqa=hq != hkv)
+    bound, by = bwd_bound(b, hq, hkv, s, s, d, True)
+    return {"shape": f"B {b}, BH {hq} (kv {hkv}), S {s}, D {d}, bf16, "
+                     "causal", "max_abs_err": err, "bound_ms": bound,
+            "bound_by": by,
+            **time_all(torch, lambda: flash_attention_bwd(*args),
+                       lambda: flash_attention_bwd_plain(*args),
+                       lambda: torch.autograd.grad(lib_out, (qr, kr, vr), do,
+                                                   retain_graph=True),
+                       reps)}
+
+
+def time_flash_cross(torch, sq: int, sk: int, reps: int, h: int = 6,
+                     d: int = 64) -> dict:
+    """flash_attention non-causal at whisper-tiny's shapes, B 1, bf16: its
+    encoder (Sq = Sk = 1,500) and its cross attention (Sq prompt tokens
+    over Sk = 1,500 frames), beside SDPA."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(47)
+    q = _randn(torch, gen, (1, h, sq, d), torch.bfloat16)
+    k, v = (_randn(torch, gen, (1, h, sk, d), torch.bfloat16)
+            for _ in range(2))
+    err = check_close(f"flash_attention at Sq={sq} Sk={sk} H={h} D={d}",
+                      "flash_attention",
+                      flash_attention(q, k, v, causal=False),
+                      flash_attention_plain(q, k, v, causal=False))
+    bound, by = roofline(2 * (2 * h * sq + 2 * h * sk) * d,
+                         4 * d * sq * sk * h)
+    return {"shape": f"BH {h}, Sq {sq}, Sk {sk}, D {d}, bf16, non-causal",
+            "max_abs_err": err, "bound_ms": bound, "bound_by": by,
+            **time_all(torch, lambda: flash_attention(q, k, v, causal=False),
+                       lambda: flash_attention_plain(q, k, v, causal=False),
+                       lambda: F.scaled_dot_product_attention(q, k, v),
+                       reps)}
+
+
 def gemma3_timings(torch, s_serve: int) -> dict:
     """gemma3-1b's attention kernels at its shapes (4 query heads over 1 kv
     head of 256, bf16): flash_attention at its serving prefill (S of the
@@ -2576,7 +3097,7 @@ def main() -> int:
 
 def run(args, torch, pool) -> int:
     """Every phase on the card (``main`` checks for it); ``pool`` is the
-    worker that ``cpu_runs`` goes to once phase 5's timings are taken."""
+    worker that ``cpu_runs`` goes to once phase 3's store path is done."""
     import numpy as np
     from repro_torch import kernels
     from repro_torch.kernels import _build
@@ -2604,13 +3125,18 @@ def run(args, torch, pool) -> int:
     edge_err = {"merge_path": edge_merge(torch, np, rng),
                 "overlap_scan": edge_rank(torch, np, rng),
                 "lindley_scan": edge_lindley(torch, np, rng),
-                "flash_attention": edge_flash(torch),
+                "flash_attention": max(edge_flash(torch),
+                                       edge_flash_cross(torch)),
+                "flash_attention_bwd": edge_flash_bwd(torch),
                 "ssd_scan": edge_ssd(torch),
-                "paged_attention": edge_paged(torch, np)}
+                "paged_attention": max(edge_paged(torch, np),
+                                       edge_paged_cross(torch))}
     torch.cuda.synchronize()
     print("kernel edge cases: merge_path and overlap_scan exact, "
           f"lindley_scan max |err| {edge_err['lindley_scan']:.3e} s, "
           f"flash_attention {edge_err['flash_attention']:.3e}, "
+          f"flash_attention_bwd {edge_err['flash_attention_bwd']:.3e} "
+          f"({len(bwd_cases())} cases, each twice bitwise equal), "
           f"ssd_scan {edge_err['ssd_scan']:.3e}, "
           f"paged_attention {edge_err['paged_attention']:.3e}", flush=True)
     lap("edges")
@@ -2682,6 +3208,18 @@ def run(args, torch, pool) -> int:
     torch.cuda.empty_cache()
     lap("store_path")
 
+    # the CPU tier's runs go to the worker now, beside db_bench and the
+    # phases after it; vlsm's store path, run just before and just after
+    # the worker starts, gives the worker's toll on a host-bound wall
+    _, _, alone = run_main_path(torch, np, "vlsm", trace, "cuda")
+    cpu_side = pool.apply_async(cpu_runs)
+    _, _, beside = run_main_path(torch, np, "vlsm", trace, "cuda")
+    report["worker_toll"] = {"store_path_alone_s": alone,
+                             "store_path_beside_worker_s": beside}
+    print("vlsm store path without and beside the CPU worker: "
+          + json.dumps(report["worker_toll"]), flush=True)
+    lap("worker_start")
+
     report["db_bench"], pass_calls = db_bench_rows(torch, args.out)
     print("db_bench rows: " + json.dumps(report["db_bench"]), flush=True)
     lap("db_bench")
@@ -2689,9 +3227,6 @@ def run(args, torch, pool) -> int:
                                                         pass_calls)
     del pass_calls
     print("fleet matrix: " + json.dumps(report["fleet_matrix"]), flush=True)
-    # timed here, so that its 1.3 GB leave the card before the serving
-    # paths' peak memory is read
-    report["lindley_fleet_matrix"] = time_lindley_matrix(torch, matrix_batch)
     del matrix_batch
     torch.cuda.empty_cache()
     lap("fleet_matrix")
@@ -2726,6 +3261,11 @@ def run(args, torch, pool) -> int:
     torch.cuda.empty_cache()
     lap("serving")
 
+    report["train_qwen3"] = train_qwen3(torch, np)
+    print(f"training {TRAIN_ARCH}: " + json.dumps(report["train_qwen3"]),
+          flush=True)
+    lap("train")
+
     # the card, its driver and clocks beside the device times, which have
     # moved between calls with no kernel changed (PERF.md section 7)
     report["card_state"] = {"fields": CARD_STATE,
@@ -2737,15 +3277,18 @@ def run(args, torch, pool) -> int:
                "overlap_scan": time_rank(torch, np, sim, trace),
                "lindley_scan": time_lindley(torch, np,
                                             *lindley_queue(np, sim, res))}
-    report["rank_common"] = time_rank_at(torch, np, trace,
-                                         *common.most_common(1)[0][0])
+    # the commonest shapes are held against the plain version here and
+    # timed by scripts/probe.py merge rank (and the 4,096-row batch by
+    # probe.py lindley), to keep the run's time
+    report["rank_common"] = check_rank_at(torch, np, trace,
+                                          *common.most_common(1)[0][0])[0]
     timings["overlap_scan"]["max_abs_err"] = max(
         timings["overlap_scan"]["max_abs_err"],
         report["rank_common"]["max_abs_err"])
-    report["merge_common"] = time_merge_at(torch, np, trace,
-                                           *common_merge.most_common(1)[0][0])
-    report["lindley_ragged"] = time_lindley_ragged(torch, np, res.arrivals,
-                                                   LINDLEY_ROWS)
+    report["merge_common"] = check_merge_at(
+        torch, np, trace, *common_merge.most_common(1)[0][0])[0]
+    report["lindley_ragged"] = check_lindley_ragged(
+        torch, np, res.arrivals, LINDLEY_ROWS)[0]
     del main_sim, sim, res
     s_serve = max(report["serve_zamba2_1_2b"]["prompt_tokens"])
     timings["flash_attention"] = time_flash(torch, s_serve, 40)
@@ -2769,7 +3312,9 @@ def run(args, torch, pool) -> int:
         *(t["max_abs_err"] for k, t in report["gemma3"].items()
           if k.startswith("paged")))
     for name, err in edge_err.items():
-        timings[name]["max_abs_err"] = max(timings[name]["max_abs_err"], err)
+        if name in timings:
+            timings[name]["max_abs_err"] = max(timings[name]["max_abs_err"],
+                                               err)
     report["long_prefill"] = {
         "flash_attention": time_flash(torch, LONG_PREFILL, 10),
         "flash_attention_qwen3": time_flash(torch, LONG_PREFILL, 10, 16, 8,
@@ -2787,14 +3332,12 @@ def run(args, torch, pool) -> int:
           + json.dumps(report["qwen3_prefill_flash"]), flush=True)
     print("timing paged_attention at zamba2's decode shape: "
           + json.dumps(report["zamba2_decode_paged"]), flush=True)
-    print("timing overlap_scan at the store's commonest shape: "
+    print("overlap_scan at the store's commonest shape: "
           + json.dumps(report["rank_common"]), flush=True)
-    print("timing merge_path at the store's commonest shape: "
+    print("merge_path at the store's commonest shape: "
           + json.dumps(report["merge_common"]), flush=True)
-    print(f"timing lindley_scan over {LINDLEY_ROWS} rows: "
+    print(f"lindley_scan over {LINDLEY_ROWS} rows: "
           + json.dumps(report["lindley_ragged"]), flush=True)
-    print("timing lindley_scan over the fleet matrix: "
-          + json.dumps(report["lindley_fleet_matrix"]), flush=True)
     for name, t in report["long_prefill"].items():
         print(f"timing {name} at {LONG_PREFILL} tokens: " + json.dumps(t),
               flush=True)
@@ -2805,20 +3348,44 @@ def run(args, torch, pool) -> int:
     torch.cuda.empty_cache()
     lap("timings")
 
-    # the CPU tier's runs go to the worker only now, so that every wall
-    # above is taken with the host to itself; the walls below share it,
-    # and vlsm's store path, run just before and just after the worker
-    # starts, gives the worker's toll on a host-bound wall
-    _, _, alone = run_main_path(torch, np, "vlsm", trace, "cuda")
-    cpu_side = pool.apply_async(cpu_runs)
-    _, _, beside = run_main_path(torch, np, "vlsm", trace, "cuda")
-    report["worker_toll"] = {"store_path_alone_s": alone,
-                             "store_path_beside_worker_s": beside}
-    print("vlsm store path without and beside the CPU worker: "
-          + json.dumps(report["worker_toll"]), flush=True)
     card_store = shard_card_runs(torch, np)
     torch.cuda.empty_cache()
     lap("shard_store_card")
+
+    # the training path's checks and timing rows
+    report["train_whisper"] = train_whisper(torch, np)
+    print("training whisper-tiny through launch.train (one injected "
+          "failure): " + json.dumps(report["train_whisper"]), flush=True)
+    torch.cuda.empty_cache()
+    report["cross_train"] = {}
+    for arch in CROSS_TRAIN:
+        report["cross_train"][arch] = train_cross_check(torch, np, arch)
+        print(f"cross-check training {arch} (float32): "
+              + json.dumps(report["cross_train"][arch]), flush=True)
+    torch.cuda.empty_cache()
+    s_whisper = max(report["serve_whisper_tiny"]["prompt_tokens"])
+    timings["flash_attention_bwd"] = time_flash_bwd(torch, TRAIN_BATCH,
+                                                    TRAIN_SEQ, 40)
+    report["flash_bwd_4096"] = time_flash_bwd(torch, 1, LONG_PREFILL, 4)
+    report["whisper_encoder_flash"] = time_flash_cross(
+        torch, WHISPER_FRAMES, WHISPER_FRAMES, 40)
+    report["whisper_cross_flash"] = time_flash_cross(torch, s_whisper,
+                                                     WHISPER_FRAMES, 40)
+    timings["flash_attention_bwd"]["max_abs_err"] = max(
+        timings["flash_attention_bwd"]["max_abs_err"],
+        report["flash_bwd_4096"]["max_abs_err"],
+        edge_err["flash_attention_bwd"])
+    timings["flash_attention"]["max_abs_err"] = max(
+        timings["flash_attention"]["max_abs_err"],
+        report["whisper_encoder_flash"]["max_abs_err"],
+        report["whisper_cross_flash"]["max_abs_err"])
+    for name in ("flash_bwd_4096", "whisper_encoder_flash",
+                 "whisper_cross_flash"):
+        print(f"timing {name}: " + json.dumps(report[name]), flush=True)
+    print("timing flash_attention_bwd at the training shape: "
+          + json.dumps(timings["flash_attention_bwd"]), flush=True)
+    torch.cuda.empty_cache()
+    lap("train_beside_worker")
 
     report["zamba2_bf16_states"] = serve_state_check(torch, np)
     print("zamba2 bf16 states: " + json.dumps(
@@ -2833,27 +3400,6 @@ def run(args, torch, pool) -> int:
         torch.cuda.empty_cache()
 
     lap("serving_checks")
-    prof = report["profile_vlsm"] = profile_main_path(torch, np, trace)
-    print(f"profile vlsm: device busy {prof['device_busy_ms']:.1f} ms of "
-          f"{prof['profiled_wall_s']:.2f} s wall "
-          f"({100 * prof['device_busy_share']:.2f}%)", flush=True)
-    prof = report["profile_serve_open"] = profile_serve_open(torch, np)
-    print(f"profile open-loop serving {prof['policy']} (admission on, "
-          f"x{prof['load_factor']}): device busy "
-          f"{prof['device_busy_ms']:.1f} ms of "
-          f"{prof['profiled_wall_s']:.2f} s wall "
-          f"({100 * prof['device_busy_share']:.2f}%)", flush=True)
-    torch.cuda.empty_cache()
-
-    for arch in PROFILE_PATHS:
-        sprof = profile_serve(torch, np, arch)
-        report[f"profile_serve_{arch}"] = sprof
-        print(f"profile serving {arch} ({PROFILE_REQUESTS} requests): device "
-              f"busy {sprof['device_busy_ms']:.1f} ms of "
-              f"{sprof['profiled_wall_s']:.2f} s wall "
-              f"({100 * sprof['device_busy_share']:.2f}%)", flush=True)
-        torch.cuda.empty_cache()
-    lap("profiles")
 
     cpu = cpu_side.get()
     lap("worker_wait")
@@ -2889,6 +3435,8 @@ def run(args, torch, pool) -> int:
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": f"src/repro/{SOURCES[name]}",
             "launches": (total if name in STORE_KERNELS
+                         else report[ROW_PATH[name]]["launches"]
+                         if name == "flash_attention_bwd"
                          else serve_launches[ROW_PATH[name]])[name],
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],

@@ -9,7 +9,11 @@ paths, on one GPU.
 Phases, each made of ``chip_smoke.py``'s own functions:
 
     edge_merge edge_rank edge_lindley edge_flash edge_ssd edge_paged
-              one kernel's edge cases against its plain version
+    edge_flash_cross edge_flash_bwd edge_paged_cross
+              one kernel's edge cases against its plain version (the last
+              three: flash_attention non-causal with Sq != Sk, its
+              backward kernel, paged_attention over whisper's padded cross
+              cache)
     states    zamba2-1.2b's bf16 prefill states and their hand-off to
               decode (``serve_state_check``)
     merge     merge_path at the store's main merge (an L1 run of 321,467
@@ -25,15 +29,28 @@ Phases, each made of ``chip_smoke.py``'s own functions:
     paged     paged_attention at qwen3's and zamba2's decode shapes and at
               8 and 1 sequences of 4,096 tokens
     ssd       ssd_scan at zamba2's L 189 and 4,096
+    flash_bwd flash_attention's backward at qwen3-1.7b's heads at the
+              training shape (B 8 x S 64) and at 4,096 tokens, beside SDPA's
+              backward
+    whisper_flash flash_attention at whisper-tiny's encoder (S 1,500,
+              non-causal) and cross attention (189 over 1,500)
     gemma3    flash_attention and paged_attention at gemma3-1b's shapes
               (head_dim 256, 4 query heads over 1 kv head): its serving
               prefill and decode, and 4,096 tokens with its 512-token window
               and global
-    serve_gemma3 serve_deepseek
+    serve_zamba2 serve_qwen3 serve_gemma3 serve_deepseek serve_whisper
               a model's serving path at full size (``chip_smoke.py`` phase
               4: launches, peak memory), and its 2-request profile
+    train_qwen3 train_whisper cross_train
+              the training phase: qwen3-1.7b's full-size steps, whisper-
+              tiny through the launcher with a restore, the float32
+              card-vs-CPU training checks (qwen3-1.7b at 2 layers,
+              whisper-tiny at full size)
+    fleet_matrix db_bench's fleet_sweep at full size, then the fleet
+              matrix in one lindley_scan launch against its passes, and
+              lindley_scan timed over the matrix's batch
     long_decode gemma3-1b's 4,096-token prefill and 16 windowed decode steps
-    cross_gemma3 cross_deepseek
+    cross_gemma3 cross_deepseek cross_whisper
               a model's float32 card-vs-CPU cross-check (phase 6)
     seekrandom db_bench's seekrandom at full size for every policy, from
               rewound uid counters: its wall, its launches and its rows
@@ -41,6 +58,10 @@ Phases, each made of ``chip_smoke.py``'s own functions:
               wall, its launches, its rows against the committed ones
     serve_open open-loop serving over the store at the paper's byte scale
               (``chip_smoke.py`` phase 3d, vlsm and rocksdb)
+    profiles  where the store's time goes: vlsm's store path under
+              torch.profiler (device busy share) and cProfile, and phase
+              3d's admission-on serve of vlsm at factor 2 under
+              torch.profiler
     shard_store ``ShardedStore`` of 4 shards and of 1 on the card against
               the CPU, and the 1 against a bare tree (``chip_smoke.py``
               phase 3e)
@@ -116,6 +137,29 @@ def paged(torch, np, cs, ctx) -> dict:
             "long_b1": cs.time_paged_long(torch, 40, 1)}
 
 
+def flash_bwd(torch, np, cs, ctx) -> dict:
+    return {"train": cs.time_flash_bwd(torch, cs.TRAIN_BATCH, cs.TRAIN_SEQ,
+                                       40),
+            "qwen3_4096": cs.time_flash_bwd(torch, 1, cs.LONG_PREFILL, 4)}
+
+
+def whisper_flash(torch, np, cs, ctx) -> dict:
+    n = cs.WHISPER_FRAMES
+    return {"encoder": cs.time_flash_cross(torch, n, n, 40),
+            "cross": cs.time_flash_cross(torch, 189, n, 40)}
+
+
+def fleet_matrix(torch, np, cs, ctx) -> dict:
+    from repro_torch.bench_kv import db_bench
+    from repro_torch.core.uids import reset_uid_counters
+    reset_uid_counters()
+    with cs.RecordLindley() as rec:
+        db_bench.main(["--bench", "fleet_sweep"])
+    report, batch = cs.fleet_matrix(torch, np, [c[1:] for c in rec.calls])
+    report["timing"] = cs.time_lindley_matrix(torch, batch)
+    return report
+
+
 def gemma3(torch, np, cs, ctx) -> dict:
     return cs.gemma3_timings(torch, 189)
 
@@ -183,6 +227,11 @@ def serve_sweep(torch, np, cs, ctx) -> dict:
 def serve_open(torch, np, cs, ctx) -> dict:
     memo: dict = {}
     return {p: cs.serve_open(torch, np, p, memo) for p in cs.SERVE_POLICIES}
+
+
+def profiles(torch, np, cs, ctx) -> dict:
+    return {"vlsm": cs.profile_main_path(torch, np, _trace(ctx, np, cs)),
+            "serve_open": cs.profile_serve_open(torch, np)}
 
 
 def window(torch, np, cs, ctx) -> dict:
@@ -337,6 +386,7 @@ def shard_store(torch, np, cs, ctx) -> dict:
 
 STORE = ("merge_path", "overlap_scan", "lindley_scan")
 LM = ("overlap_scan", "flash_attention", "paged_attention")
+TRAIN = ("flash_attention", "flash_attention_bwd")
 # phase: (kernels it builds, what it runs)
 PHASES = {
     "edge_merge": (("merge_path",), lambda torch, np, cs, ctx: {
@@ -352,6 +402,14 @@ PHASES = {
         "max_abs_err": cs.edge_ssd(torch)}),
     "edge_paged": (("paged_attention",), lambda torch, np, cs, ctx: {
         "max_abs_err": cs.edge_paged(torch, np)}),
+    "edge_flash_cross": (("flash_attention",), lambda torch, np, cs, ctx: {
+        "max_abs_err": cs.edge_flash_cross(torch)}),
+    "edge_flash_bwd": (("flash_attention", "flash_attention_bwd"),
+                       lambda torch, np, cs, ctx: {
+                           "max_abs_err": cs.edge_flash_bwd(torch),
+                           "cases": len(cs.bwd_cases())}),
+    "edge_paged_cross": (("paged_attention",), lambda torch, np, cs, ctx: {
+        "max_abs_err": cs.edge_paged_cross(torch)}),
     "states": (("ssd_scan", "flash_attention", "paged_attention"),
                lambda torch, np, cs, ctx: cs.serve_state_check(torch, np)),
     "merge": (("merge_path",), merge),
@@ -360,9 +418,23 @@ PHASES = {
     "flash": (("flash_attention",), flash),
     "paged": (("paged_attention",), paged),
     "ssd": (("ssd_scan",), ssd),
+    "flash_bwd": (("flash_attention", "flash_attention_bwd"), flash_bwd),
+    "whisper_flash": (("flash_attention",), whisper_flash),
     "gemma3": (("flash_attention", "paged_attention"), gemma3),
+    "serve_zamba2": (LM + ("ssd_scan",), serve_model("zamba2_1_2b")),
+    "serve_qwen3": (LM, serve_model("qwen3_1_7b")),
     "serve_gemma3": (LM, serve_model("gemma3_1b")),
     "serve_deepseek": (LM, serve_model("deepseek_v2_lite")),
+    "serve_whisper": (LM, serve_model("whisper_tiny")),
+    "train_qwen3": (TRAIN, lambda torch, np, cs, ctx:
+                    cs.train_qwen3(torch, np)),
+    "train_whisper": (TRAIN + STORE, lambda torch, np, cs, ctx:
+                      cs.train_whisper(torch, np)),
+    "cross_train": (TRAIN, lambda torch, np, cs, ctx: {
+        arch: cs.train_cross_check(torch, np, arch)
+        for arch in cs.CROSS_TRAIN}),
+    "cross_whisper": (LM, cross_model("whisper_tiny")),
+    "fleet_matrix": (STORE, fleet_matrix),
     "long_decode": (LM, lambda torch, np, cs, ctx:
                     cs.long_window_decode(torch, np)),
     "cross_gemma3": (LM, cross_model("gemma3_1b")),
@@ -370,6 +442,7 @@ PHASES = {
     "seekrandom": (STORE, seekrandom),
     "serve_sweep": (STORE, serve_sweep),
     "serve_open": (STORE, serve_open),
+    "profiles": (STORE, profiles),
     "shard_store": (STORE, shard_store),
     "window": (STORE + ("flash_attention", "ssd_scan", "paged_attention"),
                window),

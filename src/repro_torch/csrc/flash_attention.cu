@@ -13,7 +13,12 @@
 // reference's: masked logits are -1e30, masked probabilities are zeroed,
 // the output is acc / max(l, 1e-30), so a fully masked row gives 0.  GQA
 // maps query head h to kv head h / (Hq / Hkv); keys past S are masked
-// here, so S needs no padding.
+// here, so S needs no padding.  A non-causal, unwindowed call may have Sk
+// keys for Sq queries (whisper's cross attention: Sq decoder tokens over
+// Sk = 1,500 encoder frames); causal and windowed calls have Sk = Sq.
+// Given an lse pointer, each row's fp32 log-sum-exp m + log(max(l,
+// 1e-30)) (natural log, scaled logits) goes to lse[bh * Sq + qi]: the
+// backward kernel (flash_attention_bwd.cu) recomputes P from it.
 //
 // Bound on the H100: at the serving shapes (S of a few hundred) the bytes
 // of q, k, v and o (memory); from S of a few thousand the 2*S^2*D
@@ -82,8 +87,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int hq, int hkv,
-          int s, int causal, int window, float scale) {
+          const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+          int hq, int hkv, int s, int s_k, int causal, int window,
+          float scale) {
   constexpr int LD = D + 4;      // padded row stride of the q/k/v tiles
   constexpr int LP = kBK + 4;    // padded row stride of the probability tile
   constexpr int KPT = kBK / 4;   // keys scored per thread in a tile
@@ -98,8 +104,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
   const int q0 = blockIdx.x * kBQ;
   const T* qg = q + (size_t)bh * s * D;
-  const T* kg = k + (size_t)kvh * s * D;
-  const T* vg = v + (size_t)kvh * s * D;
+  const T* kg = k + (size_t)kvh * s_k * D;
+  const T* vg = v + (size_t)kvh * s_k * D;
   const int tid = threadIdx.x;
   const int r = tid >> 2;        // this thread's query row in the tile
   const int quad = tid & 3;      // its quarter of the keys and columns
@@ -116,7 +122,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   for (int c = 0; c < 4 * C4; ++c) acc[c] = 0.f;
   float m = kNegInf, l = 0.f;
 
-  const int n_kt = (s + kBK - 1) / kBK;
+  const int n_kt = (s_k + kBK - 1) / kBK;
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
     if (causal && k0 > q_last) break;                        // above diagonal
@@ -124,7 +130,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // the previous tile's reads of sk/sv are done
     for (int idx = tid; idx < kBK * D; idx += kThreads) {
       const int row = idx / D, col = idx % D;
-      const bool in = k0 + row < s;
+      const bool in = k0 + row < s_k;
       const size_t off = (size_t)(k0 + row) * D + col;
       sk[row * LD + col] = in ? to_f(kg[off]) : 0.f;
       sv[row * LD + col] = in ? to_f(vg[off]) : 0.f;
@@ -149,7 +155,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < KPT; ++i) {
       const int kj = k0 + quad + 4 * i;
-      const bool keep = kj < s && (!causal || kj <= qi) &&
+      const bool keep = kj < s_k && (!causal || kj <= qi) &&
                         (window <= 0 || qi - kj < window);
       ok |= (unsigned)keep << i;
       sc[i] = keep ? sc[i] * scale : kNegInf;
@@ -197,6 +203,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         store(&og[quad * 4 + 16 * c4 + e], acc[4 * c4 + e] / den);
+    if (lse != nullptr && quad == 0)
+      lse[(size_t)bh * s + qi] = m + logf(den);
   }
 }
 
@@ -493,8 +501,9 @@ __global__ void __launch_bounds__(kWgThreads, WCfg<D>::MIN_BLOCKS)
 flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
-                __nv_bfloat16* __restrict__ o, int hq, int hkv, int s,
-                int causal, int window, float scale2) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                int hq, int hkv, int s, int s_k, int causal, int window,
+                float scale2) {
   using C = WCfg<D>;
   constexpr int NS = C::NS;
   constexpr int BK = C::BK;
@@ -513,15 +522,15 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
   const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
   const int q0 = qt * kBQ;
   const __nv_bfloat16* qg = q + (size_t)bh * s * D;
-  const __nv_bfloat16* kg = k + (size_t)kvh * s * D;
-  const __nv_bfloat16* vg = v + (size_t)kvh * s * D;
+  const __nv_bfloat16* kg = k + (size_t)kvh * s_k * D;
+  const __nv_bfloat16* vg = v + (size_t)kvh * s_k * D;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int qa = q0 + warp * 16 + g, qb = qa + 8;  // this thread's rows
   const int q_last = min(q0 + kBQ - 1, s - 1);
   // the key tiles some row of the block can see (the reference's test)
-  const int n_kt = (s + BK - 1) / BK;
+  const int n_kt = (s_k + BK - 1) / BK;
   const int kt_lo = window > 0 ? max(0, q0 - window + 1) / BK : 0;
   const int kt_hi = causal ? min(n_kt, q_last / BK + 1) : n_kt;
   const int n_tiles = max(0, kt_hi - kt_lo);
@@ -541,7 +550,7 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
       const int idx = tid + j * kWgThreads;
       const int kv = idx / (BK * CPR);
       const int r = (idx / CPR) % BK, c = idx % CPR;
-      const bool in = k0 + r < s;
+      const bool in = k0 + r < s_k;
       const __nv_bfloat16* src = kv ? vg : kg;
       cp_async16(base + kv * C::T_BYTES + swz(r, c, BK),
                  in ? src + (size_t)(k0 + r) * D + c * 8 : kg, in ? 16 : 0);
@@ -600,9 +609,9 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
           xb *= scale2;
           if constexpr (kMasked) {
             const int kj = k0 + nt * 8 + tq * 2 + e;
-            const bool keep_a = kj < s && (!causal || kj <= qa) &&
+            const bool keep_a = kj < s_k && (!causal || kj <= qa) &&
                                 (window <= 0 || qa - kj < window);
-            const bool keep_b = kj < s && (!causal || kj <= qb) &&
+            const bool keep_b = kj < s_k && (!causal || kj <= qb) &&
                                 (window <= 0 || qb - kj < window);
             if (!keep_a) {
               xa = kNegInf;
@@ -634,7 +643,7 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
           if (e < 2) sum_a += p; else sum_b += p;
         }
     };
-    const bool masked = k0 + BK > s || (causal && k0 + BK - 1 > q0) ||
+    const bool masked = k0 + BK > s_k || (causal && k0 + BK - 1 > q0) ||
                         (window > 0 && q0 + kBQ - 1 - k0 >= window);
     if (masked)
       softmax(std::true_type{});
@@ -705,12 +714,19 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
           __floats2bfloat162_rn(acc[dt * 4 + 2] / den_b,
                                 acc[dt * 4 + 3] / den_b);
   }
+  // the row's log-sum-exp in natural units: m and l live in the exp2
+  // domain of the scaled logits
+  if (lse != nullptr && tq == 0) {
+    constexpr float kLn2 = 0.6931471805599453f;
+    if (qa < s) lse[(size_t)bh * s + qa] = (m_a + log2f(den_a)) * kLn2;
+    if (qb < s) lse[(size_t)bh * s + qb] = (m_b + log2f(den_b)) * kLn2;
+  }
 }
 
 template <int D>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b,
-                 int hq, int hkv, int s, int causal, int window, float scale,
-                 cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int b, int hq, int hkv, int s, int sk, int causal,
+                 int window, float scale, cudaStream_t stream) {
   using C = WCfg<D>;
   static bool configured = false;
   if (!configured) {
@@ -728,14 +744,14 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      hq, hkv, s, causal, window, scale * 1.4426950408889634f);
+      lse, hq, hkv, s, sk, causal, window, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int hq, int hkv, int s, int causal, int window, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int hq, int hkv, int s, int sk, int causal, int window,
+           float scale, cudaStream_t stream) {
   static bool configured = false;
   const size_t smem = smem_bytes<D>();
   if (!configured) {
@@ -748,42 +764,45 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   dim3 grid((s + kBQ - 1) / kBQ, b * hq);
   flash_fwd<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), hq, hkv, s, causal,
-      window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, hq, hkv, s, sk,
+      causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; d: 64, 128 or 256; window <= 0 =
-// global.
-// q: [b*hq, s, d], k/v: [b*hkv, s, d], o: [b*hq, s, d], all contiguous.
+// global; sk != sq only for a non-causal, unwindowed call.
+// q: [b*hq, sq, d], k/v: [b*hkv, sk, d], o: [b*hq, sq, d], all contiguous;
+// lse: null, or [b*hq, sq] fp32 for the rows' log-sum-exp.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int b, int hq,
-                                      int hkv, int s, int d, int causal,
-                                      int window, float scale, int dtype,
-                                      void* stream) {
-  if (s <= 0 || b * hq <= 0) return 0;
-  if (hkv <= 0 || hq % hkv != 0 || (dtype == 0 && b * hq > 65535))
+                                      const void* v, void* o, void* lse,
+                                      int b, int hq, int hkv, int sq, int sk,
+                                      int d, int causal, int window,
+                                      float scale, int dtype, void* stream) {
+  if (sq <= 0 || b * hq <= 0) return 0;
+  if (hkv <= 0 || hq % hkv != 0 || sk < 0 || (dtype == 0 && b * hq > 65535) ||
+      (sk != sq && (causal || window > 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0 && d == 64)
-    return launch<float, 64>(q, k, v, o, b, hq, hkv, s, causal, window,
-                             scale, st);
+    return launch<float, 64>(q, k, v, o, l, b, hq, hkv, sq, sk, causal,
+                             window, scale, st);
   if (dtype == 0 && d == 128)
-    return launch<float, 128>(q, k, v, o, b, hq, hkv, s, causal, window,
-                              scale, st);
+    return launch<float, 128>(q, k, v, o, l, b, hq, hkv, sq, sk, causal,
+                              window, scale, st);
   if (dtype == 0 && d == 256)
-    return launch<float, 256>(q, k, v, o, b, hq, hkv, s, causal, window,
-                              scale, st);
+    return launch<float, 256>(q, k, v, o, l, b, hq, hkv, sq, sk, causal,
+                              window, scale, st);
   if (dtype == 1 && d == 64)
-    return launch_wgmma<64>(q, k, v, o, b, hq, hkv, s, causal, window,
-                            scale, st);
+    return launch_wgmma<64>(q, k, v, o, l, b, hq, hkv, sq, sk, causal,
+                            window, scale, st);
   if (dtype == 1 && d == 128)
-    return launch_wgmma<128>(q, k, v, o, b, hq, hkv, s, causal, window,
-                             scale, st);
+    return launch_wgmma<128>(q, k, v, o, l, b, hq, hkv, sq, sk, causal,
+                             window, scale, st);
   if (dtype == 1 && d == 256)
-    return launch_wgmma<256>(q, k, v, o, b, hq, hkv, s, causal, window,
-                             scale, st);
+    return launch_wgmma<256>(q, k, v, o, l, b, hq, hkv, sq, sk, causal,
+                             window, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,24 +1,32 @@
 """Hand-written Hopper kernels of the port's main paths, with their plain
 PyTorch versions and launch counters.
 
-    merge_path       — compaction's stable two-run merge (csrc/merge_path.cu)
-    overlap_scan     — sorted-array rank behind every fence/GET probe
-                       (csrc/overlap_scan.cu)
-    lindley_scan     — the DES's batched FIFO departure scan
-                       (csrc/lindley_scan.cu)
-    flash_attention  — causal / sliding-window attention of the LM prefill
-                       (csrc/flash_attention.cu)
-    ssd_scan         — the Mamba2 SSD chunked scan of the LM prefill
-                       (csrc/ssd_scan.cu)
-    paged_attention  — single-token attention of every LM decode step,
-                       through a page table (csrc/paged_attention.cu)
+    merge_path          — compaction's stable two-run merge
+                          (csrc/merge_path.cu)
+    overlap_scan        — sorted-array rank behind every fence/GET probe
+                          (csrc/overlap_scan.cu)
+    lindley_scan        — the DES's batched FIFO departure scan
+                          (csrc/lindley_scan.cu)
+    flash_attention     — causal / sliding-window attention of the LM
+                          prefill and of every training forward; whisper's
+                          bidirectional encoder and its cross attention
+                          (non-causal, Sk = 1,500 encoder frames)
+                          (csrc/flash_attention.cu)
+    flash_attention_bwd — flash_attention's gradient in every training
+                          step (csrc/flash_attention_bwd.cu)
+    ssd_scan            — the Mamba2 SSD chunked scan of the LM prefill
+                          (csrc/ssd_scan.cu)
+    paged_attention     — single-token attention of every LM decode step,
+                          through a page table; whisper's self attention
+                          and its cross attention over the 1,500 encoder
+                          frames (csrc/paged_attention.cu)
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs the plain
 version for CPU tensors; its ``launches`` attribute counts kernel launches
 only.  Importing this package builds nothing (see ``_build``).
 """
 
-from .flash_attention.ops import flash_attention
+from .flash_attention.ops import flash_attention, flash_attention_bwd
 from .lindley_scan.ops import lindley_batch
 from .merge_path.ops import merge_two_runs
 from .overlap_scan.ops import fence_rank
@@ -28,6 +36,7 @@ from .ssd_scan.ops import ssd_scan
 #: kernel name -> wrapper that counts its launches
 WRAPPERS = {"merge_path": merge_two_runs, "overlap_scan": fence_rank,
             "lindley_scan": lindley_batch, "flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention_bwd,
             "ssd_scan": ssd_scan, "paged_attention": paged_attention}
 
 
@@ -40,6 +49,6 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["WRAPPERS", "fence_rank", "flash_attention", "launch_counts",
-           "lindley_batch", "merge_two_runs", "paged_attention",
-           "reset_launch_counts", "ssd_scan"]
+__all__ = ["WRAPPERS", "fence_rank", "flash_attention", "flash_attention_bwd",
+           "launch_counts", "lindley_batch", "merge_two_runs",
+           "paged_attention", "reset_launch_counts", "ssd_scan"]

@@ -1,6 +1,8 @@
-"""Causal / sliding-window online-softmax attention: the port of the
-flash_attention TPU kernel."""
+"""Causal / sliding-window / non-causal online-softmax attention and its
+gradient: the port of the flash_attention TPU kernel."""
 
-from .ops import flash_attention, flash_attention_plain
+from .ops import (FlashAttentionFn, flash_attention, flash_attention_bwd,
+                  flash_attention_bwd_plain, flash_attention_plain)
 
-__all__ = ["flash_attention", "flash_attention_plain"]
+__all__ = ["FlashAttentionFn", "flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "flash_attention_plain"]

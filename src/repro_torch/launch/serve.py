@@ -7,7 +7,9 @@ Every admitted prompt first consults the PrefixCache (a vLSM-indexed
 reused prefix; the full prompt is then prefilled (the flash_attention
 kernel, and ssd_scan for the ssm and hybrid families) and decoded greedily,
 every decode attention through the paged_attention kernel over the dense
-cache.  As in the reference, the page pool's own pages are allocated and
+cache.  whisper's requests carry seeded stub frame embeddings
+(``default_rng(request id)``, as in the reference) through its encoder.
+As in the reference, the page pool's own pages are allocated and
 registered with the prefix cache but not read.  Admission is a token
 bucket on a seeded Poisson timeline, so the admitted/rejected split is
 deterministic per (seed, rate, limit).  Runs on the card unless
@@ -28,6 +30,7 @@ import torch
 from ..configs import get_config
 from ..core.types import resolve_compute_device
 from ..models import decode_step, forward, init_model
+from ..models.common import dtype_of
 from ..serving import PagePool, PrefixCache, TokenBucket, poisson_arrivals
 
 
@@ -89,6 +92,11 @@ def run(arch: str, *, smoke: bool = True, n_requests: int = 8,
             stats["prefix_hits"] += 1
         # the full prompt is prefilled: the prefix cache counts reuse
         batch = {"tokens": torch.from_numpy(tokens[None]).to(dev)}
+        if cfg.family == "encdec":
+            # whisper's stub frame embeddings, seeded by the request id
+            rng = np.random.default_rng(r_id)
+            batch["encoder_embeds"] = torch.from_numpy(rng.standard_normal(
+                (1, cfg.enc_seq, cfg.d_model))).to(dev, dtype_of(cfg))
         logits, cache = forward(cfg, params, batch, mode="prefill",
                                 cache_len=max_seq, compute_device=dev)
         stats["tokens_prefilled"] += len(tokens) - matched

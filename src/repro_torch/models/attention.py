@@ -1,13 +1,15 @@
-"""GQA attention: init + prefill/decode — the port of
+"""GQA attention: init + train/prefill/decode — the port of
 ``repro/models/attention.py``.
 
 :func:`attn_forward` (full-sequence causal attention) always goes through
 the flash_attention kernel wrapper: the reference's ``use_pallas`` switch
-has no counterpart.  :func:`attn_decode` runs the paged_attention kernel wrapper over
-the dense decode cache: ``[B, Smax, Hk, Dh]`` viewed as ``B * Smax / PS``
-pages of PS tokens (a view, not a copy) through an identity page table,
-with ``lengths = pos + 1`` and the layer's window.  That is the
-reference's ``attn_decode`` exactly: its mask keeps ``kj <= pos`` and, for
+has no counterpart; under autograd its gradient runs the
+flash_attention_bwd kernel.  :func:`attn_decode` runs the paged_attention
+kernel wrapper over the dense decode cache: ``[B, Smax, Hk, Dh]`` viewed
+as ``B * Smax / PS`` pages of PS tokens (a view, not a copy) through an
+identity page table, with ``lengths = pos + 1`` and the layer's window.
+That is the reference's ``attn_decode`` exactly: its mask keeps ``kj <=
+pos`` and, for
 a window ``w``, ``pos - kj < w``, and the kernel visits only those live
 tokens, ``[max(0, pos + 1 - w), pos + 1)`` (gemma3's local layers read
 their window, not the prefix).  A window of -1 (or None) means global.
@@ -60,8 +62,10 @@ def _project_qkv(cfg, p, x, positions, theta):
 
 
 def attn_forward(cfg, p, x, positions, theta, window):
-    """Full-sequence causal attention (prefill) through the flash_attention
-    kernel.  Returns (out [B,S,D], (k, v) for the cache)."""
+    """Full-sequence causal attention (train / prefill) through the
+    flash_attention kernel (differentiable: its backward is the
+    flash_attention_bwd kernel).  Returns (out [B,S,D], (k, v) for the
+    cache); nothing is written in place."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x, positions, theta)
     win = int(window) if window is not None and int(window) > 0 else None

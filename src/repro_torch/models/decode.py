@@ -1,5 +1,5 @@
-"""Single-step decode and the cache constructor for the decoder, ssm and
-hybrid families — the port of ``repro/models/decode.py``.
+"""Single-step decode and the cache constructor for all four families —
+the port of ``repro/models/decode.py``.
 
 The cache layout is the reference's: the decoder's ``k``/``v``
 ``[L, B, S, Hk, Dh]``, or with MLA the latents ``ckv [L, B, S, lora]`` and
@@ -7,13 +7,18 @@ The cache layout is the reference's: the decoder's ``k``/``v``
 dense ones; the ssm and hybrid families' ``conv [L, B, k-1, C]``
 (pre-conv features), ``state [L, B, H, N, P]`` fp32 and ``attn_k``/
 ``attn_v`` ``[apps, B, S, Hk, Dh]`` (one per shared-attention
-application); and ``pos``.  :func:`decode_step` updates the cache tensors
+application); whisper's ``k``/``v`` and ``cross_k``/``cross_v``
+``[L, B, T, Hk, Dh]`` (T: the encoder's frames padded to a whole page,
+``blocks.cross_rows``); and ``pos``.  :func:`decode_step` updates the cache tensors
 in place (the reference returns updated copies) and returns a new dict
 holding them.  Every GQA attention layer of a step runs the
 paged_attention kernel over its cache through one page table
 (``attention.decode_pages``); a local layer (gemma3's sliding window)
-reads only its window's tokens, a global one its whole prefix.  MLA
-decodes in plain torch, absorbed or expanded, as the reference does.
+reads only its window's tokens, a global one its whole prefix.
+whisper's cross attention runs the same kernel over the cross cache's
+page view with every length at the encoder's frame count (the pad rows
+are never read).  MLA decodes in plain torch, absorbed or expanded, as the
+reference does.
 """
 
 from __future__ import annotations
@@ -25,10 +30,11 @@ from . import attention as attn
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import ssd as ssd_mod
-from .blocks import (check_params_device, decoder_layers, exact_fp32,
-                     layer_params, mlp_step, require_ported, scale_embeds,
-                     segments)
-from .common import dtype_of, norm
+from ..kernels.paged_attention import paged_attention
+from .blocks import (check_params_device, cross_rows, decoder_layers,
+                     exact_fp32, layer_params, mlp_step, require_ported,
+                     scale_embeds, segments)
+from .common import dtype_of, norm, sinusoidal_positions
 
 
 def init_cache(cfg, batch: int, max_seq: int, *,
@@ -36,6 +42,15 @@ def init_cache(cfg, batch: int, max_seq: int, *,
     require_ported(cfg)
     dev = resolve_compute_device(compute_device)
     dt = dtype_of(cfg)
+    if cfg.family == "encdec":
+        shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        cross = (cfg.n_layers, batch, cross_rows(cfg), cfg.n_kv_heads,
+                 cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev),
+                "cross_k": torch.zeros(cross, dtype=dt, device=dev),
+                "cross_v": torch.zeros(cross, dtype=dt, device=dev),
+                "pos": torch.zeros((1,), dtype=torch.int32, device=dev)}
     if cfg.family == "decoder":
         n_scan = cfg.n_layers - cfg.first_dense_layers
         if cfg.attn_kind == "mla":
@@ -71,12 +86,15 @@ def init_cache(cfg, batch: int, max_seq: int, *,
     return cache
 
 
-def decode_step(cfg, params, tokens, pos, cache, *,
+def decode_step(cfg, params, tokens, pos, cache, *, batch_extras=None,
                 absorbed_mla: bool = True,
                 compute_device: str | torch.device = "cuda"):
     """tokens: [B, 1] int; pos: [B] int write index; cache: as
     :func:`init_cache`; ``absorbed_mla`` picks MLA's decode form.  Returns
-    (logits [B, 1, V], new_cache)."""
+    (logits [B, 1, V], new_cache).  ``batch_extras`` is the reference's
+    argument, which it ignores too (whisper's encoder output lives in the
+    cross cache)."""
+    del batch_extras
     require_ported(cfg)
     dev = resolve_compute_device(compute_device)
     check_params_device(params, dev)
@@ -84,7 +102,9 @@ def decode_step(cfg, params, tokens, pos, cache, *,
     tokens = torch.as_tensor(tokens, device=dev).long()
     pos = torch.as_tensor(pos, device=dev).long()
     h = scale_embeds(cfg, params["embed"][tokens])
-    if cfg.family == "decoder":
+    if cfg.family == "encdec":
+        h = _decode_encdec(cfg, params, h, pos, cache)
+    elif cfg.family == "decoder":
         h = _decode_decoder(cfg, params, h, pos, cache, absorbed_mla)
     else:
         h = _decode_ssm(cfg, params, h, pos, cache)
@@ -138,4 +158,36 @@ def _decode_ssm(cfg, params, h, pos, cache):
             h = h + moe_mod.mlp_forward(cfg, lp["mlp"],
                                         norm(cfg, h, lp["mlp_norm"]))
             app += 1
+    return h
+
+
+def _decode_encdec(cfg, params, h, pos, cache):
+    # sinusoidal_positions(S)[p] depends on p alone: the table is built to
+    # the self cache's length, as the reference builds it
+    pe = sinusoidal_positions(cache["k"].shape[2], cfg.d_model,
+                              device=h.device)
+    h = h + pe[pos][:, None, :].to(h.dtype)
+    b, rows = h.shape[0], cache["cross_k"].shape[2]
+    pages = attn.decode_pages(pos, cache["k"].shape[2])
+    ps = attn.PAGE_TOKENS
+    cross_table = attn._identity_table(b, rows // ps, h.device)
+    cross_len = torch.full((b,), cfg.enc_seq, dtype=torch.int32,
+                           device=h.device)
+    hk, dh = cfg.n_kv_heads, cfg.head_dim
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        a_out, _, _ = attn.attn_decode(
+            cfg, lp["attn"], norm(cfg, h, lp["attn_norm"]), pos,
+            cfg.rope_theta, -1, cache["k"][i], cache["v"][i], pages)
+        h = h + a_out
+        p = lp["cross"]
+        q = norm(cfg, h, lp["cross_norm"]) @ p["wq"]
+        o = paged_attention(
+            q.reshape(b, cfg.n_heads, dh),
+            cache["cross_k"][i].view(b * rows // ps, ps, hk, dh),
+            cache["cross_v"][i].view(b * rows // ps, ps, hk, dh),
+            cross_table, cross_len)
+        h = h + o.reshape(b, 1, cfg.n_heads * dh) @ p["wo"]
+        h = h + moe_mod.mlp_forward(cfg, lp["mlp"],
+                                    norm(cfg, h, lp["mlp_norm"]))
     return h

@@ -197,12 +197,13 @@ def test_seeded_init_matches_the_layout(pair):
 
 
 def test_unported_families_raise():
-    """Only whisper's encdec family and training are left to port."""
+    """Only the ssm and hybrid families' training is left to port (it
+    needs ssd_scan's backward kernel); whisper's encdec family builds."""
     cfg = port_configs.get_config("whisper_tiny").smoke()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_model(cfg, compute_device="cpu")
-    cfg = port_configs.get_config("gemma3_1b").smoke().with_(n_layers=1)
-    params = init_model(cfg, compute_device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward(cfg, params, {"tokens": np.zeros((1, 4), np.int32)},
-                mode="train", compute_device="cpu")
+    assert init_model(cfg, compute_device="cpu")["encoder"]
+    for arch in ARCHS:
+        cfg = port_configs.get_config(arch).smoke().with_(n_layers=1)
+        params = init_model(cfg, compute_device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            forward(cfg, params, {"tokens": np.zeros((1, 4), np.int32)},
+                    mode="train", compute_device="cpu")
