@@ -23,7 +23,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    4,096 and global at 4,096; ssd_scan's y and final state over L 1..300,
    63/64/65 and 189, G < H, dt from 1e-4 to 10, contiguous inputs and
    strided views of one xbc buffer, and L 4,096 at B 2 and at zamba2's
-   64 heads, half of them with the final state from an fp32 state_dt;
+   64 heads, half of them with the final state from an fp32 state_dt,
+   then bf16 x, B and C with fp32 dt as the model passes them (L 65, 189
+   and 4,096, state_dt omitted and given as that dt);
    paged_attention over B 1-3, G 1/2/3/6/8, head_dim 64/128, page sizes
    16/32, shuffled page tables with repeats and garbage past the length,
    lengths 0, 1, PS, PS+1 and MAXP*PS, then lengths at the boundaries of
@@ -40,7 +42,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    log-sum-exp beside); its backward kernel (dQ, dK, dV) against
    ``flash_attention_bwd_plain`` over S 1-384 (ragged, 63/64/65), head_dim
    64/128/256, GQA rep 1/2/4/8, causal and windows 1/16/512 and
-   non-causal Sq != Sk, fp32 and bf16, each case launched twice and bitwise
+   non-causal Sq != Sk, fp32 and bf16 (bf16 at head_dim 64 and 128 on
+   its wgmma kernels), each case launched twice and bitwise
    equal; paged_attention over whisper's cross cache (1,500 live rows of
    1,504, NaN in the 4 pad rows).
 3. Store path: ``Simulator.run`` on the card for every registered policy
@@ -212,6 +215,7 @@ import collections
 import json
 import math
 import multiprocessing
+import re
 import subprocess
 import sys
 import time
@@ -2010,7 +2014,11 @@ def edge_ssd(torch) -> float:
     buffer; and L 4,096 strided, at B 2 x H 4 and at zamba2-1.2b's B 1 x
     H 64 (bf16, dt in the softplus range).  All at B 2 unless said; every
     other case, and zamba2's both ways, with an fp32 ``state_dt`` (the
-    final state's run).  Returns the largest |err| of y."""
+    final state's run).  Then bf16 x, B and C with fp32 dt, as the model
+    passes them (strided views of xbc; the reference's default route), at
+    L 65 and 189 (B 2 x H 4) and at zamba2's heads at 4,096, each with
+    ``state_dt`` omitted and given as that same dt.  Returns the largest
+    |err| of y."""
     from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
     gen = torch.Generator(device="cuda")
     gen.manual_seed(12)
@@ -2042,6 +2050,17 @@ def edge_ssd(torch) -> float:
             f"ssd_scan edge case zamba2 heads, L={LONG_PREFILL}, strided, "
             f"state_dt={bool(kw)}",
             ssd_scan(*args, **kw), ssd_scan_plain(*args, **kw)))
+    for b, L, h in ((2, 65, 4), (2, 189, 4), (1, LONG_PREFILL, 64)):
+        x, _, a, bm, cm = ssd_inputs(torch, gen, b, L, h, 1, 64, 64,
+                                     torch.bfloat16, True)
+        dt = 10.0 ** (torch.rand((b, L, h), generator=gen, device="cuda")
+                      * 1.5 - 1)      # fp32, log-uniform from 0.1 to 3.2
+        for kw in ({}, {"state_dt": dt}):
+            worst = max(worst, check_ssd(
+                f"ssd_scan edge case B={b} L={L} H={h} bfloat16 strided, "
+                f"fp32 dt, state_dt={bool(kw)}",
+                ssd_scan(x, dt, a, bm, cm, **kw),
+                ssd_scan_plain(x, dt, a, bm, cm, **kw)))
     return worst
 
 
@@ -2555,11 +2574,11 @@ def paged_bound(b: int, hq: int, hkv: int, d: int, length: int,
 
 def ssd_bound(b: int, L: int, h: int, g: int, n: int, p: int,
               nbytes_el: int = 2):
-    """x, dt, B, C read and y written once, the fp32 final state written
-    once (a negligible); the recurrence's 4*N*P operations per step and
-    head (state update and readout)."""
-    nbytes = nbytes_el * (2 * b * L * h * p + b * L * h + 2 * b * L * g * n) \
-        + 4 * b * h * n * p
+    """x, B, C and the fp32 dt read and y written once, the fp32 final
+    state written once (a negligible); the recurrence's 4*N*P operations
+    per step and head (state update and readout)."""
+    nbytes = nbytes_el * (2 * b * L * h * p + 2 * b * L * g * n) \
+        + 4 * b * L * h + 4 * b * h * n * p
     return roofline(nbytes, 4 * n * p * L * b * h)
 
 
@@ -2698,10 +2717,10 @@ def time_paged_long(torch, reps: int, b: int = LONG_DECODE[0]) -> dict:
 def time_ssd(torch, L: int, reps: int) -> dict:
     """zamba2-1.2b's Mamba2 prefill: B 1, 64 heads of P 64, one group of
     N 64, bf16, at L tokens, x, B and C as strided views of one xbc buffer
-    and the final state from an fp32 ``state_dt``, as ``models/ssd.py``
-    calls it (seeded random inputs, dt in the softplus range); also timed
-    without ``state_dt`` (y's scan alone), the cost of the state's run.
-    The kernel pads nothing."""
+    and fp32 dt for y and the final state (``state_dt`` that same dt), as
+    ``models/ssd.py`` calls it (seeded random inputs, dt in the softplus
+    range); also timed without ``state_dt`` (y's scan alone), the cost of
+    the state's run.  The kernel pads nothing."""
     from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
     gen = torch.Generator(device="cuda")
     gen.manual_seed(14)
@@ -2713,18 +2732,17 @@ def time_ssd(torch, L: int, reps: int) -> dict:
     x = xbc[..., :64 * 64].reshape(1, L, 64, 64)
     bm = xbc[..., 64 * 64:64 * 64 + 64].reshape(1, L, 1, 64)
     cm = xbc[..., 64 * 64 + 64:].reshape(1, L, 1, 64)
-    dt32 = torch.nn.functional.softplus(
+    dt = torch.nn.functional.softplus(
         torch.randn((1, L, 64), generator=gen, device="cuda"))
-    dt = dt32.to(bf)
     a = -torch.ones(64, device="cuda")
     err = check_ssd(f"ssd_scan at L={L}",
-                    ssd_scan(x, dt, a, bm, cm, state_dt=dt32),
-                    ssd_scan_plain(x, dt, a, bm, cm, state_dt=dt32))
-    state_err = float((ssd_scan(x, dt, a, bm, cm, state_dt=dt32)[1]
-                       - sequential_state(torch, x, dt32, a, bm)).abs().max())
+                    ssd_scan(x, dt, a, bm, cm, state_dt=dt),
+                    ssd_scan_plain(x, dt, a, bm, cm, state_dt=dt))
+    state_err = float((ssd_scan(x, dt, a, bm, cm, state_dt=dt)[1]
+                       - sequential_state(torch, x, dt, a, bm)).abs().max())
     bound, by = ssd_bound(1, L, 64, 1, 64, 64)
     return {"shape": f"BH 64, L {L}, P 64, N 64, bf16, strided xbc views, "
-                     "fp32 state_dt",
+                     "fp32 dt and state_dt",
             "max_abs_err": err, "bound_ms": bound, "bound_by": by,
             "state_err_vs_sequential": state_err,
             "without_state_dt_ms": cuda_ms(
@@ -2732,19 +2750,30 @@ def time_ssd(torch, L: int, reps: int) -> dict:
             "without_state_dt_device_ms": device_ms(
                 torch, lambda: ssd_scan(x, dt, a, bm, cm), reps)[0],
             **time_all(torch, lambda: ssd_scan(x, dt, a, bm, cm,
-                                               state_dt=dt32),
+                                               state_dt=dt),
                        lambda: ssd_scan_plain(x, dt, a, bm, cm,
-                                              state_dt=dt32), None, reps)}
+                                              state_dt=dt), None, reps)}
 
 
 def train_qwen3(torch, np) -> dict:
+    """The training phase's qwen3-1.7b check: ``train_steps`` at B
+    TRAIN_BATCH x S TRAIN_SEQ for TRAIN_STEPS steps."""
+    out, state = train_steps(torch, np, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS)
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_steps(torch, np, batch: int, seq: int, steps: int):
     """qwen3-1.7b at full width and depth in bf16 (seeded weights):
-    TRAIN_STEPS steps of ``make_train_step(remat=True)`` with the
-    reference's AdamW defaults on B x S batches from ``TokenPipeline``.
-    Launch counts are zeroed just before each step and read just after:
-    flash_attention twice a layer (the forward and its recomputation under
-    remat), flash_attention_bwd once.  The losses and grad norms must be
-    finite and the moments fp32.  Reports ms a step and the peak memory."""
+    ``steps`` steps of ``make_train_step(remat=True)`` with the
+    reference's AdamW defaults on batch x seq batches from
+    ``TokenPipeline``.  Launch counts are zeroed just before each step and
+    read just after: flash_attention twice a layer (the forward and its
+    recomputation under remat), flash_attention_bwd once.  The losses and
+    grad norms must be finite and the moments fp32.  Returns the report
+    (ms a step, the peak memory) and the run's state, ``(step, params,
+    opt, pipe)``, for a caller that goes on stepping."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import PipelineState, TokenPipeline
@@ -2757,19 +2786,19 @@ def train_qwen3(torch, np) -> dict:
     torch.cuda.reset_peak_memory_stats()
     params = init_model(cfg, 0, compute_device="cuda")
     opt = init_opt_state(params)
-    pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+    pipe = TokenPipeline(cfg.vocab_size, seq, batch,
                          PipelineState(seed=0, rank=0, world=1))
     step = make_train_step(cfg, AdamWConfig(), remat=True,
                            compute_device="cuda")
     want = {"flash_attention": 2 * cfg.n_layers,
             "flash_attention_bwd": cfg.n_layers}
     losses, gnorms, step_ms, total = [], [], [], collections.Counter()
-    for i in range(TRAIN_STEPS):
-        batch = pipe.next_batch()
+    for i in range(steps):
+        tokens = pipe.next_batch()
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        params, opt, metrics = step(params, opt, batch)
+        params, opt, metrics = step(params, opt, tokens)
         losses.append(float(metrics["loss"]))
         gnorms.append(float(metrics["grad_norm"]))
         torch.cuda.synchronize()
@@ -2782,22 +2811,20 @@ def train_qwen3(torch, np) -> dict:
     moments = leaves(opt["m"]) + leaves(opt["v"])
     if not (all(math.isfinite(x) for x in losses + gnorms)
             and all(m.dtype == torch.float32 for m in moments)
-            and int(opt["step"]) == TRAIN_STEPS):
+            and int(opt["step"]) == steps):
         fail(f"training {TRAIN_ARCH}: losses {losses}, grad norms {gnorms}, "
              f"moment dtypes {set(str(m.dtype) for m in moments)}, step "
              f"{int(opt['step'])}")
     out = {"arch": cfg.name, "n_layers": cfg.n_layers,
            "params": cfg.param_count(), "param_dtype": cfg.param_dtype,
-           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "batch": batch, "seq": seq, "steps": steps,
            "remat": True, "losses": losses, "grad_norms": gnorms,
            "step_ms": step_ms,
            "step_ms_after_first": sum(step_ms[1:]) / (len(step_ms) - 1),
            "launches_per_step": want, "launches": dict(total),
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
            / 1e9}
-    del params, opt
-    torch.cuda.empty_cache()
-    return out
+    return out, (step, params, opt, pipe)
 
 
 def train_whisper(torch, np) -> dict:
@@ -2966,36 +2993,50 @@ def bwd_bound(b: int, hq: int, hkv: int, sq: int, sk: int, d: int,
 
 
 def time_flash_bwd(torch, b: int, s: int, reps: int, hq: int = 16,
-                   hkv: int = 8, d: int = 128) -> dict:
-    """flash_attention's backward, causal, bf16, at B x S with qwen3-1.7b's
-    heads by default (seeded inputs; o and lse from the forward kernel),
-    beside its plain version and SDPA's backward (``enable_gqa``,
-    ``torch.autograd.grad`` of one forward, the library yardstick only)."""
+                   hkv: int = 8, d: int = 128, sk: int | None = None,
+                   causal: bool = True) -> dict:
+    """flash_attention's backward, bf16, at B x S queries (over ``sk``
+    keys, S by default; causal, or not) with qwen3-1.7b's heads by default
+    (seeded inputs; o and lse from the forward kernel), beside its plain
+    version and SDPA's backward (``enable_gqa``, ``torch.autograd.grad``
+    of one forward, the library yardstick only); ``kernel_device_ms``
+    splits the kernel's device time between its two kernels."""
     from repro_torch.kernels.flash_attention.ops import (
         _forward, flash_attention_bwd, flash_attention_bwd_plain)
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda")
     gen.manual_seed(43)
+    sk = s if sk is None else sk
     q = _randn(torch, gen, (b, hq, s, d), torch.bfloat16)
-    k, v = (_randn(torch, gen, (b, hkv, s, d), torch.bfloat16)
+    k, v = (_randn(torch, gen, (b, hkv, sk, d), torch.bfloat16)
             for _ in range(2))
     do = _randn(torch, gen, (b, hq, s, d), torch.bfloat16)
-    o, lse = _forward(q, k, v, True, None, None, want_lse=True)
+    o, lse = _forward(q, k, v, causal, None, None, want_lse=True)
     args = (q, k, v, o, lse, do)
-    err = max(check_close(f"flash_attention_bwd at B={b} S={s} H={hq}/{hkv} "
-                          f"D={d} {name}", "flash_attention_bwd", g, w)
+    kw = {"causal": causal}
+    err = max(check_close(f"flash_attention_bwd at B={b} Sq={s} Sk={sk} "
+                          f"H={hq}/{hkv} D={d} causal={causal} {name}",
+                          "flash_attention_bwd", g, w)
               for name, g, w in zip(("dq", "dk", "dv"),
-                                    flash_attention_bwd(*args),
-                                    flash_attention_bwd_plain(*args)))
+                                    flash_attention_bwd(*args, **kw),
+                                    flash_attention_bwd_plain(*args, **kw)))
     qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
+    lib_out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal,
                                              enable_gqa=hq != hkv)
-    bound, by = bwd_bound(b, hq, hkv, s, s, d, True)
-    return {"shape": f"B {b}, BH {hq} (kv {hkv}), S {s}, D {d}, bf16, "
-                     "causal", "max_abs_err": err, "bound_ms": bound,
-            "bound_by": by,
-            **time_all(torch, lambda: flash_attention_bwd(*args),
-                       lambda: flash_attention_bwd_plain(*args),
+    bound, by = bwd_bound(b, hq, hkv, s, sk, d, causal)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flash_attention_bwd(*args, **kw)
+        torch.cuda.synchronize()
+    split = {(re.search(r"bwd_\w+(<[^>]*>)?", n) or [n[:60]])[0]:
+             us / reps / 1e3 for n, us, _ in kernel_times_us(prof)}
+    return {"shape": f"B {b}, BH {hq} (kv {hkv}), Sq {s}, Sk {sk}, D {d}, "
+                     f"bf16, {'causal' if causal else 'non-causal'}",
+            "max_abs_err": err, "bound_ms": bound, "bound_by": by,
+            "kernel_device_ms": split,
+            **time_all(torch, lambda: flash_attention_bwd(*args, **kw),
+                       lambda: flash_attention_bwd_plain(*args, **kw),
                        lambda: torch.autograd.grad(lib_out, (qr, kr, vr), do,
                                                    retain_graph=True),
                        reps)}

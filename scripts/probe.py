@@ -31,6 +31,11 @@ Phases, each made of ``chip_smoke.py``'s own functions:
     ssd       ssd_scan at zamba2's L 189 and 4,096
     flash_bwd flash_attention's backward at qwen3-1.7b's heads at the
               training shape (B 8 x S 64) and at 4,096 tokens, beside SDPA's
+              backward, with the registers, stack and spills ptxas reports
+              for every kernel of its library
+    whisper_bwd the backward at whisper-tiny's training shapes (B 8, 6
+              heads of 64, non-causal): the encoder's 1,500 x 1,500 and the
+              cross attention's 64 queries over 1,500 frames, beside SDPA's
               backward
     whisper_flash flash_attention at whisper-tiny's encoder (S 1,500,
               non-causal) and cross attention (189 over 1,500)
@@ -46,6 +51,9 @@ Phases, each made of ``chip_smoke.py``'s own functions:
               tiny through the launcher with a restore, the float32
               card-vs-CPU training checks (qwen3-1.7b at 2 layers,
               whisper-tiny at full size)
+    train_qwen3_long qwen3-1.7b at full size in bf16 on B 1 x S 4,096: 2
+              steps (ms a step, launches, peak memory), then a third under
+              torch.profiler for the backward kernels' share of the step
     fleet_matrix db_bench's fleet_sweep at full size, then the fleet
               matrix in one lindley_scan launch against its passes, and
               lindley_scan timed over the matrix's batch
@@ -137,10 +145,93 @@ def paged(torch, np, cs, ctx) -> dict:
             "long_b1": cs.time_paged_long(torch, 40, 1)}
 
 
+def ptxas_summary(name: str) -> dict:
+    """Registers, stack frame and spill bytes of every kernel ``nvcc
+    -Xptxas -v`` compiled for library ``name`` in this process (demangled
+    where ``c++filt`` is found); empty if it was not built here."""
+    import re
+    import shutil
+    import subprocess
+
+    from repro_torch.kernels import _build
+    out: dict = {}
+    fn = None
+    for line in _build.ptxas_reports.get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and fn is not None:
+            out[fn].update(stack=int(m.group(1)), spill_stores=int(
+                m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            out[fn]["registers"] = int(m.group(1))
+    if out and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(out),
+                               capture_output=True, text=True).stdout
+        out = dict(zip((n.split("::")[-1].split("(")[0]
+                        for n in names.splitlines()), out.values()))
+    return out
+
+
 def flash_bwd(torch, np, cs, ctx) -> dict:
-    return {"train": cs.time_flash_bwd(torch, cs.TRAIN_BATCH, cs.TRAIN_SEQ,
+    return {"ptxas": ptxas_summary("flash_attention_bwd"),
+            "train": cs.time_flash_bwd(torch, cs.TRAIN_BATCH, cs.TRAIN_SEQ,
                                        40),
             "qwen3_4096": cs.time_flash_bwd(torch, 1, cs.LONG_PREFILL, 4)}
+
+
+def whisper_bwd(torch, np, cs, ctx) -> dict:
+    n, b = cs.WHISPER_FRAMES, cs.WHISPER_TRAIN["batch"]
+    return {"encoder": cs.time_flash_bwd(torch, b, n, 10, 6, 6, 64,
+                                         causal=False),
+            "cross": cs.time_flash_bwd(torch, b, cs.TRAIN_SEQ, 20, 6, 6, 64,
+                                       sk=n, causal=False)}
+
+
+def train_qwen3_long(torch, np, cs, ctx) -> dict:
+    """qwen3-1.7b's training steps at B 1 x S LONG_PREFILL, then one more
+    step profiled."""
+    out, (step, params, opt, pipe) = cs.train_steps(torch, np, 1,
+                                                    cs.LONG_PREFILL, 2)
+    out["profiled_step"] = profile_train_step(
+        torch, cs, step, params, opt, pipe.next_batch(),
+        out["step_ms_after_first"])
+    del params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_train_step(torch, cs, step, params, opt, tokens,
+                       step_ms: float) -> dict:
+    """One training step under torch.profiler (device activity only): the
+    device time of the backward's kernels against the device's busy time
+    and against ``step_ms``, a step's time measured without the
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt, tokens)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = cs.kernel_times_us(prof)
+    busy = sum(us for _, us, _ in rows) / 1e3
+    bwd = [(n, us, c) for n, us, c in rows
+           if "bwd_dq" in n or "bwd_dkdv" in n]
+    bwd_ms = sum(us for _, us, _ in bwd) / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "bwd_device_ms": bwd_ms,
+            "bwd_share_of_busy": bwd_ms / busy if busy else None,
+            "bwd_share_of_step": bwd_ms / step_ms,
+            "bwd_kernels": [{"name": n[:90], "ms": us / 1e3, "count": c}
+                            for n, us, c in bwd],
+            "top_device": [{"name": n[:90], "ms": us / 1e3, "count": c}
+                           for n, us, c in rows[:12]]}
 
 
 def whisper_flash(torch, np, cs, ctx) -> dict:
@@ -419,6 +510,7 @@ PHASES = {
     "paged": (("paged_attention",), paged),
     "ssd": (("ssd_scan",), ssd),
     "flash_bwd": (("flash_attention", "flash_attention_bwd"), flash_bwd),
+    "whisper_bwd": (("flash_attention", "flash_attention_bwd"), whisper_bwd),
     "whisper_flash": (("flash_attention",), whisper_flash),
     "gemma3": (("flash_attention", "paged_attention"), gemma3),
     "serve_zamba2": (LM + ("ssd_scan",), serve_model("zamba2_1_2b")),
@@ -428,6 +520,7 @@ PHASES = {
     "serve_whisper": (LM, serve_model("whisper_tiny")),
     "train_qwen3": (TRAIN, lambda torch, np, cs, ctx:
                     cs.train_qwen3(torch, np)),
+    "train_qwen3_long": (TRAIN, train_qwen3_long),
     "train_whisper": (TRAIN + STORE, lambda torch, np, cs, ctx:
                       cs.train_whisper(torch, np)),
     "cross_train": (TRAIN, lambda torch, np, cs, ctx: {

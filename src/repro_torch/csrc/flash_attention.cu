@@ -68,6 +68,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "wgmma.cuh"
+
 namespace {
 
 constexpr int kBQ = 64;         // query rows per block
@@ -208,251 +210,6 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-__device__ __forceinline__ uint32_t pack(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// p ~= hi + lo with both halves in bf16: ~16 significant bits, so the P.V
-// products keep the fp32 probabilities of the reference to ~1e-5.
-__device__ __forceinline__ void split(float p0, float p1, uint32_t& hi,
-                                      uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
-  hi = pack(h);
-  lo = pack(__floats2bfloat162_rn(p0 - __low2float(h), p1 - __high2float(h)));
-}
-
-// 16-byte global -> shared copy; src_bytes 0 writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// this thread's finished generic-proxy (cp.async) writes to shared memory
-// become visible to the async proxy that wgmma reads through
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// 2^x on the special-function unit, subnormal results flushed to zero (a
-// probability below 2^-126 of the row's largest adds nothing to a sum >= 1)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Pins registers' values at this point of the instruction stream: reads
-// and writes of them stay on their side of a wgmma's launch and wait.
-__device__ __forceinline__ void fence_reg(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
-}
-__device__ __forceinline__ void fence_reg(uint32_t& r) {
-  asm volatile("" : "+r"(r)::"memory");
-}
-template <typename R, int N>
-__device__ __forceinline__ void fence_regs(R (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) fence_reg(r[i]);
-}
-
-// Shared-memory matrix descriptor of a 128-byte-swizzled tile (layout type
-// 1 in bits 62-63): start address, leading and stride byte offsets, all in
-// 16-byte units.  Tiles start 1024-byte aligned, so the base offset is 0.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-// Byte offset of 16-byte chunk c (8 bf16) of row r in a tile of `rows` rows
-// of D bf16, in the 128-byte swizzle the descriptors name: 64-column blocks
-// of rows * 128 bytes one after another, 128 bytes per row, and chunk c & 7
-// of a row at c & 7 ^ r & 7.  Q and K (K-major operands) and V (the
-// MN-major B of P.V) all use it.
-__device__ __forceinline__ uint32_t swz(int r, int c, int rows) {
-  return (uint32_t)((c >> 3) * rows * 128 + r * 128 +
-                    (((c & 7) ^ (r & 7)) << 4));
-}
-
-// d (64 x 64, fp32) (+)= A (64 x 16, bf16, shared, K-major) * B (16 x 64,
-// bf16, shared, K-major); scale_d 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d (64 x 32, fp32) (+)= A (64 x 16, bf16, shared, K-major) * B (16 x 32,
-// bf16, shared, K-major); scale_d 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      "%12, %13, %14, %15"
-      "}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// The scores of a BK-key tile: Q.K^T as one wgmma of N = BK.
-template <int BK>
-__device__ __forceinline__ void wgmma_qk(float (&d)[BK / 2], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  if constexpr (BK == 64)
-    wgmma_ss_n64(d, da, db, scale_d);
-  else
-    wgmma_ss_n32(d, da, db, scale_d);
-}
-
-// d (64 x 64, fp32) += A (64 x 16, bf16, registers) * B (16 x 64, bf16,
-// shared, MN-major: the descriptor's transpose).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 128, fp32) += A (64 x 16, bf16, registers) * B (16 x 128, bf16,
-// shared, MN-major: the descriptor's transpose).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
-      "%60, %61, %62, %63"
-      "}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 256, fp32) += A (64 x 16, bf16, registers) * B (16 x 256, bf16,
-// shared, MN-major: the descriptor's transpose).
-__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
-      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
-      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
-      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69,"
-      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89,"
-      "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99,"
-      "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109,"
-      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
-        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 constexpr int kWgThreads = 128;   // one warpgroup: 64 query rows
 
 template <int D>
@@ -473,18 +230,6 @@ struct WCfg {
   static constexpr size_t SMEM = 1024 + Q_BYTES + NS * STAGE;
   static_assert(SMEM <= 232448, "a block's shared memory");
 };
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&acc)[D / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (D == 64)
-    wgmma_rs_n64(acc, a, db);
-  else if constexpr (D == 128)
-    wgmma_rs_n128(acc, a, db);
-  else
-    wgmma_rs_n256(acc, a, db);
-}
 
 // bf16 inputs: Q.K^T and P.V on the tensor cores with wgmma (fp32
 // accumulators).  One warpgroup owns 64 query rows; warp w of it holds rows
@@ -510,11 +255,8 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
   constexpr int KS = D / 16;     // k-steps of Q.K^T
   constexpr int NT = BK / 8;    // 8-key groups of a tile
   constexpr int DT = D / 8;      // 8-column groups of the output
-  constexpr int CPR = D / 8;     // 16-byte chunks per row
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t sq =
-      (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u) &
-      ~1023u;
+  const uint32_t sq = (smem_base(smem_raw) + 1023u) & ~1023u;
   const uint32_t skv = sq + C::Q_BYTES;
 
   const int bh = blockIdx.x;
@@ -535,26 +277,13 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
   const int kt_hi = causal ? min(n_kt, q_last / BK + 1) : n_kt;
   const int n_tiles = max(0, kt_hi - kt_lo);
 
-  for (int idx = tid; idx < kBQ * CPR; idx += kWgThreads) {
-    const int r = idx / CPR, c = idx % CPR;
-    const bool in = q0 + r < s;
-    cp_async16(sq + swz(r, c, kBQ),
-               in ? qg + (size_t)(q0 + r) * D + c * 8 : qg, in ? 16 : 0);
-  }
+  load_swz<D, kBQ>(sq, qg, q0, s);
   cp_async_commit();
   auto load_tile = [&](int i) {
     const int k0 = (kt_lo + i) * BK;
     const uint32_t base = skv + (i % NS) * C::STAGE;
-#pragma unroll
-    for (int j = 0; j < 2 * BK * CPR / kWgThreads; ++j) {
-      const int idx = tid + j * kWgThreads;
-      const int kv = idx / (BK * CPR);
-      const int r = (idx / CPR) % BK, c = idx % CPR;
-      const bool in = k0 + r < s_k;
-      const __nv_bfloat16* src = kv ? vg : kg;
-      cp_async16(base + kv * C::T_BYTES + swz(r, c, BK),
-                 in ? src + (size_t)(k0 + r) * D + c * 8 : kg, in ? 16 : 0);
-    }
+    load_swz<D, BK>(base, kg, k0, s_k);
+    load_swz<D, BK>(base + C::T_BYTES, vg, k0, s_k);
   };
 #pragma unroll
   for (int i = 0; i < NS - 1; ++i) {
@@ -583,7 +312,7 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
       const uint32_t off = (ks & 3) * 32;   // 16 columns = 32 bytes
-      wgmma_qk<BK>(sc,
+      wgmma_ss<BK>(sc,
                    smem_desc(sq + (ks >> 2) * kBQ * 128 + off, 16, 1024),
                    smem_desc(sk + (ks >> 2) * BK * 128 + off, 16, 1024),
                    ks > 0);
@@ -668,12 +397,7 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
     }
     uint32_t ph[BK / 16][4], pl[BK / 16][4];
 #pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      split(sc[8 * j + 0], sc[8 * j + 1], ph[j][0], pl[j][0]);
-      split(sc[8 * j + 2], sc[8 * j + 3], ph[j][1], pl[j][1]);
-      split(sc[8 * j + 4], sc[8 * j + 5], ph[j][2], pl[j][2]);
-      split(sc[8 * j + 6], sc[8 * j + 7], ph[j][3], pl[j][3]);
-    }
+    for (int j = 0; j < BK / 16; ++j) split_frag<BK>(sc, j, ph[j], pl[j]);
     fence_regs(acc);
 #pragma unroll
     for (int j = 0; j < BK / 16; ++j) {
@@ -686,8 +410,8 @@ flash_fwd_wgmma(const __nv_bfloat16* __restrict__ q,
       // keys 16j..16j+15: two 8-key groups of 1024 bytes; the 64-column
       // blocks of V lie BK * 128 bytes apart
       const uint64_t db = smem_desc(sv + j * 2048, BK * 128, 1024);
-      wgmma_pv<D>(acc, ph[j], db);
-      wgmma_pv<D>(acc, pl[j], db);
+      wgmma_rs<D>(acc, ph[j], db);
+      wgmma_rs<D>(acc, pl[j], db);
     }
     wgmma_commit();
     wgmma_wait<0>();

@@ -18,30 +18,72 @@
 // clamp gives it an output of 0.
 //
 // Two kernels, both deterministic (no atomics: every output element is
-// summed by one thread in a fixed order, so two calls are bitwise equal):
+// summed by one thread, or by one chain of wgmmas, in a fixed order, so
+// two calls are bitwise equal):
 //
-// * bwd_dq: one block per (b, q head, query tile).  Its prologue computes
-//   delta for the tile's rows from O and dO and writes it out for bwd_dkdv;
+// * dq: one block per (b, q head, query tile).  Its prologue computes
+//   delta for the tile's rows from O and dO and writes it out for dkdv;
 //   then it walks the key tiles the rows can see and accumulates dQ.
-// * bwd_dkdv: one block per (b, kv head, key tile).  It walks every query
+// * dkdv: one block per (b, kv head, key tile).  It walks every query
 //   tile that can see its keys, for every query head of its GQA group in
 //   turn, so the group's sum happens inside the block.  Launched after
-//   bwd_dq on the same stream, it reads delta from it.
+//   dq on the same stream, it reads delta from it.
 //
 // Bound on the H100: 10 * D operations per unmasked (query, key) pair
 // (five products of 2 * D: Q.K^T and dO.V^T recomputed, dV, dK, dQ),
-// against bf16's tensor-core rate.  This first kernel is simple rather
-// than fast: every product runs on the CUDA cores in fp32 from fp32 tiles
-// in shared memory, 256 threads a block, T x T tiles (T = 64, 32 at D
-// 256, where a thread's dK and dV accumulators are 2 x 32 fp32 registers
-// as at D 128).  Each tile row's T / (256 / T) scores are computed by the
-// 256 / T consecutive threads of one warp that later read them back, so a
-// tile of P and dS needs only __syncwarp between its writes and reads.
-// Tensor cores (wgmma), TMA and warp specialisation are later work.
+// against bf16's tensor-core rate.
+//
+// bf16 at head_dim 64 and 128 (bwd_dq_wgmma, bwd_dkdv_wgmma), the
+// training paths' shapes (qwen3's 128, whisper's 64): one warpgroup a
+// block runs every product as a wgmma with fp32 accumulators, its
+// operands in 128-byte-swizzled shared tiles filled by a cp.async ring
+// (the helpers of wgmma.cuh, shared with the forward):
+//
+//   bwd_dq, 64 query rows:  S = Q.K^T and dP = dO.V^T with Q and dO
+//     resident and K and V tiles of 64 keys streaming (all K-major), then
+//     dQ += dS.K with dS from registers and K through the descriptor's
+//     transpose (MN-major), as the forward reads V.
+//   bwd_dkdv, 64 keys:  S^T = K.Q^T and dP^T = V.dO^T with K and V
+//     resident and Q and dO tiles streaming, then dV += P^T.dO and
+//     dK += dS^T.Q with P^T and dS^T from registers and dO and Q
+//     MN-major.  The key tile is M, so the accumulator fragment of S^T is
+//     exactly the A fragment of P^T.dO (wgmma.cuh's note): P, P^T, dS and
+//     dS^T never pass through shared memory and are never transposed, and
+//     each Q or dO tile is a K-major B in one product and an MN-major B in
+//     another.  Each thread reads the lse and delta of its fragment's
+//     query columns from a small shared array that rides with the tile.
+//
+// The plain version multiplies fp32 P and dS into dV, dK and dQ; one bf16
+// rounding of them leaves dozens of elements of each gradient outside the
+// bf16 TOL at every tested shape, so each of the three is two wgmmas per
+// 16 columns, hi then lo (~16 significant bits; the CPU mirror in
+// tests/test_torch_flash_backward.py shows both), which makes the work
+// 10 products of 2 * D a pair, twice the bound's count.  Registers: at D
+// 128 dK and dV alone take 128 fp32 accumulators a thread, so bwd_dkdv
+// there takes 32-query tiles (S^T and dP^T as m64n32, 16 each); at D 64,
+// 64-query tiles.  bwd_dq takes 64-key tiles at both.  Longest work
+// first: bwd_dq runs its query tiles in reverse (the long causal rows
+// first), bwd_dkdv its key tiles from 0.  dV's wgmmas run while dS^T is
+// formed; otherwise each warpgroup waits on its own wgmmas, and the
+// probabilities, the mask and the splits run on the CUDA cores.
+//
+// What stays on the CUDA-core kernels below (bwd_dq, bwd_dkdv: every
+// product in fp32 from fp32 shared tiles, 256 threads, T x T tiles, T 64,
+// 32 at D 256):
+// * bf16 at D 256: dK and dV alone would take 128 + 128 fp32 registers a
+//   thread in one warpgroup; splitting their columns over two warpgroups
+//   needs S^T shared through shared memory, which is later work.  No
+//   training path runs D 256 (gemma3 does not train).
+// * every fp32 call: the fp32 TOL (1e-4, 1e-4) and the float32 card-vs-CPU
+//   training cross-checks need fp32 operands; bf16 or TF32 ones do not
+//   meet them.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -346,6 +388,500 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------- wgmma
+constexpr int kWg = 128;      // one warpgroup
+constexpr int kRows = 64;     // M of every wgmma: query rows or keys
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct WCfg {
+  static constexpr int TILE = kRows * D * 2;   // a resident 64-row tile
+  // bwd_dq_wgmma: 64-key K and V tiles through an NS_Q-stage ring
+  static constexpr int BK = 64;
+  static constexpr int NS_Q = D == 64 ? 3 : 2;
+  static constexpr int KV_TILE = BK * D * 2;
+  static constexpr int STAGE_Q = 2 * KV_TILE;   // K tile then V tile
+  // + 1024 to align the tiles to the swizzle's 1024-byte period
+  static constexpr size_t SMEM_DQ = 1024 + 2 * TILE + NS_Q * STAGE_Q;
+  // bwd_dkdv_wgmma: BQ-query Q and dO tiles through an NS_K-stage ring,
+  // each stage's rows' lse and delta in a float array after the ring
+  static constexpr int BQ = D == 64 ? 64 : 32;
+  static constexpr int NS_K = 3;
+  static constexpr int Q_TILE = BQ * D * 2;
+  static constexpr int STAGE_K = 2 * Q_TILE;    // Q tile then dO tile
+  static constexpr size_t SMEM_DKDV =
+      1024 + 2 * TILE + NS_K * STAGE_K + NS_K * 2 * BQ * sizeof(float);
+  static_assert(SMEM_DQ <= 232448 && SMEM_DKDV <= 232448,
+                "a block's shared memory");
+};
+
+// sum of the products of 8 bf16 pairs, in fp32
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 fx = __bfloat1622float2(x[i]), fy = __bfloat1622float2(y[i]);
+    s += fx.x * fy.x + fx.y * fy.y;
+  }
+  return s;
+}
+
+// dQ of 64 query rows of one (b, q head): S = Q.K^T and dP = dO.V^T (Q, dO
+// resident; K, V streaming; all K-major), P = exp(S * scale - lse) under
+// the mask, dS = P * (dP - delta), dQ += dS.K with dS from registers in
+// hi and lo halves and K MN-major.  Writes delta for the rows first.
+template <int D>
+__global__ void __launch_bounds__(kWg, 1)
+bwd_dq_wgmma(const __nv_bfloat16* __restrict__ q,
+             const __nv_bfloat16* __restrict__ k,
+             const __nv_bfloat16* __restrict__ v,
+             const __nv_bfloat16* __restrict__ o,
+             const float* __restrict__ lse,
+             const __nv_bfloat16* __restrict__ dout,
+             __nv_bfloat16* __restrict__ dq, float* __restrict__ delta,
+             int hq, int hkv, int sq, int sk, int causal, int window,
+             float scale) {
+  using C = WCfg<D>;
+  constexpr int BK = C::BK, NS = C::NS_Q;
+  constexpr int KS = D / 16;     // k-steps of S and dP
+  constexpr int NT = BK / 8;     // 8-key groups of a tile
+  constexpr int DT = D / 8;      // 8-column groups of dQ
+  constexpr int CPR = D / 8;     // 16-byte chunks a row
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ float s_delta[kRows];
+  const uint32_t s_q = (smem_base(smem_raw) + 1023u) & ~1023u;
+  const uint32_t s_do = s_q + C::TILE;
+  const uint32_t s_kv = s_do + C::TILE;
+
+  const int bh = blockIdx.x;
+  const int qt = gridDim.y - 1 - blockIdx.y;   // longest causal tiles first
+  const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  const int q0 = qt * kRows;
+  const size_t row0 = (size_t)bh * sq;
+  const __nv_bfloat16* kg = k + (size_t)kvh * sk * D;
+  const __nv_bfloat16* vg = v + (size_t)kvh * sk * D;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int ra = warp * 16 + g, rb = ra + 8;   // this thread's rows
+  const int qa = q0 + ra, qb = q0 + rb;
+  const int q_last = min(q0 + kRows - 1, sq - 1);
+  // the key tiles some row of the block can see (the forward's test)
+  const int n_kt = (sk + BK - 1) / BK;
+  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  const int kt_hi = causal ? min(n_kt, q_last / BK + 1) : n_kt;
+  const int n_tiles = max(0, kt_hi - kt_lo);
+
+  load_swz<D, kRows>(s_q, q + row0 * D, q0, sq);
+  load_swz<D, kRows>(s_do, dout + row0 * D, q0, sq);
+  cp_async_commit();
+  auto load_tile = [&](int i) {
+    const int k0 = (kt_lo + i) * BK;
+    const uint32_t st = s_kv + (i % NS) * C::STAGE_Q;
+    load_swz<D, BK>(st, kg, k0, sk);
+    load_swz<D, BK>(st + C::KV_TILE, vg, k0, sk);
+  };
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {
+    if (i < n_tiles) load_tile(i);
+    cp_async_commit();
+  }
+
+  // delta of the tile's rows, two threads a row, while the copies fly
+  {
+    const int r = tid >> 1, half = tid & 1;
+    float part = 0.f;
+    if (q0 + r < sq) {
+      const uint4* orow =
+          reinterpret_cast<const uint4*>(o + (row0 + q0 + r) * D);
+      const uint4* drow =
+          reinterpret_cast<const uint4*>(dout + (row0 + q0 + r) * D);
+#pragma unroll
+      for (int c = half; c < CPR; c += 2) part += dot8(orow[c], drow[c]);
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    if (half == 0) {
+      s_delta[r] = part;
+      if (q0 + r < sq) delta[row0 + q0 + r] = part;
+    }
+  }
+  __syncthreads();
+  const float del_a = s_delta[ra], del_b = s_delta[rb];
+  // the rows' lse in log2 units: P = 2^(S * scale * log2 e - lse2)
+  const float lse_a = qa < sq ? lse[row0 + qa] * kLog2e : 0.f;
+  const float lse_b = qb < sq ? lse[row0 + qb] * kLog2e : 0.f;
+  const float scale2 = scale * kLog2e;
+
+  float acc[DT * 4];
+#pragma unroll
+  for (int i = 0; i < DT * 4; ++i) acc[i] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<NS - 2>();   // Q, dO and tile i have landed (this thread's)
+    fence_proxy_async();
+    __syncthreads();           // ... everyone's; tile i - 1 is done
+    if (i + NS - 1 < n_tiles) load_tile(i + NS - 1);
+    cp_async_commit();
+
+    const int k0 = (kt_lo + i) * BK;
+    const uint32_t s_k = s_kv + (i % NS) * C::STAGE_Q;
+    const uint32_t s_v = s_k + C::KV_TILE;
+    float s[NT * 4], dp[NT * 4];   // the first k-step overwrites them
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const uint32_t off = (ks & 3) * 32;   // 16 columns = 32 bytes
+      wgmma_ss<BK>(s, smem_desc(s_q + (ks >> 2) * kRows * 128 + off, 16, 1024),
+                   smem_desc(s_k + (ks >> 2) * BK * 128 + off, 16, 1024),
+                   ks > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const uint32_t off = (ks & 3) * 32;
+      wgmma_ss<BK>(dp,
+                   smem_desc(s_do + (ks >> 2) * kRows * 128 + off, 16, 1024),
+                   smem_desc(s_v + (ks >> 2) * BK * 128 + off, 16, 1024),
+                   ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();   // S is in; dP may still be running
+    fence_regs(s);
+
+    // P of the tile, the mask tests compiled in only where some element
+    // is masked (diagonal, window edge, ragged Sk)
+    auto probs = [&](auto masked_t) {
+      constexpr bool kMasked = decltype(masked_t)::value;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = ex2(fmaf(s[nt * 4 + e], scale2, e < 2 ? -lse_a : -lse_b));
+          if constexpr (kMasked) {
+            if (!keep(e < 2 ? qa : qb, k0 + nt * 8 + tq * 2 + (e & 1), sq,
+                      sk, causal, window))
+              p = 0.f;
+          }
+          s[nt * 4 + e] = p;
+        }
+    };
+    const bool masked = k0 + BK > sk || (causal && k0 + BK - 1 > q0) ||
+                        (window > 0 && q0 + kRows - 1 - k0 >= window);
+    if (masked)
+      probs(std::true_type{});
+    else
+      probs(std::false_type{});
+
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[nt * 4 + e] *= dp[nt * 4 + e] - (e < 2 ? del_a : del_b);   // dS
+    uint32_t dh[BK / 16][4], dl[BK / 16][4];
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) split_frag<BK>(s, j, dh[j], dl[j]);
+    fence_regs(acc);
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) {
+      fence_regs(dh[j]);
+      fence_regs(dl[j]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) {
+      // keys 16j..16j+15: two 8-key groups of 1024 bytes; the 64-column
+      // blocks of K lie BK * 128 bytes apart
+      const uint64_t db = smem_desc(s_k + j * 2048, BK * 128, 1024);
+      wgmma_rs<D>(acc, dh[j], db);
+      wgmma_rs<D>(acc, dl[j], db);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) {
+      fence_regs(dh[j]);
+      fence_regs(dl[j]);
+    }
+  }
+  cp_async_wait<0>();
+
+  __nv_bfloat16* dqg = dq + row0 * D;
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) {
+    const int col = dt * 8 + tq * 2;
+    if (qa < sq)
+      *reinterpret_cast<__nv_bfloat162*>(&dqg[(size_t)qa * D + col]) =
+          __floats2bfloat162_rn(acc[dt * 4 + 0] * scale,
+                                acc[dt * 4 + 1] * scale);
+    if (qb < sq)
+      *reinterpret_cast<__nv_bfloat162*>(&dqg[(size_t)qb * D + col]) =
+          __floats2bfloat162_rn(acc[dt * 4 + 2] * scale,
+                                acc[dt * 4 + 3] * scale);
+  }
+}
+
+// dK and dV of 64 keys of one (b, kv head), over every visible BQ-query
+// tile of every query head of its GQA group in a fixed order: S^T = K.Q^T
+// and dP^T = V.dO^T (K, V resident; Q, dO streaming; all K-major), P^T and
+// dS^T as in bwd_dq, then dV += P^T.dO and dK += dS^T.Q with P^T and dS^T
+// from registers in hi and lo halves and dO and Q MN-major.
+template <int D>
+__global__ void __launch_bounds__(kWg, 1)
+bwd_dkdv_wgmma(const __nv_bfloat16* __restrict__ q,
+               const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v,
+               const float* __restrict__ lse,
+               const __nv_bfloat16* __restrict__ dout,
+               const float* __restrict__ delta,
+               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+               int hq, int hkv, int sq, int sk, int causal, int window,
+               float scale) {
+  using C = WCfg<D>;
+  constexpr int BQ = C::BQ, NS = C::NS_K;
+  constexpr int KS = D / 16;     // k-steps of S^T and dP^T
+  constexpr int NT = BQ / 8;     // 8-query groups of a tile
+  constexpr int DT = D / 8;      // 8-column groups of dK and dV
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_base(smem_raw);
+  const uint32_t s_k = (raw + 1023u) & ~1023u;
+  const uint32_t s_v = s_k + C::TILE;
+  const uint32_t s_ring = s_v + C::TILE;
+  const uint32_t s_rows = s_ring + NS * C::STAGE_K;   // [NS][lse, delta][BQ]
+  const float* rows_f =
+      reinterpret_cast<const float*>(smem_raw + (s_rows - raw));
+
+  const int bkv = blockIdx.x;        // b * hkv + kv head
+  const int b = bkv / hkv, kvh = bkv % hkv;
+  const int rep = hq / hkv;
+  const int k0 = blockIdx.y * kRows;   // longest causal tiles first
+  const __nv_bfloat16* kg = k + (size_t)bkv * sk * D;
+  const __nv_bfloat16* vg = v + (size_t)bkv * sk * D;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int ka = k0 + warp * 16 + g, kb = ka + 8;   // this thread's keys
+
+  load_swz<D, kRows>(s_k, kg, k0, sk);
+  load_swz<D, kRows>(s_v, vg, k0, sk);
+  cp_async_commit();
+  // the query tiles some key of this tile is visible from, for each head
+  // of the group in turn
+  const int k_last = min(k0 + kRows - 1, sk - 1);
+  const int n_qt = (sq + BQ - 1) / BQ;
+  const int qt_lo = causal ? k0 / BQ : 0;
+  const int qt_hi =
+      window > 0 ? min(n_qt, (k_last + window - 1) / BQ + 1) : n_qt;
+  const int nqt = max(0, qt_hi - qt_lo);
+  const int n_items = rep * nqt;
+  auto load_item = [&](int i) {
+    const size_t row0 = (size_t)(b * hq + kvh * rep + i / nqt) * sq;
+    const int q0 = (qt_lo + i % nqt) * BQ;
+    const uint32_t st = s_ring + (i % NS) * C::STAGE_K;
+    load_swz<D, BQ>(st, q + row0 * D, q0, sq);
+    load_swz<D, BQ>(st + C::Q_TILE, dout + row0 * D, q0, sq);
+    if (tid < 2 * BQ) {   // lse for tid < BQ, then delta
+      const int r = tid % BQ;
+      const bool in = q0 + r < sq;
+      const float* src = (tid < BQ ? lse : delta) + row0 + q0 + r;
+      cp_async4(s_rows + ((i % NS) * 2 * BQ + tid) * 4, in ? src : lse,
+                in ? 4 : 0);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {
+    if (i < n_items) load_item(i);
+    cp_async_commit();
+  }
+
+  float acc_k[DT * 4], acc_v[DT * 4];
+#pragma unroll
+  for (int i = 0; i < DT * 4; ++i) acc_k[i] = acc_v[i] = 0.f;
+  const float scale2 = scale * kLog2e;
+
+  for (int i = 0; i < n_items; ++i) {
+    cp_async_wait<NS - 2>();   // K, V and item i have landed (this thread's)
+    fence_proxy_async();
+    __syncthreads();           // ... everyone's; item i - 1 is done
+    if (i + NS - 1 < n_items) load_item(i + NS - 1);
+    cp_async_commit();
+
+    const int q0 = (qt_lo + i % nqt) * BQ;
+    const uint32_t s_qt = s_ring + (i % NS) * C::STAGE_K;
+    const uint32_t s_dot = s_qt + C::Q_TILE;
+    const float* lse_t = rows_f + (i % NS) * 2 * BQ;
+    const float* del_t = lse_t + BQ;
+    float st[NT * 4], dpt[NT * 4];   // the first k-step overwrites them
+    fence_regs(st);
+    fence_regs(dpt);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const uint32_t off = (ks & 3) * 32;
+      wgmma_ss<BQ>(st, smem_desc(s_k + (ks >> 2) * kRows * 128 + off, 16, 1024),
+                   smem_desc(s_qt + (ks >> 2) * BQ * 128 + off, 16, 1024),
+                   ks > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const uint32_t off = (ks & 3) * 32;
+      wgmma_ss<BQ>(dpt,
+                   smem_desc(s_v + (ks >> 2) * kRows * 128 + off, 16, 1024),
+                   smem_desc(s_dot + (ks >> 2) * BQ * 128 + off, 16, 1024),
+                   ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();   // S^T is in; dP^T may still be running
+    fence_regs(st);
+
+    // P^T: key ka (e < 2) or kb, query column q0 + 8 nt + 2 tq + (e & 1)
+    auto probs = [&](auto masked_t) {
+      constexpr bool kMasked = decltype(masked_t)::value;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = nt * 8 + tq * 2 + (e & 1);
+          float p = ex2(fmaf(st[nt * 4 + e], scale2, -lse_t[c] * kLog2e));
+          if constexpr (kMasked) {
+            if (!keep(q0 + c, e < 2 ? ka : kb, sq, sk, causal, window))
+              p = 0.f;
+          }
+          st[nt * 4 + e] = p;
+        }
+    };
+    const bool masked = q0 + BQ > sq || k0 + kRows > sk ||
+                        (causal && k0 + kRows - 1 > q0) ||
+                        (window > 0 && q0 + BQ - 1 - k0 >= window);
+    if (masked)
+      probs(std::true_type{});
+    else
+      probs(std::false_type{});
+    uint32_t ph[BQ / 16][4], pl[BQ / 16][4];
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j) split_frag<BQ>(st, j, ph[j], pl[j]);
+    fence_regs(acc_v);
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j) {
+      fence_regs(ph[j]);
+      fence_regs(pl[j]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j) {
+      // queries 16j..16j+15 of the dO tile, MN-major
+      const uint64_t db = smem_desc(s_dot + j * 2048, BQ * 128, 1024);
+      wgmma_rs<D>(acc_v, ph[j], db);
+      wgmma_rs<D>(acc_v, pl[j], db);
+    }
+    wgmma_commit();
+
+    wgmma_wait<1>();   // dP^T is in; dV's wgmmas may still be running
+    fence_regs(dpt);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        st[nt * 4 + e] *=
+            dpt[nt * 4 + e] - del_t[nt * 8 + tq * 2 + (e & 1)];   // dS^T
+    uint32_t dh[BQ / 16][4], dl[BQ / 16][4];
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j) split_frag<BQ>(st, j, dh[j], dl[j]);
+    fence_regs(acc_k);
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j) {
+      fence_regs(dh[j]);
+      fence_regs(dl[j]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j) {
+      const uint64_t db = smem_desc(s_qt + j * 2048, BQ * 128, 1024);
+      wgmma_rs<D>(acc_k, dh[j], db);
+      wgmma_rs<D>(acc_k, dl[j], db);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_k);
+    fence_regs(acc_v);
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j) {
+      fence_regs(ph[j]);
+      fence_regs(pl[j]);
+      fence_regs(dh[j]);
+      fence_regs(dl[j]);
+    }
+  }
+  cp_async_wait<0>();
+
+  __nv_bfloat16* dkg = dk + (size_t)bkv * sk * D;
+  __nv_bfloat16* dvg = dv + (size_t)bkv * sk * D;
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) {
+    const int col = dt * 8 + tq * 2;
+    if (ka < sk) {
+      *reinterpret_cast<__nv_bfloat162*>(&dkg[(size_t)ka * D + col]) =
+          __floats2bfloat162_rn(acc_k[dt * 4 + 0] * scale,
+                                acc_k[dt * 4 + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(&dvg[(size_t)ka * D + col]) =
+          __floats2bfloat162_rn(acc_v[dt * 4 + 0], acc_v[dt * 4 + 1]);
+    }
+    if (kb < sk) {
+      *reinterpret_cast<__nv_bfloat162*>(&dkg[(size_t)kb * D + col]) =
+          __floats2bfloat162_rn(acc_k[dt * 4 + 2] * scale,
+                                acc_k[dt * 4 + 3] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(&dvg[(size_t)kb * D + col]) =
+          __floats2bfloat162_rn(acc_v[dt * 4 + 2], acc_v[dt * 4 + 3]);
+    }
+  }
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
+                 const float* lse, const void* dout, void* dq, void* dk,
+                 void* dv, float* delta, int b, int hq, int hkv, int sq,
+                 int sk, int causal, int window, float scale,
+                 cudaStream_t stream) {
+  using C = WCfg<D>;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        bwd_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(C::SMEM_DQ));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    e = cudaFuncSetAttribute(bwd_dkdv_wgmma<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(C::SMEM_DKDV));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  const int n_qt = (sq + kRows - 1) / kRows, n_kt = (sk + kRows - 1) / kRows;
+  if (n_qt > 65535 || n_kt > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  using B = const __nv_bfloat16*;
+  bwd_dq_wgmma<D><<<dim3(b * hq, n_qt), kWg, C::SMEM_DQ, stream>>>(
+      static_cast<B>(q), static_cast<B>(k), static_cast<B>(v),
+      static_cast<B>(o), lse, static_cast<B>(dout),
+      static_cast<__nv_bfloat16*>(dq), delta, hq, hkv, sq, sk, causal,
+      window, scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (sk <= 0) return 0;
+  bwd_dkdv_wgmma<D><<<dim3(b * hkv, n_kt), kWg, C::SMEM_DKDV, stream>>>(
+      static_cast<B>(q), static_cast<B>(k), static_cast<B>(v), lse,
+      static_cast<B>(dout), delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), hq, hkv, sq, sk, causal, window,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; d: 64, 128 or 256; window <= 0 =
@@ -371,9 +907,13 @@ extern "C" int flash_attention_bwd_launch(
   if (dtype == 0 && d == 64) FLASH_BWD(float, 64);
   if (dtype == 0 && d == 128) FLASH_BWD(float, 128);
   if (dtype == 0 && d == 256) FLASH_BWD(float, 256);
-  if (dtype == 1 && d == 64) FLASH_BWD(__nv_bfloat16, 64);
-  if (dtype == 1 && d == 128) FLASH_BWD(__nv_bfloat16, 128);
   if (dtype == 1 && d == 256) FLASH_BWD(__nv_bfloat16, 256);
 #undef FLASH_BWD
+  if (dtype == 1 && d == 64)
+    return launch_wgmma<64>(q, k, v, o, l, dout, dq, dk, dv, dl, b, hq, hkv,
+                            sq, sk, causal, window, scale, st);
+  if (dtype == 1 && d == 128)
+    return launch_wgmma<128>(q, k, v, o, l, dout, dq, dk, dv, dl, b, hq, hkv,
+                             sq, sk, causal, window, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

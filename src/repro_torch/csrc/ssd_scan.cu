@@ -1,5 +1,8 @@
 // Mamba2 SSD scan: s_t = exp(dt_t a) s_{t-1} + dt_t B_t x_t^T, y_t = C_t s_t
-// per head, for bf16 or fp32 x/dt/B/C (a in fp32), fp32 arithmetic.
+// per head, for bf16 or fp32 x/B/C, fp32 dt and a, fp32 arithmetic.  dt
+// stays fp32 with bf16 x, B and C because the model feeds y the fp32
+// softplus output, as the reference's default route (ssd_scan_ref)
+// computes it.
 // Writes y and the final state s_L (fp32), which a prefill hands to decode.
 //
 // Replaces the ssd_scan TPU kernel: src/repro/kernels/ssd_scan/kernel.py,
@@ -52,11 +55,12 @@
 //
 // The final state, which a prefill hands to decode, follows Mamba2's
 // sequential fp32 scan with dt in fp32 (the reference model's
-// ssd_final_state), not y's bf16 dt: when the caller passes an fp32
-// state_dt, chunk_state also forms each chunk's own state from it, from
-// the tiles it already holds, with B * w split into three bf16 parts (~24
-// significant bits, fp32's own), and the state pass carries that second
-// chain too (grid z = 1), into s_L only.
+// ssd_final_state): when the caller passes an fp32 state_dt, chunk_state
+// also forms each chunk's own state from it, from the tiles it already
+// holds, with B * w split into three bf16 parts (~24 significant bits,
+// fp32's own), and the state pass carries that second chain too (grid
+// z = 1), into s_L only.  With bf16 inputs the second chain runs even when
+// state_dt is y's own fp32 dt: y's chain keeps ~16 bits of B * w.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -76,7 +80,7 @@ struct Strides {  // in elements; the innermost dimension is contiguous
 
 struct Args {
   const void* x;
-  const void* dt;
+  const float* dt;
   const float* a;
   const void* bm;
   const void* cm;
@@ -185,15 +189,14 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
 
 // dt of steps 2l and 2l + 1 of the chunk for lane l of warp 0 (0 past
 // its rows), loaded early so the load overlaps the others in flight.
-template <typename T>
-__device__ __forceinline__ float2 load_dt(const T* dt, const Strides& sd,
+__device__ __forceinline__ float2 load_dt(const float* dt, const Strides& sd,
                                           int b, int h, int t0, int rows) {
   float2 v = make_float2(0.f, 0.f);
   const int i0 = 2 * threadIdx.x;
   if (threadIdx.x < 32) {
-    const T* dtp = dt + b * sd.b + h * sd.h;
-    if (i0 < rows) v.x = to_f(dtp[(int64_t)(t0 + i0) * sd.l]);
-    if (i0 + 1 < rows) v.y = to_f(dtp[(int64_t)(t0 + i0 + 1) * sd.l]);
+    const float* dtp = dt + b * sd.b + h * sd.h;
+    if (i0 < rows) v.x = dtp[(int64_t)(t0 + i0) * sd.l];
+    if (i0 + 1 < rows) v.y = dtp[(int64_t)(t0 + i0 + 1) * sd.l];
   }
   return v;
 }
@@ -331,8 +334,7 @@ __global__ void __launch_bounds__(kThreads) chunk_state(Args A) {
             static_cast<const T*>(A.x) + b * A.sx.b + (int64_t)t0 * A.sx.l +
                 h * A.sx.h,
             A.sx.l, rows, p);
-  const float2 dv =
-      load_dt(static_cast<const T*>(A.dt), A.sdt, b, h, t0, rows);
+  const float2 dv = load_dt(A.dt, A.sdt, b, h, t0, rows);
   float2 dv2 = make_float2(0.f, 0.f);
   if constexpr (kBoth) dv2 = load_dt(A.dt_state, A.sds, b, h, t0, rows);
   chunk_decay(A.a[h], dv, dts, acs);
@@ -456,8 +458,7 @@ __global__ void __launch_bounds__(kThreads * kHalves) chunk_out(Args A) {
             static_cast<const T*>(A.x) + b * A.sx.b + (int64_t)t0 * A.sx.l +
                 h * A.sx.h,
             A.sx.l, rows, p);
-  const float2 dv =
-      load_dt(static_cast<const T*>(A.dt), A.sdt, b, h, t0, rows);
+  const float2 dv = load_dt(A.dt, A.sdt, b, h, t0, rows);
   const int tid = threadIdx.x;
   if (c > 0) {
     if constexpr (sizeof(T) == 4) {  // S_in [n][p] as it is
@@ -656,7 +657,8 @@ int launch(const Args& A, int bh, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, dt, b, c, y); a is float32 [h].
+// dtype: 0 = float32, 1 = bfloat16 (x, b, c, y); dt is float32 [bsz, L,
+// h] and a float32 [h].
 // dt_state: null, or float32 [bsz, L, h] dt for the final state.
 // dims (int64): bsz, L, h, g, n, p, then the (batch, step, head) strides
 // in elements of x, dt, b, c, y and dt_state, whose innermost dimension is
@@ -680,7 +682,7 @@ extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* a,
     return static_cast<int>(cudaErrorInvalidValue);
   Args A;
   A.x = x;
-  A.dt = dt;
+  A.dt = static_cast<const float*>(dt);
   A.a = static_cast<const float*>(a);
   A.bm = b;
   A.cm = c;

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into its own shared library
 under ``build/repro_torch/`` at the root of the checkout, named by a hash
-of its source so an edited kernel is rebuilt, and loaded with ``ctypes``.
+of its source and of the shared headers (``csrc/*.cuh``) so an edited
+kernel or header is rebuilt, and loaded with ``ctypes``.
 Nothing is built when a module is imported: the first launch builds what
 it needs, and :func:`build` compiles a set of kernels in parallel (one
 ``nvcc`` process per source, all started together).
@@ -43,8 +44,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of ``<name>.cu``, named by a hash of that source and of
+    every header in ``csrc/`` (``*.cuh``), so that an edited header too
+    rebuilds the kernels."""
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names: tuple[str, ...] = KERNELS) -> None:

@@ -27,8 +27,10 @@ window keeps keys with ``qi - kj < window``.
 Gradients: when q, k or v requires grad, the call goes through an
 ``autograd.Function`` whose forward also writes each row's fp32
 log-sum-exp and whose backward is :func:`flash_attention_bwd`: on CUDA
-tensors the hand-written kernel of ``csrc/flash_attention_bwd.cu`` (its
-own launch counter), on CPU tensors :func:`flash_attention_bwd_plain`.
+tensors the hand-written kernels of ``csrc/flash_attention_bwd.cu`` (its
+own launch counter; bf16 at head_dim 64 and 128 on the tensor cores,
+with P and dS split into bf16 hi and lo halves, the rest on the CUDA
+cores in fp32), on CPU tensors :func:`flash_attention_bwd_plain`.
 The reference has no backward kernel (it differentiates plain jnp
 attention); the formulas are the standard ones, under the same mask.
 """

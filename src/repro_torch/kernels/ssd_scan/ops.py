@@ -6,13 +6,15 @@ Per head, ``s_t = exp(dt_t a) s_{t-1} + dt_t B_t x_t^T`` and
 ``y_t = C_t s_t``, computed chunk by chunk: the intra-chunk term as
 ``[CK, CK]`` products, the inter-chunk term from the carried ``[N, P]``
 state.  Both versions return y and the final state ``s_L`` (fp32): the
-reference's wrapper returns y only and its model recomputes the state with
-a second, sequential fp32 scan whose dt is fp32 (``ssd_final_state``),
-while y's dt is rounded to x's dtype.  Given that fp32 dt as ``state_dt``,
-both versions compute the final state from it in fp32 (the kernel as a
-second chain through its first two passes, from the tiles they already
-hold) and y from ``dt`` as before; without it the state comes from y's
-own scan.
+reference's wrapper returns y only and its model recomputes the state
+with a second, sequential fp32 scan whose dt is fp32 (``ssd_final_state``).
+``dt`` may be float32 with bf16 x, B and C, as the reference's default
+route (``ssd_scan_ref``) feeds y the fp32 softplus output.  Given an fp32
+``state_dt``, both versions compute the final state from it in fp32 (the
+kernel as a second chain through its first two passes, from the tiles
+they already hold, with ~24 significant bits of each chunk's products)
+and y from ``dt`` as before; without it the state comes from y's own scan
+(~16 bits of those products in bf16).
 :func:`ssd_scan` takes the reference wrapper's model-layout API.  On a
 CPU tensor it runs :func:`ssd_scan_plain`, which pads L exactly as the
 reference's ``ops.py`` does (``ckk = min(ck, L) if L % ck else ck``,
@@ -150,10 +152,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor, *, ck: int = DEFAULT_CK,
              state_dt: torch.Tensor | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, L, H, P]; dt: [B, L, H]; a: [H]; b, c: [B, L, G, N] with
-    H % G == 0 -> (y [B, L, H, P] in x's dtype, final state [B, H, N, P]
-    float32).  ``state_dt`` (float32, dt's shape; optional): the dt the
-    final state is computed from, in fp32; y always uses ``dt``.  Inputs
+    """x: [B, L, H, P]; dt: [B, L, H] in x's dtype or float32; a: [H];
+    b, c: [B, L, G, N] with H % G == 0 -> (y [B, L, H, P] in x's dtype,
+    final state [B, H, N, P] float32).  ``state_dt`` (float32, dt's
+    shape; optional): the dt the final state is computed from, in fp32;
+    y always uses ``dt``.  Inputs
     may be strided views (the model passes slices of one ``xbc`` buffer).
     On the CPU the plain version pads as the reference does (``ck``); the
     kernel takes no padding and ignores ``ck``: its 64-step chunks
@@ -164,9 +167,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             raise ValueError(f"unsupported device {x.device}")
         return ssd_scan_plain(x, dt, a, b, c, ck=ck, state_dt=state_dt)
     code = _DTYPES.get(x.dtype)
-    if code is None or not (x.dtype == dt.dtype == b.dtype == c.dtype):
-        raise TypeError("ssd_scan kernel takes x, dt, b and c all float32 "
-                        "or all bfloat16")
+    if code is None or not (x.dtype == b.dtype == c.dtype) \
+            or dt.dtype not in (x.dtype, torch.float32):
+        raise TypeError("ssd_scan kernel takes x, b and c all float32 or "
+                        "all bfloat16, and dt in their dtype or float32")
     bsz, L, h, p = x.shape
     g, n = b.shape[2], b.shape[3]
     if (n % 16 or p % 16) if code else (n % 4 or p % 4):
@@ -181,8 +185,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     x, b, c = (_rows_aligned(t, elems) for t in (x, b, c))
     if a.dtype is not torch.float32 or not a.is_contiguous():
         a = a.float().contiguous()
-    if state_dt is dt:
-        state_dt = None     # the same dt: y's own scan gives the state
+    if state_dt is dt and code == 0:
+        state_dt = None     # fp32 inputs: y's own scan gives the same state
+    dt = dt.float()         # the kernel reads fp32 dt; bf16 converts exactly
     sd_strides = (0, 0, 0) if state_dt is None else state_dt.stride()
     chunks = -(-L // _KERNEL_CK)
     # per chunk and head: its own end state (fp32), the carried state as

@@ -5,11 +5,13 @@ Block anatomy (Mamba2): in_proj -> [z | x | B | C | dt]; depthwise causal
 conv over (x, B, C); SSD scan s_t = exp(dt A) s_{t-1} + dt B x^T, y = C s;
 D-skip, SiLU(z) gating, RMSNorm, out_proj.
 
-:func:`ssd_forward` follows the reference's kernel route
-(``use_pallas=True``): y comes from the ssd_scan kernel wrapper with dt
-cast to x's dtype.  The final state, which a prefill hands to decode,
-follows the reference's ``ssd_final_state``: fp32 dt (the softplus output,
-not rounded to x's dtype) and fp32 products of B and x.  The reference
+:func:`ssd_forward` follows the reference's default route
+(``use_pallas=False``, the one its serve driver and ``train_loss`` take):
+y comes from the ssd_scan kernel wrapper with fp32 dt, the softplus output
+not rounded to x's dtype, as ``ssd_scan_ref`` receives it (the Pallas
+route rounds it; in float32 the two agree).  The final state, which a
+prefill hands to decode, follows the reference's ``ssd_final_state``: fp32
+dt and fp32 products of B and x.  The reference
 runs a second, sequential scan over L for it; here the same call to
 ``ssd_scan`` computes it from ``state_dt`` (on the card a second chain
 through the kernel's first two passes), so in bfloat16 too the state
@@ -93,7 +95,7 @@ def ssd_prefill(cfg, p, h):
     cm = xbc[..., cfg.d_inner + g * n_:].reshape(b, L, g, n_)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     a = -torch.exp(p["a_log"])
-    y, state = ssd_scan(x, dt.to(x.dtype), a, bm, cm, state_dt=dt)
+    y, state = ssd_scan(x, dt, a, bm, cm, state_dt=dt)
     y = y + x * p["d_skip"][None, None, :, None].to(x.dtype)
     y = y.reshape(b, L, cfg.d_inner)
     y = rms_norm(y * _silu(z), p["ssm_norm"], cfg.norm_eps)

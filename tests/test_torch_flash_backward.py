@@ -149,3 +149,83 @@ def test_bwd_rejects_what_the_kernel_does_not_take():
     lse = torch.zeros(1, 2, 4)
     with pytest.raises(ValueError, match="bad shapes"):
         flash_attention_bwd(x, x, x, x, lse[:, :, :3], x)
+
+
+# The card's bf16 backward at head_dim 64 and 128 runs its five products
+# as wgmmas: bf16 operands, fp32 accumulation, and the fp32 P and dS split
+# into bf16 hi + lo halves before dV, dK and dQ.  _wgmma_mirror repeats
+# that arithmetic in torch; it is held to the plain version at the card's
+# bf16 TOL for the backward (chip_smoke.py): |got - want| <= 1e-3 + 1e-2 *
+# |want| element by element, since both sides accumulate in fp32 and round
+# once to bf16.
+BF16_TOL = (1e-3, 1e-2)
+MIRROR_CASES = [  # b, hq, hkv, sq, sk, d, causal
+    (1, 4, 2, 64, 64, 128, True),
+    (1, 4, 2, 1024, 1024, 128, True),
+    (1, 6, 6, 64, 1500, 64, False),        # whisper's cross attention
+]
+
+
+def _wgmma_mirror(q, k, v, o, lse, do, causal, split=True):
+    """(dq, dk, dv) in bf16 by the wgmma kernels' arithmetic: P = 2^(S *
+    scale * log2 e - lse * log2 e) under the mask, delta = rowsum(dO * O),
+    dS = P * (dP - delta), and P and dS as bf16 hi + lo parts in the
+    products that take them (``split=False``: rounded once to bf16)."""
+    from repro_torch.kernels.flash_attention.ops import _mask
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    scale, log2e = d ** -0.5, 1.4426950408889634
+    qf, of, dof = q.float(), o.float(), do.float()
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    mask = _mask(sq, sk, causal, None, q.device)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
+    p = torch.where(mask, torch.exp2(s * (scale * log2e)
+                                     - (lse * log2e)[..., None]), 0.0)
+    delta = (dof * of).sum(dim=-1, keepdim=True)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta)
+
+    def parts(x):
+        hi = x.bfloat16().float()
+        return (hi, (x - hi).bfloat16().float()) if split else (hi,)
+    dv = sum(torch.einsum("bhqk,bhqd->bhkd", t, dof) for t in parts(p))
+    dk = sum(torch.einsum("bhqk,bhqd->bhkd", t, qf) for t in parts(ds))
+    dq = sum(torch.einsum("bhqk,bhkd->bhqd", t, kf) for t in parts(ds))
+    dk = (dk * scale).reshape(b, hkv, rep, sk, d).sum(dim=2)
+    dv = dv.reshape(b, hkv, rep, sk, d).sum(dim=2)
+    return (dq * scale).bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+def _bf16_case(b, hq, hkv, sq, sk, d, causal, seed):
+    q, k, v, do = (torch.from_numpy(x).bfloat16() for x in
+                   _inputs(b, hq, hkv, sq, sk, d, seed))
+    o, lse = flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    return q, k, v, o, lse, do
+
+
+def _outside_tol(got, want) -> int:
+    atol, rtol = BF16_TOL
+    g, w = got.float(), want.float()
+    return int(((g - w).abs() > atol + rtol * w.abs()).sum())
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", MIRROR_CASES)
+def test_wgmma_mirror_meets_the_bf16_tol(b, hq, hkv, sq, sk, d, causal):
+    args = _bf16_case(b, hq, hkv, sq, sk, d, causal, seed=sq)
+    want = flash_attention_bwd_plain(*args, causal=causal)
+    got = _wgmma_mirror(*args, causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype == torch.bfloat16 and g.shape == w.shape
+        assert bool(g.float().isfinite().all()), name
+        assert _outside_tol(g, w) == 0, name
+
+
+def test_one_bf16_rounding_of_p_and_ds_misses_the_tol():
+    """Why the kernel splits P and dS: rounded once to bf16, they leave
+    elements of every gradient outside the TOL at S 64, D 128."""
+    args = _bf16_case(1, 4, 2, 64, 64, 128, True, seed=64)
+    want = flash_attention_bwd_plain(*args, causal=True)
+    got = _wgmma_mirror(*args, True, split=False)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _outside_tol(g, w) > 0, name

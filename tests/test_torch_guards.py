@@ -81,3 +81,23 @@ def test_lm_entry_points_default_to_cuda():
     out = serve.run("mamba2_130m", n_requests=1, decode_tokens=1,
                     compute_device="cpu")
     assert len(out["outputs"]) == 1
+
+
+def test_library_path_sees_the_headers(tmp_path, monkeypatch):
+    """A kernel's library is named by a hash of its source and of every
+    ``csrc/*.cuh``: editing a shared header, adding one or editing the
+    source names another library (a stale one is never loaded)."""
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "wgmma.cuh"\n')
+    (tmp_path / "wgmma.cuh").write_text("// v1\n")
+    first = _build.library_path("k")
+    assert first == _build.library_path("k")
+    (tmp_path / "wgmma.cuh").write_text("// v2\n")
+    second = _build.library_path("k")
+    (tmp_path / "other.cuh").write_text("// new\n")
+    third = _build.library_path("k")
+    (tmp_path / "k.cu").write_text('#include "wgmma.cuh"\n// edited\n')
+    fourth = _build.library_path("k")
+    assert len({first, second, third, fourth}) == 4
+    assert first.parent == _build.BUILD_DIR and first.name.startswith("libk-")

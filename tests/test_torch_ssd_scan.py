@@ -129,8 +129,8 @@ def test_ssd_rejects_bad_shapes():
 
 @pytest.mark.parametrize("L,ck", [(128, 64), (189, 128), (300, 128)])
 def test_state_dt_keeps_y_and_takes_fp32_dt(L, ck):
-    """bf16 x, B, C with y's dt rounded to bf16 and the state's dt in fp32
-    (``models/ssd.py``'s call): y is bit for bit y without ``state_dt``
+    """bf16 x, B, C with y's dt rounded to bf16 (the reference's Pallas
+    route) and the state's dt in fp32: y is bit for bit y without ``state_dt``
     (and the reference kernel's), while the state is the float64
     recurrence's with the fp32 dt, within 2e-4 as above; from y's bf16 dt
     it would be off by ~2^-9 of dt."""
@@ -256,3 +256,31 @@ def test_rows_aligned_keeps_model_views():
     fixed = _rows_aligned(view, 8)
     assert fixed is not view and fixed.is_contiguous()
     assert torch.equal(fixed, view)
+
+
+@pytest.mark.parametrize("L", [65, 189])
+def test_fp32_dt_with_bf16_inputs(L):
+    """bf16 x, B and C with fp32 dt (``models/ssd.py``'s call, the
+    reference's default route): ``ssd_scan`` takes it, its y is the plain
+    version's bit for bit and the reference oracle's with that fp32 dt
+    within the bf16 tolerance, as is the kernel's three-pass mirror; the
+    final state from ``state_dt=dt`` is the float64 recurrence's within
+    2e-4.  y from dt rounded to bf16 is another function of the inputs."""
+    b, h, g, p, n = 2, 4, 2, 32, 16
+    ref_in, port_in = _xbc_inputs(b, L, h, g, p, n, "bfloat16", False, L)
+    x, _, a, bm, cm = port_in
+    dt32 = np.abs(np.random.default_rng(L).standard_normal(
+        (b, L, h))).astype(np.float32) * 0.5
+    dt = torch.from_numpy(dt32)
+    y, state = ssd_scan(x, dt, a, bm, cm, state_dt=dt)
+    plain, plain_state = ssd_scan_plain(x, dt, a, bm, cm, state_dt=dt)
+    assert y.dtype == torch.bfloat16 and torch.equal(y, plain)
+    assert torch.equal(state, plain_state)
+    ref = (ref_in[0], jnp.asarray(dt32), ref_in[2], ref_in[3], ref_in[4])
+    assert _err(y, _oracle(*ref)) < TOL["bfloat16"]
+    mirror, mirror_state = _three_pass(x, dt, a, bm, cm)
+    assert _err(mirror, jnp.asarray(plain.float().numpy())) < TOL["bfloat16"]
+    want = _state_oracle(*ref[:4])
+    assert _err(state, want) < 2e-4 and _err(mirror_state, want) < 2e-4
+    y16, _ = ssd_scan(x, dt.to(torch.bfloat16), a, bm, cm)
+    assert not torch.equal(y16, y)
