@@ -50,10 +50,29 @@ Phases, each made of ``chip_smoke.py``'s own functions:
               the training phase: qwen3-1.7b's full-size steps, whisper-
               tiny through the launcher with a restore, the float32
               card-vs-CPU training checks (qwen3-1.7b at 2 layers,
-              whisper-tiny at full size)
+              whisper-tiny at full size, zamba2-1.2b at 7 layers,
+              mamba2-130m at its full 24 against a float64 run too), their
+              CPU halves in this process
     train_qwen3_long qwen3-1.7b at full size in bf16 on B 1 x S 4,096: 2
               steps (ms a step, launches, peak memory), then a third under
               torch.profiler for the backward kernels' share of the step
+    train_zamba2 zamba2-1.2b's training phase at full size in bf16 (5 steps
+              on one fixed learnable batch: launches, losses, ms a step,
+              peak memory), then a sixth step under torch.profiler: the
+              device's busy share, ssd_scan's and flash_attention's
+              kernels forward and backward, the top kernels
+    cross_train_ssm the float32 card-vs-CPU training checks of zamba2-1.2b
+              (7 layers) and mamba2-130m (24 layers, and its float64 run)
+              alone
+    cross_depth mamba2-130m's training check at 16 and 24 layers, and at
+              24 with ssd_scan's plain versions on the card, from weights
+              drawn on the CPU and (at 24) on the card: the card and the
+              CPU tier each against the float64 run
+    edge_ssd_bwd ssd_scan's backward kernel against its plain version over
+              ``ssd_bwd_cases()``, each case twice and bitwise equal
+    ssd_bwd   ssd_scan's backward at zamba2-1.2b's training shape (B 8, L
+              64, 64 heads, bf16) and at 4,096 steps, beside its plain
+              version, with the registers, stack and spills ptxas reports
     fleet_matrix db_bench's fleet_sweep at full size, then the fleet
               matrix in one lindley_scan launch against its passes, and
               lindley_scan timed over the matrix's batch
@@ -206,13 +225,38 @@ def train_qwen3_long(torch, np, cs, ctx) -> dict:
     return out
 
 
-def profile_train_step(torch, cs, step, params, opt, tokens,
-                       step_ms: float) -> dict:
+def train_zamba2(torch, np, cs, ctx) -> dict:
+    """zamba2-1.2b's training phase (``chip_smoke.train_zamba2``'s steps on
+    its fixed learnable batch), then one more step profiled: the device's
+    busy share and where it goes, ssd_scan's and flash_attention's
+    kernels, forward and backward, beside the top kernels."""
+    from repro_torch.configs import get_config
+    cfg = get_config(cs.SSM_TRAIN_ARCH)
+    batch = cs.learnable_batch(np, cfg.vocab_size, cs.TRAIN_BATCH,
+                               cs.TRAIN_SEQ)
+    out, (step, params, opt, _) = cs.train_steps(
+        torch, np, cs.TRAIN_BATCH, cs.TRAIN_SEQ, cs.SSM_TRAIN_STEPS,
+        arch=cs.SSM_TRAIN_ARCH, fixed=batch)
+    out["profiled_step"] = profile_train_step(
+        torch, cs, step, params, opt, batch, out["step_ms_after_first"],
+        {"ssd_scan": ("chunk_state", "state_pass", "chunk_out"),
+         "ssd_scan_bwd": ("bwd_chunk", "bwd_carry", "bwd_out", "bwd_reduce",
+                          "bwd_da"),
+         "flash_attention": ("flash_fwd",),
+         "flash_attention_bwd": ("bwd_dq", "bwd_dkdv")})
+    del params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_train_step(torch, cs, step, params, opt, tokens, step_ms: float,
+                       groups: dict | None = None) -> dict:
     """One training step under torch.profiler (device activity only): the
-    device time of the backward's kernels against the device's busy time
-    and against ``step_ms``, a step's time measured without the
-    profiler."""
+    device time of each group of kernels (by name fragments; by default
+    flash_attention's backward) against the device's busy time and
+    against ``step_ms``, a step's time measured without the profiler."""
     from torch.profiler import ProfilerActivity, profile
+    groups = groups or {"flash_attention_bwd": ("bwd_dq", "bwd_dkdv")}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -221,17 +265,20 @@ def profile_train_step(torch, cs, step, params, opt, tokens,
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = cs.kernel_times_us(prof)
     busy = sum(us for _, us, _ in rows) / 1e3
-    bwd = [(n, us, c) for n, us, c in rows
-           if "bwd_dq" in n or "bwd_dkdv" in n]
-    bwd_ms = sum(us for _, us, _ in bwd) / 1e3
-    return {"wall_ms": wall_ms, "device_busy_ms": busy,
-            "bwd_device_ms": bwd_ms,
-            "bwd_share_of_busy": bwd_ms / busy if busy else None,
-            "bwd_share_of_step": bwd_ms / step_ms,
-            "bwd_kernels": [{"name": n[:90], "ms": us / 1e3, "count": c}
-                            for n, us, c in bwd],
-            "top_device": [{"name": n[:90], "ms": us / 1e3, "count": c}
-                           for n, us, c in rows[:12]]}
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy,
+           "busy_share_of_step": busy / wall_ms}
+    for name, frags in groups.items():
+        mine = [(n, us, c) for n, us, c in rows
+                if any(f in n for f in frags)]
+        ms = sum(us for _, us, _ in mine) / 1e3
+        out[name] = {"device_ms": ms,
+                     "share_of_busy": ms / busy if busy else None,
+                     "share_of_step": ms / step_ms,
+                     "kernels": [{"name": n[:90], "ms": us / 1e3, "count": c}
+                                 for n, us, c in mine]}
+    out["top_device"] = [{"name": n[:90], "ms": us / 1e3, "count": c}
+                         for n, us, c in rows[:12]]
+    return out
 
 
 def whisper_flash(torch, np, cs, ctx) -> dict:
@@ -277,6 +324,82 @@ def cross_model(arch: str):
 def ssd(torch, np, cs, ctx) -> dict:
     return {"L189": cs.time_ssd(torch, 189, 40),
             "L4096": cs.time_ssd(torch, cs.LONG_PREFILL, 10)}
+
+
+def cross_depth(torch, np, cs, ctx) -> dict:
+    """mamba2-130m's training check against depth and the weights' draw:
+    ``chip_smoke.train_cross_check`` at 16 and at 24 layers, at 24 again
+    with the ssd_scan plain versions swapped in on the card (so that both
+    sides run the same scan arithmetic), and both at 24 from weights drawn
+    on the card (a CUDA generator, as the smoke drew them before its CPU
+    halves moved to a worker) instead of the CPU, each read rather than
+    failed: the card against the CPU tier, and both against the float64
+    run."""
+    import contextlib
+
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.models import init_model
+    from repro_torch.training.tree import tree_map
+
+    @contextlib.contextmanager
+    def plain_scan():
+        fwd, bwd = ops._forward, ops.ssd_scan_bwd
+        ops._forward = lambda x, dt, a, b, c, ck, state_dt: \
+            ops.ssd_scan_plain(x, dt, a, b, c, ck=ck, state_dt=state_dt)
+        ops.ssd_scan_bwd = lambda *args, ck=ops.DEFAULT_CK: \
+            ops.ssd_scan_bwd_plain(*args, ck=ck)
+        try:
+            yield
+        finally:
+            ops._forward, ops.ssd_scan_bwd = fwd, bwd
+
+    cpu_setup = cs.cross_setup
+
+    def card_setup(torch, np, arch):
+        cfg, _, batch = cpu_setup(torch, np, arch)
+        return cfg, tree_map(lambda p: p.cpu(), init_model(
+            cfg, 0, compute_device="cuda")), batch
+
+    arch, keep = "mamba2_130m", cs.CROSS_TRAIN["mamba2_130m"]
+    out, cpu = {}, {}
+    try:
+        for name, depth, scan, setup in (
+                ("16", 16, contextlib.nullcontext, cpu_setup),
+                ("24", 24, contextlib.nullcontext, cpu_setup),
+                ("24_plain_scan", 24, plain_scan, cpu_setup),
+                ("24_card_draw", 24, contextlib.nullcontext, card_setup),
+                ("24_card_draw_plain_scan", 24, plain_scan, card_setup)):
+            cs.CROSS_TRAIN[arch] = (depth,) + keep[1:]
+            cs.cross_setup = setup
+            if (depth, setup) not in cpu:
+                cpu = {(depth, setup): cs.cross_train_cpu(arch)}
+            with scan():
+                try:
+                    r = cs.train_cross_check(torch, np, arch,
+                                             cpu[depth, setup])
+                    r["passed"] = True
+                except SystemExit as e:   # fail() carries the report
+                    msg = str(e)
+                    r = json.loads(msg[msg.index("{"):])
+                    r["passed"] = False
+            out[name] = {k: v for k, v in r.items()
+                         if k != "params_apart_by_leaf"}
+            torch.cuda.empty_cache()
+    finally:
+        cs.CROSS_TRAIN[arch], cs.cross_setup = keep, cpu_setup
+    return out
+
+
+def ssd_bwd(torch, np, cs, ctx) -> dict:
+    return {"ptxas": ptxas_summary("ssd_scan_bwd"),
+            "train": cs.time_ssd_bwd(torch, cs.TRAIN_BATCH, cs.TRAIN_SEQ, 40),
+            "L4096": cs.time_ssd_bwd(torch, 1, cs.LONG_PREFILL, 4)}
+
+
+def edge_ssd_bwd(torch, np, cs, ctx) -> dict:
+    err, rel = cs.edge_ssd_bwd(torch)
+    return {"max_abs_err": err, "max_rel_err_by_dtype": rel,
+            "cases": len(cs.ssd_bwd_cases())}
 
 
 def seekrandom(torch, np, cs, ctx) -> dict:
@@ -478,6 +601,7 @@ def shard_store(torch, np, cs, ctx) -> dict:
 STORE = ("merge_path", "overlap_scan", "lindley_scan")
 LM = ("overlap_scan", "flash_attention", "paged_attention")
 TRAIN = ("flash_attention", "flash_attention_bwd")
+SSM = ("ssd_scan", "ssd_scan_bwd")
 # phase: (kernels it builds, what it runs)
 PHASES = {
     "edge_merge": (("merge_path",), lambda torch, np, cs, ctx: {
@@ -501,6 +625,7 @@ PHASES = {
                            "cases": len(cs.bwd_cases())}),
     "edge_paged_cross": (("paged_attention",), lambda torch, np, cs, ctx: {
         "max_abs_err": cs.edge_paged_cross(torch)}),
+    "edge_ssd_bwd": (("ssd_scan_bwd",), edge_ssd_bwd),
     "states": (("ssd_scan", "flash_attention", "paged_attention"),
                lambda torch, np, cs, ctx: cs.serve_state_check(torch, np)),
     "merge": (("merge_path",), merge),
@@ -509,6 +634,7 @@ PHASES = {
     "flash": (("flash_attention",), flash),
     "paged": (("paged_attention",), paged),
     "ssd": (("ssd_scan",), ssd),
+    "ssd_bwd": (("ssd_scan_bwd",), ssd_bwd),
     "flash_bwd": (("flash_attention", "flash_attention_bwd"), flash_bwd),
     "whisper_bwd": (("flash_attention", "flash_attention_bwd"), whisper_bwd),
     "whisper_flash": (("flash_attention",), whisper_flash),
@@ -521,11 +647,16 @@ PHASES = {
     "train_qwen3": (TRAIN, lambda torch, np, cs, ctx:
                     cs.train_qwen3(torch, np)),
     "train_qwen3_long": (TRAIN, train_qwen3_long),
+    "train_zamba2": (TRAIN + SSM, train_zamba2),
     "train_whisper": (TRAIN + STORE, lambda torch, np, cs, ctx:
                       cs.train_whisper(torch, np)),
-    "cross_train": (TRAIN, lambda torch, np, cs, ctx: {
+    "cross_train": (TRAIN + SSM, lambda torch, np, cs, ctx: {
         arch: cs.train_cross_check(torch, np, arch)
         for arch in cs.CROSS_TRAIN}),
+    "cross_train_ssm": (TRAIN + SSM, lambda torch, np, cs, ctx: {
+        arch: cs.train_cross_check(torch, np, arch)
+        for arch in ("zamba2_1_2b", "mamba2_130m")}),
+    "cross_depth": (TRAIN + SSM, cross_depth),
     "cross_whisper": (LM, cross_model("whisper_tiny")),
     "fleet_matrix": (STORE, fleet_matrix),
     "long_decode": (LM, lambda torch, np, cs, ctx:

@@ -15,7 +15,10 @@ PyTorch versions and launch counters.
     flash_attention_bwd — flash_attention's gradient in every training
                           step (csrc/flash_attention_bwd.cu)
     ssd_scan            — the Mamba2 SSD chunked scan of the LM prefill
+                          and of every ssm/hybrid training forward
                           (csrc/ssd_scan.cu)
+    ssd_scan_bwd        — ssd_scan's gradient in every ssm/hybrid training
+                          step (csrc/ssd_scan_bwd.cu)
     paged_attention     — single-token attention of every LM decode step,
                           through a page table; whisper's self attention
                           and its cross attention over the 1,500 encoder
@@ -31,13 +34,14 @@ from .lindley_scan.ops import lindley_batch
 from .merge_path.ops import merge_two_runs
 from .overlap_scan.ops import fence_rank
 from .paged_attention.ops import paged_attention
-from .ssd_scan.ops import ssd_scan
+from .ssd_scan.ops import ssd_scan, ssd_scan_bwd
 
 #: kernel name -> wrapper that counts its launches
 WRAPPERS = {"merge_path": merge_two_runs, "overlap_scan": fence_rank,
             "lindley_scan": lindley_batch, "flash_attention": flash_attention,
             "flash_attention_bwd": flash_attention_bwd,
-            "ssd_scan": ssd_scan, "paged_attention": paged_attention}
+            "ssd_scan": ssd_scan, "ssd_scan_bwd": ssd_scan_bwd,
+            "paged_attention": paged_attention}
 
 
 def launch_counts() -> dict[str, int]:
@@ -51,4 +55,5 @@ def reset_launch_counts() -> None:
 
 __all__ = ["WRAPPERS", "fence_rank", "flash_attention", "flash_attention_bwd",
            "launch_counts", "lindley_batch", "merge_two_runs",
-           "paged_attention", "reset_launch_counts", "ssd_scan"]
+           "paged_attention", "reset_launch_counts", "ssd_scan",
+           "ssd_scan_bwd"]

@@ -22,7 +22,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("merge_path", "overlap_scan", "lindley_scan", "flash_attention",
-           "flash_attention_bwd", "ssd_scan", "paged_attention")
+           "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd",
+           "paged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

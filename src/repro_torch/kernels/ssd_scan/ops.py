@@ -24,6 +24,14 @@ end state, the states carried across chunks, then y), which read x, dt, B
 and C through their strides, B and C per group, and write y in place: no
 padding, transposing or repeating copy.  Both evaluate
 ``exp(a_cs_t - a_cs_j)`` only for ``j <= t``.
+
+Gradients: when grad is on and x, dt, a, b or c requires it, the call goes
+through :class:`SsdScanFn`, whose backward is :func:`ssd_scan_bwd`: on
+CUDA tensors the five passes of ``csrc/ssd_scan_bwd.cu`` (its own launch
+counter; the forward's chunked form run backwards, fp32 on the CUDA cores,
+deterministic), on CPU tensors :func:`ssd_scan_bwd_plain`, the adjoint
+recurrence written out.  The reference has no backward kernel: it takes
+``jax.grad`` of ``ssd_scan_ref``.
 """
 
 from __future__ import annotations
@@ -43,7 +51,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _DIMS = struct.Struct("<24q")
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_char_p, ctypes.c_int,
                                      ctypes.c_void_p]
-_launch = None       # the C entry, resolved at the first CUDA call
+# the backward's sizes and (batch, step, head) strides of x, dt, b, c, dy
+_BWD_DIMS = struct.Struct("<21q")
+_BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_char_p, ctypes.c_int,
+                                          ctypes.c_void_p]
+_INVALID_VALUE = 1   # cudaErrorInvalidValue: a C entry's refusal of a shape
+_launch = None       # the C entries, resolved at the first CUDA call
+_launch_bwd = None
 _raw_stream = None   # torch._C._cuda_getCurrentRawStream
 
 
@@ -130,6 +144,104 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y.to(x.dtype), state.reshape(bsz, h, n, p)
 
 
+def _check_dy(x, dy) -> None:
+    if dy.shape != x.shape:
+        raise ValueError(f"dy must have x's shape {tuple(x.shape)}, not "
+                         f"{tuple(dy.shape)}")
+    if dy.get_device() != x.get_device():
+        raise ValueError("ssd_scan_bwd inputs must be on one device")
+
+
+def _group_sum(t: torch.Tensor, bsz: int, h: int, g: int,
+               L: int) -> torch.Tensor:
+    """[B*H, Lp, N] per-head gradients -> [B, L, G, N], each group's heads
+    added in head order."""
+    t = t.reshape(bsz, g, h // g, t.shape[1], t.shape[2])[:, :, :, :L]
+    out = t[:, :, 0]
+    for r in range(1, h // g):
+        out = out + t[:, :, r]
+    return out.movedim(1, 2)
+
+
+def ssd_scan_bwd_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                       b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
+                       *, ck: int = DEFAULT_CK):
+    """(dx, ddt, da, db, dc): the gradient of y = ``ssd_scan(x, dt, a, b,
+    c)[0]`` against ``dy``, written out as the adjoint recurrence in plain
+    torch, fp32 throughout, in the forward's chunks (no autograd).  Per
+    head, with lam_t = exp(dt_t a), states s_t and the adjoint of the state
+    G_t = C_t dy_t^T + lam_{t+1} G_{t+1} ([N, P], scanned in reverse):
+
+        dC_t = s_t dy_t            dx_t = dt_t G_t^T B_t
+        dB_t = dt_t G_t x_t        da = sum_t dt_t lam_t <G_t, s_{t-1}>
+        ddt_t = a lam_t <G_t, s_{t-1}> + <G_t, B_t x_t^T>
+
+    The chunks' entry states come from a forward pass over the chunks;
+    then, chunk by chunk in reverse, every step's s_t and G_t from the
+    chunk's entry state and the adjoint carried in from the chunks after
+    it.  dB and dC are summed over each group's heads in head order, da
+    over the batch in order.  dx, db and dc come back in their inputs'
+    dtypes, ddt and da in float32."""
+    _check(x, dt, a, b, c)
+    _check_dy(x, dy)
+    bsz, L, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    rep = h // g
+    ckk, pad = _chunk(L, ck)
+    xh = _padded_heads(x, pad).float()                       # [BH, Lp, P]
+    dyh = _padded_heads(dy, pad).float()
+    dth = _padded_heads(dt[..., None], pad)[..., 0].float()  # [BH, Lp]
+    bh_ = _padded_heads(b.repeat_interleave(rep, dim=2), pad).float()
+    ch_ = _padded_heads(c.repeat_interleave(rep, dim=2), pad).float()
+    ah = a.float().repeat(bsz)                               # [BH]
+    n_heads, lp = xh.shape[0], xh.shape[1]
+    dev = x.device
+    starts = list(range(0, lp, ckk))
+    s_in = [torch.zeros(n_heads, n, p, dtype=torch.float32, device=dev)]
+    for c0 in starts[:-1]:
+        s_in.append(_chunk_state(s_in[-1], xh[:, c0:c0 + ckk],
+                                 dth[:, c0:c0 + ckk], bh_[:, c0:c0 + ckk],
+                                 ah))
+    dx, dbh, dch = (torch.zeros_like(t) for t in (xh, bh_, ch_))
+    ddt = torch.zeros_like(dth)
+    da = torch.zeros(n_heads, dtype=torch.float32, device=dev)
+    g_out = torch.zeros(n_heads, n, p, dtype=torch.float32, device=dev)
+    tril = torch.ones(ckk, ckk, dtype=torch.bool, device=dev).tril()
+    for c0, s0 in zip(reversed(starts), reversed(s_in)):
+        sl = slice(c0, c0 + ckk)
+        xc, dtc, bc, cc, dyc = xh[:, sl], dth[:, sl], bh_[:, sl], ch_[:, sl], \
+            dyh[:, sl]
+        a_cs = ah[:, None] * torch.cumsum(dtc, dim=1)        # [BH, CK]
+        diff = torch.where(tril, a_cs[:, :, None] - a_cs[:, None, :],
+                           float("-inf"))
+        decay = torch.exp(diff)                              # [t, j], j <= t
+        s = (torch.exp(a_cs)[..., None, None] * s0[:, None]
+             + torch.einsum("btj,bjn,bjp->btnp", decay * dtc[:, None, :],
+                            bc, xc))
+        adj = (torch.einsum("btj,btn,btp->bjnp", decay, cc, dyc)
+               + torch.exp(a_cs[:, -1:] - a_cs)[..., None, None]
+               * g_out[:, None])
+        s_prev = torch.cat([s0[:, None], s[:, :-1]], dim=1)
+        lam = torch.exp(ah[:, None] * dtc)
+        dch[:, sl] = torch.einsum("btnp,btp->btn", s, dyc)
+        dx[:, sl] = dtc[..., None] * torch.einsum("btnp,btn->btp", adj, bc)
+        u = torch.einsum("btnp,btp->btn", adj, xc)
+        dbh[:, sl] = dtc[..., None] * u
+        dlog = lam * (adj * s_prev).sum(dim=(2, 3))          # d/d(dt_t a)
+        ddt[:, sl] = ah[:, None] * dlog + (bc * u).sum(dim=2)
+        da = da + (dtc * dlog).sum(dim=1)
+        g_out = lam[:, 0, None, None] * adj[:, 0]
+    dx = dx.reshape(bsz, h, lp, p).movedim(1, 2)[:, :L]
+    ddt = ddt.reshape(bsz, h, lp).movedim(1, 2)[:, :L]
+    da = da.reshape(bsz, h)
+    da_sum = torch.zeros(h, dtype=torch.float32, device=dev)
+    for i in range(bsz):
+        da_sum = da_sum + da[i]
+    return (dx.to(x.dtype), ddt.contiguous(), da_sum,
+            _group_sum(dbh, bsz, h, g, L).to(b.dtype),
+            _group_sum(dch, bsz, h, g, L).to(c.dtype))
+
+
 def _rows_aligned(t: torch.Tensor, elems: int) -> torch.Tensor:
     """``t`` itself when its innermost dimension is contiguous and its base
     pointer and other strides are whole 16-byte chunks, as the kernel's
@@ -148,19 +260,9 @@ def _resolve() -> None:
     _launch = _build.load("ssd_scan", "ssd_scan_launch", _ARGTYPES)
 
 
-def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-             b: torch.Tensor, c: torch.Tensor, *, ck: int = DEFAULT_CK,
-             state_dt: torch.Tensor | None = None
-             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, L, H, P]; dt: [B, L, H] in x's dtype or float32; a: [H];
-    b, c: [B, L, G, N] with H % G == 0 -> (y [B, L, H, P] in x's dtype,
-    final state [B, H, N, P] float32).  ``state_dt`` (float32, dt's
-    shape; optional): the dt the final state is computed from, in fp32;
-    y always uses ``dt``.  Inputs
-    may be strided views (the model passes slices of one ``xbc`` buffer).
-    On the CPU the plain version pads as the reference does (``ck``); the
-    kernel takes no padding and ignores ``ck``: its 64-step chunks
-    zero-fill the rows past L, with dt = 0."""
+def _forward(x, dt, a, b, c, ck, state_dt):
+    """(y, final state): the kernel on CUDA tensors, the plain version on
+    CPU tensors."""
     _check(x, dt, a, b, c, state_dt)
     if not x.is_cuda:
         if x.device.type != "cpu":
@@ -213,4 +315,138 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y, state
 
 
+def _bwd_kernel_check(x, dt, b, c, dy) -> None:
+    """Raises on what the backward kernel does not take."""
+    if x.dtype not in _DTYPES or not (x.dtype == b.dtype == c.dtype
+                                      == dy.dtype) \
+            or dt.dtype not in (x.dtype, torch.float32):
+        raise TypeError("ssd_scan_bwd kernel takes x, b, c and dy all "
+                        "float32 or all bfloat16, and dt in their dtype or "
+                        "float32")
+    bsz, L, h, p = x.shape
+    n = b.shape[3]
+    if (n % 16 or p % 16) if x.dtype is torch.bfloat16 else (n % 4 or p % 4):
+        raise ValueError(
+            "ssd_scan_bwd kernel takes state and head sizes that are "
+            f"multiples of 16 (bfloat16) or of 4 (float32), not N={n}, P={p}")
+
+
+def _resolve_bwd() -> None:
+    global _launch_bwd, _raw_stream
+    _raw_stream = torch._C._cuda_getCurrentRawStream
+    _launch_bwd = _build.load("ssd_scan_bwd", "ssd_scan_bwd_launch",
+                              _BWD_ARGTYPES)
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor, *,
+                 ck: int = DEFAULT_CK):
+    """(dx, ddt, da, db, dc) of y = ``ssd_scan(x, dt, a, b, c)[0]`` given
+    y's gradient ``dy`` (x's dtype and shape): dx, db and dc in their
+    inputs' dtypes, ddt [B, L, H] and da [H] in float32.  On CUDA tensors
+    the passes of ``csrc/ssd_scan_bwd.cu`` (one launch counted), which read
+    x, dt, B, C and dy through their strides (a row's elements at unit
+    stride); on CPU tensors :func:`ssd_scan_bwd_plain` (``ck``: its chunk,
+    as the forward's).  Raises ValueError on a shape the kernel does not
+    take, and never falls back to the plain version on the card."""
+    _check(x, dt, a, b, c)
+    _check_dy(x, dy)
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"unsupported device {x.device}")
+        return ssd_scan_bwd_plain(x, dt, a, b, c, dy, ck=ck)
+    _bwd_kernel_check(x, dt, b, c, dy)
+    bsz, L, h, p = x.shape
+    g, n = b.shape[2], b.shape[3]
+    dev = x.device
+    dx = torch.empty((bsz, L, h, p), dtype=x.dtype, device=dev)
+    ddt = torch.empty((bsz, L, h), dtype=torch.float32, device=dev)
+    da = torch.empty((h,), dtype=torch.float32, device=dev)
+    db = torch.empty((bsz, L, g, n), dtype=b.dtype, device=dev)
+    dc = torch.empty((bsz, L, g, n), dtype=c.dtype, device=dev)
+    if dx.numel() == 0:
+        return dx, ddt.zero_(), da.zero_(), db.zero_(), dc.zero_()
+    # the kernel reads a row's elements at unit stride: a view whose
+    # innermost stride is not 1 (dy expanded from y.sum()'s scalar, a
+    # transpose) is copied
+    x, b, c, dy = (t if t.stride(-1) == 1 else t.contiguous()
+                   for t in (x, b, c, dy))
+    dt = dt.float()
+    if a.dtype is not torch.float32 or not a.is_contiguous():
+        a = a.float().contiguous()
+    chunks = -(-L // _KERNEL_CK)
+    bh = bsz * h
+    # per chunk and head: the carried state and adjoint [N, P], the chunk's
+    # decay and its da partial; per step and head: the dB and dC partials
+    scratch = torch.empty(2 * bh * chunks * (n * p + 1) + 2 * bh * L * n,
+                          dtype=torch.float32, device=dev)
+    dims = _BWD_DIMS.pack(bsz, L, h, g, n, p, *x.stride()[:3], *dt.stride(),
+                          *b.stride()[:3], *c.stride()[:3], *dy.stride()[:3])
+    if _launch_bwd is None:
+        _resolve_bwd()
+    err = _launch_bwd(x.data_ptr(), dt.data_ptr(), a.data_ptr(),
+                      b.data_ptr(), c.data_ptr(), dy.data_ptr(),
+                      dx.data_ptr(), ddt.data_ptr(), da.data_ptr(),
+                      db.data_ptr(), dc.data_ptr(), scratch.data_ptr(), dims,
+                      _DTYPES[x.dtype], _raw_stream(x.get_device()))
+    if err == _INVALID_VALUE:
+        raise ValueError(
+            f"ssd_scan_bwd kernel does not take B={bsz}, L={L}, H={h}, "
+            f"G={g}, N={n}, P={p}: its entry refuses more than 65,535 "
+            "(batch, head) rows, 2**30 steps or a block's shared memory "
+            "(csrc/ssd_scan_bwd.cu, out_smem)")
+    if err:
+        _build.check(err, "ssd_scan_bwd")
+    ssd_scan_bwd.launches += 1
+    return dx, ddt, da, db, dc
+
+
+class SsdScanFn(torch.autograd.Function):
+    """ssd_scan with its gradient in x, dt, a, b and c: the forward saves
+    the five inputs only (the backward recomputes the states, so remat
+    keeps no [N, P] state a chunk); the backward is :func:`ssd_scan_bwd`
+    (the kernel on the card, never the plain version there).  The final
+    state is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, ck, state_dt):
+        y, state = _forward(x, dt, a, b, c, ck, state_dt)
+        ctx.save_for_backward(x, dt, a, b, c)
+        ctx.ck = ck
+        ctx.mark_non_differentiable(state)
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, _dstate):
+        if dy is None:
+            return (None,) * 7
+        x, dt, a, b, c = ctx.saved_tensors
+        dx, ddt, da, db, dc = ssd_scan_bwd(x, dt, a, b, c, dy, ck=ctx.ck)
+        return dx, ddt.to(dt.dtype), da.to(a.dtype), db, dc, None, None
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, *, ck: int = DEFAULT_CK,
+             state_dt: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, L, H, P]; dt: [B, L, H] in x's dtype or float32; a: [H];
+    b, c: [B, L, G, N] with H % G == 0 -> (y [B, L, H, P] in x's dtype,
+    final state [B, H, N, P] float32).  ``state_dt`` (float32, dt's
+    shape; optional): the dt the final state is computed from, in fp32;
+    y always uses ``dt``.  Inputs
+    may be strided views (the model passes slices of one ``xbc`` buffer).
+    On the CPU the plain version pads as the reference does (``ck``); the
+    kernel takes no padding and ignores ``ck``: its 64-step chunks
+    zero-fill the rows past L, with dt = 0.
+    Differentiable in x, dt, a, b and c when grad is on and one of them
+    requires it (:class:`SsdScanFn`, whose backward is
+    :func:`ssd_scan_bwd`); the final state is not."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, a, b, c)):
+        return SsdScanFn.apply(x, dt, a, b, c, ck, state_dt)
+    return _forward(x, dt, a, b, c, ck, state_dt)
+
+
 ssd_scan.launches = 0
+ssd_scan_bwd.launches = 0

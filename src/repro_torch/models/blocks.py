@@ -21,11 +21,11 @@ Families:
             the encoder's frames), absolute sinusoidal positions.
 
 ``forward(mode="train")`` returns every position's logits and the MoE aux
-loss, as the reference's does; with ``remat`` each stacked layer runs
-under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
-scan body), so its flash_attention forward runs again in the backward
-pass.  Training the ssm and hybrid families waits for ssd_scan's backward
-kernel (ROADMAP.md, queue 1, item 8).
+loss, as the reference's does, for all four families; with ``remat`` each
+stacked layer runs under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` of its scan body), so its flash_attention or ssd_scan
+forward runs again in the backward pass (the hybrid's shared attention
+block, outside the reference's scanned body, is not recomputed).
 
 Every entry point takes ``compute_device`` (default ``"cuda"``, which
 raises without a GPU; ``"cpu"`` runs the kernels' plain versions) and runs
@@ -33,6 +33,8 @@ float32 products in full fp32 (TF32 off for matmul and cuDNN).
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -49,8 +51,6 @@ from .common import (dense_spec, materialize, norm, norm_params,
 Params = dict
 Cache = dict
 PORTED_FAMILIES = ("decoder", "ssm", "hybrid", "encdec")
-#: the families ``forward(mode="train")`` takes
-TRAIN_FAMILIES = ("decoder", "encdec")
 
 
 def exact_fp32() -> None:
@@ -65,14 +65,6 @@ def require_ported(cfg) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported: see "
             "ROADMAP.md, queue 1")
-
-
-def require_trainable(cfg) -> None:
-    if cfg.family not in TRAIN_FAMILIES:
-        raise NotImplementedError(
-            f"forward(mode='train') of the {cfg.family} family ({cfg.name}) "
-            "is not ported yet: it needs ssd_scan's backward kernel "
-            "(ROADMAP.md, queue 1, item 8)")
 
 
 # ===================================================================== init
@@ -319,9 +311,9 @@ def forward(cfg, params: Params, batch: dict, *, mode: str = "prefill",
     shared block's ``attn_k``/``attn_v``; whisper's ``k``/``v`` and its
     ``cross_k``/``cross_v`` [L, B, T, Hk, Dh], T the encoder's frames padded
     to a whole page, see :func:`cross_rows`) sized ``cache_len or S``.
-    mode='train' (the decoder and encdec families): returns (logits
-    [B, S, V], MoE aux loss) and writes no cache; ``remat`` recomputes each
-    stacked layer's activations in the backward pass.  The reference's
+    mode='train' (every family): returns (logits [B, S, V], MoE aux loss,
+    0 without MoE) and writes no cache; ``remat`` recomputes each stacked
+    layer's activations in the backward pass.  The reference's
     default mode is 'train'; the port's stays 'prefill', which its serving
     callers name.
     ``batch["tokens"]`` is [B, S] (a tensor or an array); the decoder
@@ -331,8 +323,6 @@ def forward(cfg, params: Params, batch: dict, *, mode: str = "prefill",
     require_ported(cfg)
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode must be 'train' or 'prefill', not {mode!r}")
-    if mode == "train":
-        require_trainable(cfg)
     dev = resolve_compute_device(compute_device)
     check_params_device(params, dev)
     exact_fp32()
@@ -342,12 +332,34 @@ def forward(cfg, params: Params, batch: dict, *, mode: str = "prefill",
     if cfg.family == "encdec":
         return _encdec_forward(cfg, params, batch, dev, cache_len, mode,
                                remat)
+    return _ssm_forward(cfg, params, batch, dev, cache_len, mode, remat)
+
+
+def _ssm_block_fwd(cfg, lp, h):
+    """One Mamba2 layer of the training forward: h + its block's output."""
+    return h + ssd_mod.ssd_forward(cfg, lp["ssd"], norm(cfg, h, lp["norm"]))[0]
+
+
+def _ssm_forward(cfg, params, batch, dev, cache_len, mode, remat):
     tokens = torch.as_tensor(batch["tokens"], device=dev).long()
     h = params["embed"][tokens]
     b, s = tokens.shape
     if cache_len is not None and cache_len < s:
         raise ValueError(f"cache_len {cache_len} < prompt length {s}")
     positions = torch.arange(s, device=h.device)[None].expand(b, s)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if mode == "train":
+        for seg_start, seg_end in segments(cfg):
+            for i in range(seg_start, seg_end):
+                h = _train_block(partial(_ssm_block_fwd, cfg), remat,
+                                 layer_params(params["layers"], i), h)
+            # the shared block sits outside the reference's scanned (and
+            # checkpointed) layers
+            if cfg.attn_every and seg_end < cfg.n_layers:
+                h, _ = _shared_attn_fwd(cfg, params["shared_attn"], h,
+                                        positions)
+        return (norm(cfg, h, params["final_norm"]) @ head,
+                torch.zeros((), dtype=torch.float32, device=dev))
     convs, states, kvs = [], [], []
     for seg_start, seg_end in segments(cfg):
         for i in range(seg_start, seg_end):
@@ -362,7 +374,6 @@ def forward(cfg, params: Params, batch: dict, *, mode: str = "prefill",
             kvs.append(kv)
 
     h = norm(cfg, h, params["final_norm"])
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = h[:, -1:] @ head
     cache: Cache = {"conv": torch.stack(convs), "state": torch.stack(states),
                     "pos": torch.full((1,), s, dtype=torch.int32,

@@ -5,19 +5,23 @@ Block anatomy (Mamba2): in_proj -> [z | x | B | C | dt]; depthwise causal
 conv over (x, B, C); SSD scan s_t = exp(dt A) s_{t-1} + dt B x^T, y = C s;
 D-skip, SiLU(z) gating, RMSNorm, out_proj.
 
-:func:`ssd_forward` follows the reference's default route
+Both full-sequence routes follow the reference's default route
 (``use_pallas=False``, the one its serve driver and ``train_loss`` take):
 y comes from the ssd_scan kernel wrapper with fp32 dt, the softplus output
 not rounded to x's dtype, as ``ssd_scan_ref`` receives it (the Pallas
-route rounds it; in float32 the two agree).  The final state, which a
-prefill hands to decode, follows the reference's ``ssd_final_state``: fp32
-dt and fp32 products of B and x.  The reference
+route rounds it; in float32 the two agree).  :func:`ssd_prefill`, the
+serving route, gives the block's output, conv tail and final state from
+one input projection (the reference projects twice).  The final state,
+which a prefill hands to decode, follows the reference's
+``ssd_final_state``: fp32 dt and fp32 products of B and x.  The reference
 runs a second, sequential scan over L for it; here the same call to
 ``ssd_scan`` computes it from ``state_dt`` (on the card a second chain
 through the kernel's first two passes), so in bfloat16 too the state
-agrees with the reference's to fp32 rounding.  :func:`ssd_prefill` gives
-the block's output, conv tail and final state from one input projection
-(the reference projects twice).
+agrees with the reference's to fp32 rounding.  :func:`ssd_forward`, the
+training route, computes no final state (no ``state_dt``), as the
+reference's training forward does not; its y is differentiable through
+``ssd_scan``'s autograd Function, whose backward is the ssd_scan_bwd
+kernel.
 """
 
 from __future__ import annotations
@@ -68,8 +72,8 @@ def _silu(x):
     """SiLU as the reference's ``jax.nn.silu`` evaluates it,
     x * (1 / (1 + exp(-x))), each operation rounded to x's dtype: in
     bfloat16, ``F.silu``'s single rounding differs from it in ~40% of
-    outputs (by one ulp)."""
-    return x * torch.exp(-x).add_(1).reciprocal_()
+    outputs (by one ulp).  Out of place, so autograd can take it."""
+    return x * torch.reciprocal(torch.exp(-x) + 1)
 
 
 def _causal_conv(cfg, p, xbc):
@@ -81,10 +85,13 @@ def _causal_conv(cfg, p, xbc):
     return _silu(out + p["conv_b"])
 
 
-def ssd_prefill(cfg, p, h):
+def ssd_prefill(cfg, p, h, *, want_state: bool = True):
     """The block over a full sequence from one projection and one scan
     call: (out [B, L, D], conv_tail [B, k-1, C], state [B, H, N, P] fp32,
-    from fp32 dt as the reference's ``ssd_final_state``)."""
+    from fp32 dt as the reference's ``ssd_final_state``).  ``want_state``
+    False is the training route, as the reference's training forward
+    (``want_state=False``): the scan gets no ``state_dt``, so the kernel
+    runs y's chain alone, and the state returned is that chain's."""
     b, L, _ = h.shape
     g, n_ = cfg.ssm_groups, cfg.ssm_state
     nh, pd = cfg.ssm_heads, cfg.ssm_head_dim
@@ -95,7 +102,8 @@ def ssd_prefill(cfg, p, h):
     cm = xbc[..., cfg.d_inner + g * n_:].reshape(b, L, g, n_)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     a = -torch.exp(p["a_log"])
-    y, state = ssd_scan(x, dt, a, bm, cm, state_dt=dt)
+    y, state = ssd_scan(x, dt, a, bm, cm,
+                        state_dt=dt if want_state else None)
     y = y + x * p["d_skip"][None, None, :, None].to(x.dtype)
     y = y.reshape(b, L, cfg.d_inner)
     y = rms_norm(y * _silu(z), p["ssm_norm"], cfg.norm_eps)
@@ -104,8 +112,10 @@ def ssd_prefill(cfg, p, h):
 
 
 def ssd_forward(cfg, p, h):
-    """Full-sequence forward.  h: [B, L, D] -> ([B, L, D], conv_tail)."""
-    out, conv_tail, _state = ssd_prefill(cfg, p, h)
+    """Full-sequence forward, the training route (no final state):
+    h: [B, L, D] -> ([B, L, D], conv_tail), differentiable through
+    ``ssd_scan``'s backward kernel."""
+    out, conv_tail, _state = ssd_prefill(cfg, p, h, want_state=False)
     return out, conv_tail
 
 

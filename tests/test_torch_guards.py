@@ -43,7 +43,7 @@ def test_port_covers_the_slice():
     assert {p.name for p in (ROOT / "src" / "repro_torch" / "csrc").glob(
         "*.cu")} == {"merge_path.cu", "overlap_scan.cu", "lindley_scan.cu",
                      "flash_attention.cu", "flash_attention_bwd.cu",
-                     "ssd_scan.cu", "paged_attention.cu"}
+                     "ssd_scan.cu", "ssd_scan_bwd.cu", "paged_attention.cu"}
 
 
 def test_entry_points_default_to_cuda():

@@ -229,13 +229,18 @@ def test_seeded_init_matches_the_layout(pair):
 
 
 def test_unported_families_raise():
-    """Only the ssm and hybrid families' training is left to port (it
-    needs ssd_scan's backward kernel); whisper's encdec family builds."""
+    """No family is left to port: whisper's encdec family builds, and the
+    ssm and hybrid families train (``mode="train"``: every position's
+    logits and a zero aux loss); a family the port does not know raises,
+    pointing at ROADMAP.md."""
     cfg = port_configs.get_config("whisper_tiny").smoke()
     assert init_model(cfg, compute_device="cpu")["encoder"]
     for arch in ARCHS:
         cfg = port_configs.get_config(arch).smoke().with_(n_layers=1)
         params = init_model(cfg, compute_device="cpu")
+        logits, aux = forward(cfg, params,
+                              {"tokens": np.zeros((1, 4), np.int32)},
+                              mode="train", compute_device="cpu")
+        assert logits.shape == (1, 4, cfg.vocab_size) and float(aux) == 0.0
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            forward(cfg, params, {"tokens": np.zeros((1, 4), np.int32)},
-                    mode="train", compute_device="cpu")
+            init_model(cfg.with_(family="moe_ssm"), compute_device="cpu")

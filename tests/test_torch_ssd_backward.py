@@ -1,0 +1,371 @@
+"""ssd_scan's gradient in the port against the JAX reference on the CPU.
+
+The reference trains the ssm block through ``jax.grad`` of its sequential
+scan ``ssd_scan_ref`` (``repro/kernels/ssd_scan/ref.py``): it has no
+backward kernel.  The port's ``ssd_scan_bwd_plain`` writes the adjoint
+recurrence out in plain torch in the forward's chunks; it is held here to
+``jax.grad`` through the reference wrapper's layout (B and C repeated over
+each group's heads, a tiled over the batch, so their gradients come back
+summed), within 2e-5 of each gradient's largest |element|, as
+``tests/test_torch_training.py`` holds gradient leaves (fp32 sums in
+another order; dt log-uniform from 1e-4 to 10, whose cumulative decays
+carry the rounding of the chunks' cumsums), and to ``torch.autograd`` of
+``ssd_scan_plain`` (the same chunks, another formulation: d(dt) there
+goes through every exp(a_cs_t - a_cs_j)) within 4e-5, twice that, since
+each of the two carries its own fp32 error and da, a sum over every
+step, the most.
+
+The CUDA kernel cannot run here, so :func:`_bwd_passes` mirrors its
+arithmetic in torch: unpadded 64-step chunks; per chunk and head its own
+end state and its own adjoint ``sum_t exp(a_cs_t) C_t dy_t^T``; both
+carried across the chunks, the states forward and the adjoint in reverse;
+then per chunk dC, dB and dx from the chunk's entry state, the adjoint
+carried in and the masked ``[64, 64]`` products, and d(dt) from
+``dlog_t = lam_t <G_t, s_{t-1}>`` as four sums of products that form no
+per-step state: ``sum_{tau >= t} exp(a_cs_tau) C_tau^T S_in dy_tau``,
+``exp(a_last) <G_out, S_in>``, ``sum_{j < t} exp(a_last - a_cs_j) dt_j
+B_j^T G_out x_j`` and the rectangle ``sum_{tau >= t > j} exp(a_cs_tau -
+a_cs_j) dt_j (C_tau . B_j)(dy_tau . x_j)``, each of whose terms is exact
+zero where the state is (the first step); dB and dC summed over each
+group's heads, da over the batch and the chunks.  It reads strided views
+cut from one ``xbc``-shaped buffer, as the model hands them over, and is
+held to the plain version at the card's tolerance for the kernel
+(``chip_smoke.py``, ``TOL_BWD``): ``|got - want| <= atol * max|want| +
+rtol * |want|`` with (2e-4, 1e-4) in float32 and (1e-3, 1e-2) in
+bfloat16.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro.kernels.ssd_scan.ref import ssd_scan_ref
+from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_bwd,
+                                          ssd_scan_bwd_plain, ssd_scan_plain)
+from repro_torch.kernels.ssd_scan.ops import _KERNEL_CK, _bwd_kernel_check
+
+NAMES = ("dx", "ddt", "da", "db", "dc")
+TOL_BWD = {"float32": (2e-4, 1e-4), "bfloat16": (1e-3, 1e-2)}
+
+
+def _inputs(b, L, h, g, p, n, seed, dtype="float32", strided=False):
+    """(x, dt, a, B, C, dy) as float32 numpy (bf16 values rounded once) and
+    as torch tensors of ``dtype`` (dt and a float32); dt log-uniform from
+    1e-4 to 10.  ``strided``: x, B and C are views of one
+    [B, L, H*P + 2*G*N] buffer, as ``models/ssd.py`` cuts ``xbc``."""
+    rng = np.random.default_rng(seed)
+    di = h * p
+    xbc = np.concatenate([rng.standard_normal((b, L, di)),
+                          rng.standard_normal((b, L, 2 * g * n)) * 0.3], -1)
+    dts = 10.0 ** rng.uniform(-4, 1, (b, L, h))
+    a = -np.abs(rng.standard_normal(h)) - 0.1
+    dy = rng.standard_normal((b, L, h, p))
+    jd = jnp.dtype(dtype)
+    xbc, dy = (np.array(jnp.asarray(t, jd).astype(jnp.float32))
+               for t in (xbc, dy))
+    dts, a = dts.astype(np.float32), a.astype(np.float32)
+    cut = (xbc[..., :di].reshape(b, L, h, p),
+           xbc[..., di:di + g * n].reshape(b, L, g, n),
+           xbc[..., di + g * n:].reshape(b, L, g, n))
+    ref = (cut[0], dts, a, cut[1], cut[2], dy)
+    tt = getattr(torch, dtype)
+    if strided:
+        buf = torch.from_numpy(xbc).to(tt)
+        x = buf[..., :di].reshape(b, L, h, p)
+        bm = buf[..., di:di + g * n].reshape(b, L, g, n)
+        cm = buf[..., di + g * n:].reshape(b, L, g, n)
+    else:
+        x, bm, cm = (torch.from_numpy(np.ascontiguousarray(t)).to(tt)
+                     for t in cut)
+    port = (x, torch.from_numpy(dts), torch.from_numpy(a), bm, cm,
+            torch.from_numpy(dy).to(tt))
+    return ref, port
+
+
+def _ref_y(x, dt, a, b, c):
+    """The reference's sequential scan in its wrapper's layout."""
+    bsz, L, h, p = x.shape
+    rep = h // b.shape[2]
+    bf = jnp.repeat(b, rep, axis=2)
+    cf = jnp.repeat(c, rep, axis=2)
+    n = bf.shape[-1]
+    y = ssd_scan_ref(
+        x.transpose(0, 2, 1, 3).reshape(bsz * h, L, p),
+        dt.transpose(0, 2, 1).reshape(bsz * h, L), jnp.tile(a, bsz),
+        bf.transpose(0, 2, 1, 3).reshape(bsz * h, L, n),
+        cf.transpose(0, 2, 1, 3).reshape(bsz * h, L, n))
+    return y.reshape(bsz, h, L, p).transpose(0, 2, 1, 3)
+
+
+def _ref_grads(x, dt, a, b, c, dy):
+    return jax.grad(lambda *t: jnp.sum(_ref_y(*t) * dy),
+                    argnums=(0, 1, 2, 3, 4))(x, dt, a, b, c)
+
+
+def _rel_err(got: torch.Tensor, want) -> float:
+    """max |got - want| over max |want| (0 when both are all zero)."""
+    w = np.asarray(want, np.float64)
+    err = float(np.max(np.abs(got.double().numpy() - w), initial=0.0))
+    return err / max(float(np.max(np.abs(w), initial=0.0)), 1e-30) \
+        if err else 0.0
+
+
+@pytest.mark.parametrize("L", [1, 63, 64, 65, 189, 300])
+@pytest.mark.parametrize("g", [1, 2])
+def test_plain_matches_jax_grad(L, g):
+    ref, port = _inputs(2, L, 4, g, 32, 16, seed=L + 7 * g)
+    want = _ref_grads(*ref)
+    launches = ssd_scan_bwd.launches
+    got = ssd_scan_bwd(*port)
+    assert ssd_scan_bwd.launches == launches      # CPU: plain version only
+    for name, gt, w, src in zip(NAMES, got, want, port[:5]):
+        assert gt.shape == src.shape, name
+        assert gt.dtype == (torch.float32 if name in ("ddt", "da")
+                            else src.dtype), name
+        assert _rel_err(gt, w) <= 2e-5, (name, _rel_err(gt, w))
+
+
+@pytest.mark.parametrize("L", [1, 64, 65, 189])
+@pytest.mark.parametrize("g", [1, 2])
+def test_plain_matches_autograd_of_plain_forward(L, g):
+    _, port = _inputs(1, L, 4, g, 16, 8, seed=L)
+    leaves = [t.clone().requires_grad_(True) for t in port[:5]]
+    y, _ = ssd_scan_plain(*leaves)
+    want = torch.autograd.grad(y, leaves, port[5])
+    got = ssd_scan_bwd_plain(*port)
+    for name, gt, w in zip(NAMES, got, want):
+        assert _rel_err(gt, w.numpy()) <= 4e-5, (name, _rel_err(gt, w))
+
+
+def _bwd_passes(x, dt, a, bm, cm, dy, q=_KERNEL_CK):
+    """The backward kernel's passes (``csrc/ssd_scan_bwd.cu``) in fp32 torch
+    on unpadded inputs: (dx in x's dtype, ddt, da, db, dc in their
+    dtypes)."""
+    bsz, L, h, p = x.shape
+    g = bm.shape[2]
+    rep = h // g
+    xf, dtf, dyf = x.float(), dt.float(), dy.float()
+    bf = bm.float().repeat_interleave(rep, 2)           # [B, L, H, N]
+    cf = cm.float().repeat_interleave(rep, 2)
+    spans = [slice(c0, min(L, c0 + q)) for c0 in range(0, L, q)]
+    own, own_adj, last, cums = [], [], [], []
+    for sl in spans:                                    # bwd_chunk
+        acs = a * torch.cumsum(dtf[:, sl], 1)           # [B, T, H]
+        w = torch.exp(acs[:, -1:] - acs) * dtf[:, sl]
+        own.append(torch.einsum("bth,bthn,bthp->bhnp", w, bf[:, sl],
+                                xf[:, sl]))
+        own_adj.append(torch.einsum("bth,bthn,bthp->bhnp", torch.exp(acs),
+                                    cf[:, sl], dyf[:, sl]))
+        last.append(acs[:, -1])
+        cums.append(acs)
+    s_in = [torch.zeros_like(own[0])] if spans else []  # bwd_carry
+    for s_own, a_last in zip(own, last):
+        s_in.append(torch.exp(a_last)[..., None, None] * s_in[-1] + s_own)
+    g_out = [None] * len(spans)
+    run = torch.zeros_like(own[0]) if spans else None
+    for i in reversed(range(len(spans))):
+        g_out[i] = run
+        run = torch.exp(last[i])[..., None, None] * run + own_adj[i]
+    dx, ddt = torch.zeros_like(xf), torch.zeros_like(dtf)
+    dbh, dch = torch.zeros_like(bf), torch.zeros_like(cf)
+    da = torch.zeros(bsz, h)
+    for i, (sl, acs) in enumerate(zip(spans, cums)):   # bwd_out
+        at = acs.transpose(1, 2)                        # [B, H, T]
+        t = at.shape[-1]
+        tril = torch.ones(t, t, dtype=torch.bool).tril()
+        decay = torch.exp(torch.where(
+            tril, at[..., :, None] - at[..., None, :], float("-inf")))
+        xc, dyc, bc, cc = xf[:, sl], dyf[:, sl], bf[:, sl], cf[:, sl]
+        dtc = dtf[:, sl].transpose(1, 2)                # [B, H, T]
+        m1 = torch.einsum("bthp,bjhp->bhtj", dyc, xc) * decay
+        m3 = torch.einsum("bthn,bjhn->bhtj", cc, bc) * decay
+        out_w = torch.exp(at[..., -1:] - at)            # exp(a_last - a_cs_t)
+        d_c = (torch.exp(at)[..., None]
+               * torch.einsum("bthp,bhnp->bhtn", dyc, s_in[i])
+               + torch.einsum("bhtj,bhj,bjhn->bhtn", m1, dtc, bc))
+        u = (torch.einsum("bhjt,bjhn->bhtn", m1, cc)
+             + out_w[..., None] * torch.einsum("bhnp,bthp->bhtn", g_out[i],
+                                               xc))
+        dx[:, sl] = (dtc[..., None] * (
+            torch.einsum("bhjt,bjhp->bhtp", m3, dyc)
+            + out_w[..., None] * torch.einsum("bthn,bhnp->bhtp", bc,
+                                              g_out[i]))).transpose(1, 2)
+        dch[:, sl] = d_c.transpose(1, 2)
+        dbh[:, sl] = (dtc[..., None] * u).transpose(1, 2)
+        qv = (bc.transpose(1, 2) * u).sum(-1)           # B_t . u_t
+        # dlog_t = lam_t <G_t, s_{t-1}> in four sums of products
+        v = torch.exp(at) * torch.einsum(
+            "bthn,bhnp,bthp->bht", cc, s_in[i], dyc)
+        k = torch.exp(at[..., -1]) * (g_out[i] * s_in[i]).sum((-1, -2))
+        w = out_w * dtc * torch.einsum("bthn,bhnp,bthp->bht", bc, g_out[i],
+                                       xc)
+        wm = m1 * torch.einsum("bthn,bjhn->bhtj", cc, bc) * dtc[..., None, :]
+        rect = torch.stack([wm[..., s:, :s].sum((-1, -2)) for s in range(t)],
+                           -1)                          # tau >= t > j
+        dlog = (torch.flip(torch.cumsum(torch.flip(v, [-1]), -1), [-1])
+                + k[..., None] + torch.cumsum(w, -1) - w + rect)
+        ddt[:, sl] = (a[:, None] * dlog + qv).transpose(1, 2)
+        da = da + (dtc * dlog).sum(-1)
+    db = dbh.reshape(bsz, L, g, rep, -1).sum(3)
+    dc = dch.reshape(bsz, L, g, rep, -1).sum(3)
+    return (dx.to(x.dtype), ddt, da.sum(0), db.to(bm.dtype),
+            dc.to(cm.dtype))
+
+
+def _within_tol(name, got, want, dtype) -> None:
+    atol, rtol = TOL_BWD[dtype]
+    g, w = got.float(), want.float()
+    scale = float(w.abs().max()) if w.numel() else 0.0
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    assert bool(g.isfinite().all()), name
+    assert bool(((g - w).abs() <= atol * scale + rtol * w.abs()).all()), \
+        (name, float((g - w).abs().max()), scale)
+
+
+@pytest.mark.parametrize("L", [1, 63, 64, 65, 189, 300])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_mirror(L, dtype):
+    """The kernel's passes on strided views (H 4 over G 2) against the plain
+    version at the kernel's tolerance and, in float32, against jax.grad of
+    the reference at the plain version's."""
+    ref, port = _inputs(2, L, 4, 2, 32, 16, seed=L, dtype=dtype,
+                        strided=True)
+    assert not port[0].is_contiguous() and not port[3].is_contiguous()
+    got = _bwd_passes(*port)
+    want = ssd_scan_bwd_plain(*port)
+    for name, gt, w in zip(NAMES, got, want):
+        _within_tol(name, gt, w, dtype)
+    if dtype == "float32":
+        for name, gt, w in zip(NAMES, got, _ref_grads(*ref)):
+            assert _rel_err(gt, w) <= 2e-5, (name, _rel_err(gt, w))
+
+
+def test_kernel_mirror_long_and_shared():
+    """4,096 steps (64 chunks) with all 8 heads on one B/C group, N 64."""
+    _, port = _inputs(1, 4096, 8, 1, 16, 64, seed=1, strided=True)
+    got = _bwd_passes(*port)
+    want = ssd_scan_bwd_plain(*port)
+    for name, gt, w in zip(NAMES, got, want):
+        _within_tol(name, gt, w, "float32")
+
+
+def _model_like(dtype, seed=3, L=70):
+    """An xbc buffer that requires grad and the scan's inputs cut from it
+    as ``models/ssd.py`` cuts them, with dt and a from leaves too."""
+    b, h, g, p, n = 2, 4, 1, 16, 16
+    _, port = _inputs(b, L, h, g, p, n, seed=seed, dtype=dtype)
+    rng = np.random.default_rng(seed)
+    xbc = torch.from_numpy(rng.standard_normal(
+        (b, L, h * p + 2 * g * n)).astype(np.float32)).to(
+            getattr(torch, dtype)).requires_grad_(True)
+    dt_raw = torch.from_numpy(rng.standard_normal(
+        (b, L, h)).astype(np.float32)).requires_grad_(True)
+    a_log = torch.zeros(h, requires_grad=True)
+    return xbc, dt_raw, a_log, port[5]
+
+
+def _scan_of(xbc, dt_raw, a_log, h=4, p=16, n=16):
+    b, L, _ = xbc.shape
+    x = xbc[..., :h * p].reshape(b, L, h, p)
+    bm = xbc[..., h * p:h * p + n].reshape(b, L, 1, n)
+    cm = xbc[..., h * p + n:].reshape(b, L, 1, n)
+    dt = torch.nn.functional.softplus(dt_raw)
+    return ssd_scan(x, dt, -torch.exp(a_log), bm, cm)[0]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_function_under_checkpoint(dtype):
+    """Gradients through ``SsdScanFn`` reach the xbc buffer the views are cut
+    from, dt's and a's leaves, and equal ``ssd_scan_bwd`` on the same
+    views; under ``torch.utils.checkpoint`` they are bitwise those without
+    it.  The final state takes no gradient."""
+    xbc, dt_raw, a_log, dy = _model_like(dtype)
+    grads = []
+    for remat in (False, True):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (xbc, dt_raw, a_log)]
+        y = (checkpoint(_scan_of, *leaves, use_reentrant=False) if remat
+             else _scan_of(*leaves))
+        grads.append(torch.autograd.grad(y, leaves, dy))
+    for g0, g1 in zip(*grads):
+        assert torch.equal(g0, g1)
+    x = xbc.detach()
+    h, p, n = 4, 16, 16
+    b, L, _ = x.shape
+    views = (x[..., :h * p].reshape(b, L, h, p),
+             torch.nn.functional.softplus(dt_raw.detach()),
+             -torch.exp(a_log.detach()),
+             x[..., h * p:h * p + n].reshape(b, L, 1, n),
+             x[..., h * p + n:].reshape(b, L, 1, n))
+    dx, ddt, da, db, dc = ssd_scan_bwd(*views, dy)
+    want = torch.cat([dx.reshape(b, L, -1), db.reshape(b, L, -1),
+                      dc.reshape(b, L, -1)], -1)
+    assert torch.equal(grads[0][0], want)
+    sig = torch.sigmoid(dt_raw.detach())
+    assert torch.allclose(grads[0][1], ddt * sig, rtol=1e-6, atol=0)
+    state = ssd_scan(*(t.requires_grad_(True) if i == 0 else t
+                       for i, t in enumerate(views)))[1]
+    assert not state.requires_grad
+
+
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+def test_function_takes_expanded_dy(reduce):
+    """``y.sum()`` and ``y.mean()`` hand the backward a dy expanded from
+    one element (every stride 0): the gradients equal ``ssd_scan_bwd`` of
+    that dy made contiguous, and of the expanded dy with x as a view whose
+    innermost stride is not 1 (the kernel's wrapper copies both on the
+    card: ``chip_smoke.py``'s ``edge_ssd_bwd``)."""
+    _, port = _inputs(2, 70, 4, 2, 8, 16, 5)
+    x, dt, a, bm, cm, _ = port
+    leaves = [t.clone().requires_grad_(True) for t in (x, dt, a, bm, cm)]
+    y = ssd_scan(*leaves)[0]
+    grads = torch.autograd.grad(getattr(y, reduce)(), leaves)
+    dy = torch.full_like(x, 1.0 if reduce == "sum" else 1.0 / x.numel())
+    want = ssd_scan_bwd(x, dt, a, bm, cm, dy)
+    xt = x.transpose(2, 3).contiguous().transpose(2, 3)
+    assert xt.stride(-1) != 1
+    again = ssd_scan_bwd(xt, dt, a, bm, cm, dy[:1, :1, :1, :1].expand_as(x))
+    for g, w, w2 in zip(grads, want, again):
+        assert torch.equal(g, w)
+        assert torch.equal(w2, w)
+
+
+BAD = [  # x dtype, b dtype, dy dtype, dt dtype, n, p, error
+    ("float16", "float16", "float16", "float32", 16, 16, TypeError),
+    ("bfloat16", "bfloat16", "float32", "float32", 16, 16, TypeError),
+    ("float32", "bfloat16", "float32", "float32", 16, 16, TypeError),
+    ("bfloat16", "bfloat16", "bfloat16", "float32", 8, 16, ValueError),
+    ("float32", "float32", "float32", "float32", 6, 4, ValueError),
+    ("float32", "float32", "float32", "float32", 16, 6, ValueError),
+    ("bfloat16", "bfloat16", "bfloat16", "float32", 128, 40, ValueError),
+]
+
+
+@pytest.mark.parametrize("xd,bd,dyd,dtd,n,p,err", BAD)
+def test_kernel_check_rejects(xd, bd, dyd, dtd, n, p, err):
+    """What the kernel does not take raises before a launch (the wrapper's
+    check on CUDA tensors; it never falls back to the plain version):
+    dtypes other than all-fp32 or all-bf16, and N or P off its multiples.
+    A shape past a block's shared memory is refused by the kernel's own
+    entry, which the wrapper turns into a ValueError (N 144 with P 64, on
+    the card: ``chip_smoke.py``'s ``edge_ssd_bwd``)."""
+    x = torch.zeros(1, 4, 2, p, dtype=getattr(torch, xd))
+    b = torch.zeros(1, 4, 1, n, dtype=getattr(torch, bd))
+    dy = torch.zeros(1, 4, 2, p, dtype=getattr(torch, dyd))
+    dt = torch.zeros(1, 4, 2, dtype=getattr(torch, dtd))
+    with pytest.raises(err):
+        _bwd_kernel_check(x, dt, b, b, dy)
+
+
+def test_wrapper_rejects_bad_shapes():
+    x = torch.zeros(1, 8, 4, 4)
+    args = (x, torch.zeros(1, 8, 4), torch.zeros(4), torch.zeros(1, 8, 2, 4),
+            torch.zeros(1, 8, 2, 4))
+    with pytest.raises(ValueError, match="dy"):
+        ssd_scan_bwd(*args, torch.zeros(1, 8, 4, 5))
+    with pytest.raises(ValueError, match="bad shapes"):
+        ssd_scan_bwd(x, torch.zeros(1, 8, 4), torch.zeros(4),
+                     torch.zeros(1, 8, 3, 4), torch.zeros(1, 8, 3, 4), x)

@@ -178,7 +178,16 @@ def test_async_save_equals_save(tmp_path):
 
 
 def test_run_with_injected_failure_matches_reference(tmp_path):
-    arch = "qwen3_1_7b"
+    _run_matches_reference(tmp_path, "qwen3_1_7b")
+
+
+def test_run_of_the_hybrid_family_matches_reference(tmp_path):
+    """zamba2's Mamba2 layers and shared attention block through the
+    launcher: its restore, checkpoints and losses as the reference's."""
+    _run_matches_reference(tmp_path, "zamba2_1_2b")
+
+
+def _run_matches_reference(tmp_path, arch):
     cfg = get_config(arch).smoke()
     rp = jax.jit(ref_init, static_argnums=0)(cfg, jax.random.PRNGKey(0))
     tp = params_from_jax(port_configs.get_config(arch).smoke(),

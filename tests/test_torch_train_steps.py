@@ -1,10 +1,11 @@
 """The port's train step (``training.make_train_step``: autograd, AdamW,
 clipping, gradient accumulation) against the reference's on the CPU, for
 one arch id of each kind of block: qwen3-1.7b (GQA, qk-norm, tied head),
-deepseek-v2-lite (MLA, MoE routing and aux loss, a dense first layer) and
-whisper-tiny (encdec), at smoke size.  ``test_torch_training.py`` holds
-the gradients of the decoder and encdec arch ids; the optimizer's
-arithmetic does not depend on the arch.
+deepseek-v2-lite (MLA, MoE routing and aux loss, a dense first layer),
+whisper-tiny (encdec) and zamba2-1.2b (Mamba2 layers and a shared
+attention block), at smoke size.  ``test_torch_training.py`` holds the
+gradients of every arch id; the optimizer's arithmetic does not depend on
+the arch.
 
 Both sides start from the same parameters (the reference's, carried
 across) and take 3 steps on the same batches, the last with
@@ -14,6 +15,15 @@ AdamW step moves a parameter by at most ~lr: where a gradient's sign is
 rounding noise, Adam's normalised step can take either sign, which a few
 dozen elements of each model show) and at most 1e-3 of the elements apart
 by more than 1e-6.
+
+zamba2-1.2b's grad norm after the first step is held to 5e-5 relative:
+its smoke model's gradients differ from the reference's by up to ~1e-5
+of each leaf's largest element (``test_torch_training.py`` holds them to
+2e-5; qwen3's sit near 1e-6), so the first AdamW step, whose normalised
+update takes the sign of gradients at that level, leaves a few hundred
+parameters apart (within the bounds below) and the next grad norms up to
+~2e-5 apart.  Its first step, from the same parameters on both sides,
+is held to 1e-5 as the others.
 """
 
 import jax
@@ -30,7 +40,9 @@ from repro_torch.models import params_from_jax
 from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
 from repro_torch.training.tree import leaf_paths
 
-ARCHS = ["qwen3_1_7b", "deepseek_v2_lite", "whisper_tiny"]
+ARCHS = ["qwen3_1_7b", "deepseek_v2_lite", "whisper_tiny", "zamba2_1_2b"]
+# the grad norm's relative tolerance after the first step, where not 1e-5
+LATER_GRAD_NORM_RTOL = {"zamba2_1_2b": 5e-5}
 B, S = 4, 16
 
 
@@ -62,8 +74,10 @@ def test_three_steps_match_reference(arch):
         rp, ro, rm = ref_steps[ga](rp, ro, batch)
         tp, to, tm = steps[ga](tp, to, batch)
         for k in ("loss", "grad_norm"):
+            rtol = LATER_GRAD_NORM_RTOL.get(arch, 1e-5) \
+                if i and k == "grad_norm" else 1e-5
             assert abs(float(tm[k]) - float(rm[k])) <= \
-                1e-5 * abs(float(rm[k])), (i, k)
+                rtol * abs(float(rm[k])), (i, k)
     assert int(to["step"]) == int(ro["step"]) == 3
     port = dict(leaf_paths(tp))
     apart = total = 0

@@ -1,13 +1,15 @@
 """The port's training forward and gradients against the JAX reference on
-the CPU, for the decoder and encdec arch ids at their smoke size.
+the CPU, for the decoder, encdec, hybrid and ssm arch ids at their smoke
+size.
 
 The reference initialises its parameters; ``params_from_jax`` carries them
 across.  Both sides take the same numpy-seeded batch (labels with one -1,
 which the loss masks; whisper's frame embeddings).  The reference's
-``train_loss`` differentiates its plain jnp attention with ``jax.grad``;
-the port's runs the flash_attention wrapper, whose backward is
-``flash_attention_bwd`` (its plain version on CPU tensors), and its MoE
-and MLA in plain torch as the reference does.
+``train_loss`` differentiates its plain jnp attention and its sequential
+SSD scan (``ssd_scan_ref``) with ``jax.grad``; the port's runs the
+flash_attention and ssd_scan wrappers, whose backwards are
+``flash_attention_bwd`` and ``ssd_scan_bwd`` (their plain versions on CPU
+tensors), and its MoE and MLA in plain torch as the reference does.
 
 Tolerances (float32): train-mode logits ``5e-5 * max(1, max|ref|)`` as the
 prefill parity tests; the loss 1e-5 relative; each gradient leaf
@@ -27,14 +29,14 @@ from repro.configs import get_config
 from repro.models import forward as ref_forward
 from repro.models import init_model as ref_init
 from repro.models import train_loss as ref_train_loss
-from repro_torch.models import forward, init_model, params_from_jax
+from repro_torch.models import forward, params_from_jax
 from repro_torch.training.step import value_and_grad
 from repro_torch.training.tree import leaf_paths
 
-# every decoder and encdec arch id but deepseek_v2_236b, whose smoke config
-# is deepseek_v2_lite's but for its name
+# every arch id but deepseek_v2_236b, whose smoke config is
+# deepseek_v2_lite's but for its name
 ARCHS = ["qwen3_1_7b", "llama3_2_3b", "yi_6b", "qwen2_vl_2b", "gemma3_1b",
-         "deepseek_v2_lite", "whisper_tiny"]
+         "deepseek_v2_lite", "whisper_tiny", "zamba2_1_2b", "mamba2_130m"]
 B, S = 2, 16
 
 
@@ -109,16 +111,3 @@ def test_remat_equals_no_remat(pair):
     assert torch.equal(loss_r, loss_n)
     for (path, g), (_, h) in zip(leaf_paths(grads_r), leaf_paths(grads_n)):
         assert torch.equal(g, h), path
-
-
-@pytest.mark.parametrize("arch", ["zamba2_1_2b", "mamba2_130m"])
-def test_ssm_and_hybrid_training_raises(arch):
-    """Training the ssm and hybrid families waits for ssd_scan's backward
-    kernel (ROADMAP.md, queue 1, item 8); their prefill still runs."""
-    cfg = port_configs.get_config(arch).smoke()
-    params = init_model(cfg, 0, compute_device="cpu")
-    batch = {"tokens": np.zeros((1, 8), np.int32)}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):
-        forward(cfg, params, batch, mode="train", compute_device="cpu")
-    logits, _ = forward(cfg, params, batch, compute_device="cpu")
-    assert logits.shape == (1, 1, cfg.vocab_size)
