@@ -52,8 +52,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    contiguous and strided views of one xbc buffer, and zamba2's training
    shape, each case launched twice and bitwise equal, within TOL_BWD; x
    as a view whose innermost stride is not 1 and dy expanded from one
-   element (``y.sum()``/``y.mean()``, through ``SsdScanFn`` too); N 144
-   with P 64, past a block's shared memory, refused with a ValueError;
+   element (``y.sum()``/``y.mean()``, through ``SsdScanFn`` too); N 240
+   with P 64 in bf16 and N 144 with P 64 in fp32, past a block's shared
+   memory, refused with a ValueError;
    paged_attention over whisper's cross cache (1,500 live rows of
    1,504, NaN in the 4 pad rows).
 3. Store path: ``Simulator.run`` on the card for every registered policy
@@ -466,11 +467,9 @@ def kernel_times_us(prof) -> list[tuple[str, float, int]]:
     return sorted(rows, key=lambda r: -r[1])
 
 
-def device_ms(torch, fn, reps: int) -> tuple[float | None, float]:
-    """Device time per call: the durations of the kernels ``reps`` calls
-    launch, from torch.profiler (None when it records no device time); and
-    the device events recorded per call (a window that holds every call's
-    kernels counts as many as one call launches)."""
+def profiled_rows(torch, fn, reps: int) -> list[tuple[str, float, int]]:
+    """``kernel_times_us`` of ``reps`` calls of ``fn`` under torch.profiler,
+    after one call outside it."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -479,10 +478,32 @@ def device_ms(torch, fn, reps: int) -> tuple[float | None, float]:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    rows = kernel_times_us(prof)
+    return kernel_times_us(prof)
+
+
+def device_ms(torch, fn, reps: int) -> tuple[float | None, float]:
+    """Device time per call: the durations of the kernels ``reps`` calls
+    launch, from torch.profiler (None when it records no device time); and
+    the device events recorded per call (a window that holds every call's
+    kernels counts as many as one call launches)."""
+    rows = profiled_rows(torch, fn, reps)
     total = sum(us for _, us, _ in rows)
     return (total / reps / 1e3 if total > 0 else None,
             sum(c for _, _, c in rows) / reps)
+
+
+def pass_ms(torch, fn, reps: int) -> dict:
+    """Per kernel ``fn`` launches (by its function name; copies by theirs):
+    its device time per call from torch.profiler and the device events it
+    recorded per call."""
+    out: dict = {}
+    for name, us, count in profiled_rows(torch, fn, reps):
+        m = re.search(r"(\w+)(?:<[^()]*>)?\(", name)
+        row = out.setdefault(m.group(1) if m else name,
+                             {"ms": 0.0, "events": 0.0})
+        row["ms"] += us / reps / 1e3
+        row["events"] += count / reps
+    return out
 
 
 def time_all(torch, kernel, plain, library, reps: int) -> dict:
@@ -2173,8 +2194,9 @@ def edge_ssd_bwd(torch) -> tuple[float, float]:
     the two results must be bitwise equal (fixed-order sums, no atomics).
     Then x as a view whose innermost stride is not 1 and dy expanded from
     one element, as ``y.sum()`` and ``y.mean()`` hand it to
-    ``SsdScanFn``'s backward (through the Function too), and N 144 with P
-    64, which the kernel's entry must refuse with a ValueError.  Returns
+    ``SsdScanFn``'s backward (through the Function too), and the smallest
+    N at P 64 past a block's shared memory, N 240 in bf16 and N 144 in
+    fp32, which the kernel's entry must refuse with a ValueError.  Returns
     the largest |err| and, per dtype, the largest relative to its
     gradient's largest |element|."""
     from repro_torch.kernels.ssd_scan.ops import (ssd_scan, ssd_scan_bwd,
@@ -2228,15 +2250,16 @@ def edge_ssd_bwd(torch) -> tuple[float, float]:
                                          want)
                 worst = max(worst, err)
                 worst_rel[dt_name] = max(worst_rel[dt_name], rel)
-    # a shape past a block's shared memory: the kernel's entry refuses it
-    x, dt, a, bm, cm = ssd_inputs(torch, gen, 1, 64, 2, 1, 144, 64,
-                                  torch.bfloat16)
-    try:
-        ssd_scan_bwd(x, dt, a, bm, cm, torch.zeros_like(x))
-        fail("ssd_scan_bwd took N 144 with P 64, past a block's shared "
-             "memory")
-    except ValueError:
-        pass
+    # the smallest N at P 64 past a block's shared memory: the kernel's
+    # entry refuses it
+    for n, dtype in ((240, torch.bfloat16), (144, torch.float32)):
+        x, dt, a, bm, cm = ssd_inputs(torch, gen, 1, 64, 2, 1, n, 64, dtype)
+        try:
+            ssd_scan_bwd(x, dt.float(), a, bm, cm, torch.zeros_like(x))
+            fail(f"ssd_scan_bwd took N {n} with P 64 in {dtype}, past a "
+                 "block's shared memory")
+        except ValueError:
+            pass
     return worst, worst_rel
 
 
@@ -2937,7 +2960,9 @@ def time_ssd_bwd(torch, b: int, L: int, reps: int) -> dict:
     """ssd_scan's backward at zamba2-1.2b's heads (64 of P 64, one group of
     N 64), bf16, B x L steps, as its training step calls it: x, B and C
     strided views of one xbc buffer, fp32 softplus dt, seeded bf16 dy.
-    Against its plain version; no PyTorch call computes it."""
+    Against its plain version; no PyTorch call computes it.  ``passes``:
+    each of its kernels' device time and events a call (a sequence of one
+    chunk launches three kernels, a longer one five)."""
     from repro_torch.kernels.ssd_scan.ops import (ssd_scan_bwd,
                                                   ssd_scan_bwd_plain)
     gen = torch.Generator(device="cuda")
@@ -2963,7 +2988,8 @@ def time_ssd_bwd(torch, b: int, L: int, reps: int) -> dict:
             "max_abs_err": err, "max_rel_err": rel, "bound_ms": bound,
             "bound_by": by,
             **time_all(torch, lambda: ssd_scan_bwd(*args),
-                       lambda: ssd_scan_bwd_plain(*args), None, reps)}
+                       lambda: ssd_scan_bwd_plain(*args), None, reps),
+            "passes": pass_ms(torch, lambda: ssd_scan_bwd(*args), reps)}
 
 
 def train_qwen3(torch, np) -> dict:

@@ -72,7 +72,8 @@ Phases, each made of ``chip_smoke.py``'s own functions:
               ``ssd_bwd_cases()``, each case twice and bitwise equal
     ssd_bwd   ssd_scan's backward at zamba2-1.2b's training shape (B 8, L
               64, 64 heads, bf16) and at 4,096 steps, beside its plain
-              version, with the registers, stack and spills ptxas reports
+              version, with each pass's device time and events a call and
+              the registers, stack and spills ptxas reports
     fleet_matrix db_bench's fleet_sweep at full size, then the fleet
               matrix in one lindley_scan launch against its passes, and
               lindley_scan timed over the matrix's batch
@@ -192,9 +193,21 @@ def ptxas_summary(name: str) -> dict:
     if out and shutil.which("c++filt"):
         names = subprocess.run(["c++filt"], input="\n".join(out),
                                capture_output=True, text=True).stdout
-        out = dict(zip((n.split("::")[-1].split("(")[0]
-                        for n in names.splitlines()), out.values()))
+        out = dict(zip(map(_kernel_name, names.splitlines()),
+                       out.values()))
     return out
+
+
+def _kernel_name(sig: str) -> str:
+    """``name<args>`` of a demangled kernel's signature: no return type,
+    parameters or anonymous namespace (its parameters may hold ``::``)."""
+    depth = 0
+    for i in range(len(sig) - 1, -1, -1):
+        depth += {")": 1, "(": -1}.get(sig[i], 0)
+        if depth == 0 and sig[i] == "(":
+            sig = sig[:i]
+            break
+    return sig.removeprefix("void ").replace("(anonymous namespace)::", "")
 
 
 def flash_bwd(torch, np, cs, ctx) -> dict:

@@ -237,23 +237,9 @@ __global__ void __launch_bounds__(kThreads * kHalves) chunk_out(Args A) {
     const int lane = tid & 31, g = lane >> 2, q = lane & 3;
     const int warp = (tid >> 5) & 3, half = kHalves == 2 ? tid >> 7 : 0;
     const int ra = warp * 16 + g, rb = ra + 8;  // this thread's two rows
-    const int nj = 2 * warp + 2;                // 8-column tiles with j <= t
     // G = C.B^T for rows ra, rb and every j of the warp's causal band.
-    float sc[kQ / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kQ / 8; ++nt)
-      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-    for (int ks = 0; ks < n / 16; ++ks) {  // 8 independent accumulators
-      const T* ca = sC + ra * ldn + ks * 16 + 2 * q;
-      const uint32_t af[4] = {ld32(ca), ld32(ca + 8 * ldn), ld32(ca + 8),
-                              ld32(ca + 8 * ldn + 8)};
-#pragma unroll
-      for (int nt = 0; nt < kQ / 8; ++nt)
-        if (nt < nj) {
-          const T* bb = sB + (nt * 8 + g) * ldn + ks * 16 + 2 * q;
-          mma(sc[nt], af, ld32(bb), ld32(bb + 8));
-        }
-    }
+    float sc[kQ / 8][4] = {};
+    band(sc, sC, ldn, sB, ldn, n, ra, 0, 2 * warp + 2);
     // W, masked to j <= t, as A fragments of W.X in hi + lo halves.
     const float ea = acs[ra], eb = acs[rb];
     uint32_t wh[kQ / 16][4], wl[kQ / 16][4];
@@ -266,13 +252,7 @@ __global__ void __launch_bounds__(kThreads * kHalves) chunk_out(Args A) {
         sc[nt][e] = j <= ra ? sc[nt][e] * expf(ea - aj) * dj : 0.f;
         sc[nt][2 + e] = j <= rb ? sc[nt][2 + e] * expf(eb - aj) * dj : 0.f;
       }
-#pragma unroll
-    for (int kk = 0; kk < kQ / 16; ++kk) {
-      split(sc[2 * kk][0], sc[2 * kk][1], wh[kk][0], wl[kk][0]);
-      split(sc[2 * kk][2], sc[2 * kk][3], wh[kk][1], wl[kk][1]);
-      split(sc[2 * kk + 1][0], sc[2 * kk + 1][1], wh[kk][2], wl[kk][2]);
-      split(sc[2 * kk + 1][2], sc[2 * kk + 1][3], wh[kk][3], wl[kk][3]);
-    }
+    to_a_split(sc, wh, wl);
     const __nv_bfloat16* sh = sS;
     const __nv_bfloat16* sl = sS + (size_t)n * ldp;
     const float da = expf(ea), db = expf(eb);
@@ -282,33 +262,8 @@ __global__ void __launch_bounds__(kThreads * kHalves) chunk_out(Args A) {
     const int mid = kHalves == 2 ? (pairs + 1) / 2 : pairs;
     for (int pp = half ? mid : 0; pp < (half ? pairs : mid); ++pp) {
       float ih[2][4] = {}, il[2][4] = {}, eh[2][4] = {}, el[2][4] = {};
-#pragma unroll
-      for (int kk = 0; kk < kQ / 16; ++kk) {
-        if (kk > warp) break;
-        uint32_t bx[4];
-        ld_b_pair(sX, ldp, kk * 16, pp * 16, bx);
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          mma(ih[u], wh[kk], bx[2 * u], bx[2 * u + 1]);
-          mma(il[u], wl[kk], bx[2 * u], bx[2 * u + 1]);
-        }
-      }
-      if (c > 0) {
-#pragma unroll 4
-        for (int ks = 0; ks < n / 16; ++ks) {
-          const T* ca = sC + ra * ldn + ks * 16 + 2 * q;
-          const uint32_t af[4] = {ld32(ca), ld32(ca + 8 * ldn), ld32(ca + 8),
-                                  ld32(ca + 8 * ldn + 8)};
-          uint32_t bh[4], bl[4];
-          ld_b_pair(sh, ldp, ks * 16, pp * 16, bh);
-          ld_b_pair(sl, ldp, ks * 16, pp * 16, bl);
-#pragma unroll
-          for (int u = 0; u < 2; ++u) {
-            mma(eh[u], af, bh[2 * u], bh[2 * u + 1]);
-            mma(el[u], af, bl[2 * u], bl[2 * u + 1]);
-          }
-        }
-      }
+      split_product(ih, il, wh, wl, sX, ldp, pp * 16, 0, warp + 1);
+      if (c > 0) planes_product(eh, el, sC, ldn, sh, sl, ldp, n, ra, pp * 16);
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         const int col = (2 * pp + u) * 8 + 2 * q;

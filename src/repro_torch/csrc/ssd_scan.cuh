@@ -1,8 +1,10 @@
 // Shared by the Mamba2 SSD scan's forward (ssd_scan.cu) and backward
 // (ssd_scan_bwd.cu): the chunk size, strided tile loads, the chunk's
-// decays, a chunk's own [N, P] state as sum_j B_j w_j x_j^T (own_state),
-// and the sequential pass that carries [N, P] matrices across the chunks
-// (carry_states), forward for the states, in reverse for their adjoint.
+// decays, the tensor-core products of the per-chunk passes (mma.sync
+// fragments, fp32 operands split into bf16 parts), a chunk's own [N, P]
+// state as sum_j B_j w_j x_j^T (own_state), and the sequential pass that
+// carries [N, P] matrices across the chunks (carry_states), forward for
+// the states, in reverse for their adjoint.
 
 #pragma once
 
@@ -11,6 +13,8 @@
 #include <cuda_runtime.h>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kQ = 64;             // steps per chunk
 constexpr int kThreads = 128;      // 4 warps; warp w owns rows 16w..16w+15
@@ -93,6 +97,97 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The products of chunk_out and the backward's bwd_out: warp w owns rows
+// ra = 16w + lane/4 and ra + 8 of the chunk, a [16, 64] accumulator set
+// acc[nt][4] holds their 8-column tiles nt (mma's D layout).
+
+// A fragment (16 x 16) of rows ra, ra + 8 and k0..k0+15 of a row-major
+// bf16 tile.
+__device__ __forceinline__ void ld_a(const bf16* tile, int ld, int ra,
+                                     int k0, uint32_t (&a)[4]) {
+  const bf16* p = tile + ra * ld + k0 + 2 * (threadIdx.x & 3);
+  a[0] = ld32(p);
+  a[1] = ld32(p + 8 * ld);
+  a[2] = ld32(p + 8);
+  a[3] = ld32(p + 8 * ld + 8);
+}
+
+// acc[nt] += (rows ra, ra + 8 of `a`) . (rows nt*8..nt*8+7 of `b`)^T over
+// k < kdim, for the 8-column tiles lo <= nt < hi; both tiles row-major
+// bf16 with k along a row.
+__device__ __forceinline__ void band(float (&acc)[kQ / 8][4], const bf16* a,
+                                     int lda, const bf16* b, int ldb,
+                                     int kdim, int ra, int lo, int hi) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  for (int ks = 0; ks < kdim / 16; ++ks) {  // 8 independent accumulators
+    uint32_t af[4];
+    ld_a(a, lda, ra, ks * 16, af);
+#pragma unroll
+    for (int nt = 0; nt < kQ / 8; ++nt)
+      if (nt >= lo && nt < hi) {
+        const bf16* bb = b + (nt * 8 + g) * ldb + ks * 16 + 2 * q;
+        mma(acc[nt], af, ld32(bb), ld32(bb + 8));
+      }
+  }
+}
+
+// An fp32 accumulator set as A fragments (k = its 64 columns) in bf16 hi
+// and lo parts.
+__device__ __forceinline__ void to_a_split(const float (&acc)[kQ / 8][4],
+                                           uint32_t (&hi)[kQ / 16][4],
+                                           uint32_t (&lo)[kQ / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kQ / 16; ++kk) {
+    split(acc[2 * kk][0], acc[2 * kk][1], hi[kk][0], lo[kk][0]);
+    split(acc[2 * kk][2], acc[2 * kk][3], hi[kk][1], lo[kk][1]);
+    split(acc[2 * kk + 1][0], acc[2 * kk + 1][1], hi[kk][2], lo[kk][2]);
+    split(acc[2 * kk + 1][2], acc[2 * kk + 1][3], hi[kk][3], lo[kk][3]);
+  }
+}
+
+// dh[u] += hi . B and dl[u] += lo . B over the k-tiles kk0 <= kk < kk1,
+// B = rows kk*16.. of the row-major bf16 tile `b` (k along its rows),
+// columns n0 + 8u..n0 + 8u + 7.
+__device__ __forceinline__ void split_product(
+    float (&dh)[2][4], float (&dl)[2][4], const uint32_t (&hi)[kQ / 16][4],
+    const uint32_t (&lo)[kQ / 16][4], const bf16* b, int ldb, int n0,
+    int kk0, int kk1) {
+#pragma unroll
+  for (int kk = 0; kk < kQ / 16; ++kk) {
+    if (kk < kk0 || kk >= kk1) continue;
+    uint32_t bb[4];
+    ld_b_pair(b, ldb, kk * 16, n0, bb);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      mma(dh[u], hi[kk], bb[2 * u], bb[2 * u + 1]);
+      mma(dl[u], lo[kk], bb[2 * u], bb[2 * u + 1]);
+    }
+  }
+}
+
+// dh[u] += A . Sh and dl[u] += A . Sl over k < kdim: A rows ra, ra + 8 of
+// the bf16 tile `a`, Sh and Sl a state's hi and lo planes [k][lds],
+// columns n0 + 8u..n0 + 8u + 7 (C . S_in, B . G_out).
+__device__ __forceinline__ void planes_product(float (&dh)[2][4],
+                                               float (&dl)[2][4],
+                                               const bf16* a, int lda,
+                                               const bf16* sh,
+                                               const bf16* sl, int lds,
+                                               int kdim, int ra, int n0) {
+#pragma unroll 4
+  for (int ks = 0; ks < kdim / 16; ++ks) {
+    uint32_t af[4], bh[4], bl[4];
+    ld_a(a, lda, ra, ks * 16, af);
+    ld_b_pair(sh, lds, ks * 16, n0, bh);
+    ld_b_pair(sl, lds, ks * 16, n0, bl);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      mma(dh[u], af, bh[2 * u], bh[2 * u + 1]);
+      mma(dl[u], af, bl[2 * u], bl[2 * u + 1]);
+    }
+  }
 }
 
 // Rows [0, rows) of a `tile_rows`-row tile (kQ by default) of `cols`
@@ -225,17 +320,19 @@ __device__ __forceinline__ void own_state(const T* sB, int ldn, const T* sX,
 // `state` is null).  S_in(c) replaces S_own(c) (kInPlace, the fp32 path),
 // or goes to s_in16 as bf16 hi and lo planes (kSplit, the bf16 path), in
 // the layout chunk_out's products read, or is not written (kFinal, the
-// final state's run).  kReverse walks the chunks from the last to the
+// final state's run).  `reverse` walks the chunks from the last to the
 // first, as the backward carries the state's adjoint: G_out(c) =
-// exp(a_last(c+1)) G_out(c+1) + D_own(c+1), G_out of the last chunk 0.
+// exp(a_last(c+1)) G_out(c+1) + D_own(c+1), G_out of the last chunk 0 (a
+// run-time flag: one body serves both directions of the backward's
+// carry, in fewer registers than two).
 enum StateOut { kInPlace, kSplit, kFinal };
 
-template <StateOut kOut, bool kReverse = false>
+template <StateOut kOut>
 __device__ __forceinline__ void carry_states(const float* __restrict__ chunk_a,
                                              float* chunk_s,
                                              __nv_bfloat16* __restrict__ s_in16,
                                              float* __restrict__ state, int nc,
-                                             int np4) {
+                                             int np4, bool reverse = false) {
   const int bh = blockIdx.y;
   const int i = blockIdx.x * kStateThreads + threadIdx.x;
   if (i >= np4) return;
@@ -246,7 +343,9 @@ __device__ __forceinline__ void carry_states(const float* __restrict__ chunk_a,
   float4 run = make_float4(0.f, 0.f, 0.f, 0.f);
   float4 own[kStateDepth], next[kStateDepth];
   // the k-th chunk visited
-  auto at = [nc](int k) -> int64_t { return kReverse ? nc - 1 - k : k; };
+  auto at = [nc, reverse](int k) -> int64_t {
+    return reverse ? nc - 1 - k : k;
+  };
 #pragma unroll
   for (int k = 0; k < kStateDepth; ++k)
     if (k < nc) next[k] = s[at(k) * np4];

@@ -27,10 +27,12 @@ padding, transposing or repeating copy.  Both evaluate
 
 Gradients: when grad is on and x, dt, a, b or c requires it, the call goes
 through :class:`SsdScanFn`, whose backward is :func:`ssd_scan_bwd`: on
-CUDA tensors the five passes of ``csrc/ssd_scan_bwd.cu`` (its own launch
-counter; the forward's chunked form run backwards, fp32 on the CUDA cores,
-deterministic), on CPU tensors :func:`ssd_scan_bwd_plain`, the adjoint
-recurrence written out.  The reference has no backward kernel: it takes
+CUDA tensors the passes of ``csrc/ssd_scan_bwd.cu`` (its own launch
+counter; the forward's chunked form run backwards, bf16 on the tensor
+cores with the forward's hi/lo split, fp32 on the CUDA cores,
+deterministic; three kernels for a sequence of one chunk, five for
+more), on CPU tensors :func:`ssd_scan_bwd_plain`, the adjoint recurrence
+written out.  The reference has no backward kernel: it takes
 ``jax.grad`` of ``ssd_scan_ref``.
 """
 
@@ -346,8 +348,9 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     inputs' dtypes, ddt [B, L, H] and da [H] in float32.  On CUDA tensors
     the passes of ``csrc/ssd_scan_bwd.cu`` (one launch counted), which read
     x, dt, B, C and dy through their strides (a row's elements at unit
-    stride); on CPU tensors :func:`ssd_scan_bwd_plain` (``ck``: its chunk,
-    as the forward's).  Raises ValueError on a shape the kernel does not
+    stride, 16-byte aligned: others are copied once); on CPU tensors
+    :func:`ssd_scan_bwd_plain` (``ck``: its chunk, as the forward's).
+    Raises ValueError on a shape the kernel does not
     take, and never falls back to the plain version on the card."""
     _check(x, dt, a, b, c)
     _check_dy(x, dy)
@@ -366,19 +369,23 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     dc = torch.empty((bsz, L, g, n), dtype=c.dtype, device=dev)
     if dx.numel() == 0:
         return dx, ddt.zero_(), da.zero_(), db.zero_(), dc.zero_()
-    # the kernel reads a row's elements at unit stride: a view whose
-    # innermost stride is not 1 (dy expanded from y.sum()'s scalar, a
-    # transpose) is copied
-    x, b, c, dy = (t if t.stride(-1) == 1 else t.contiguous()
-                   for t in (x, b, c, dy))
+    # the kernel reads a row's elements at unit stride, in bf16 by cp.async
+    # from 16-byte aligned rows: a view whose innermost stride is not 1 (dy
+    # expanded from y.sum()'s scalar, a transpose) or whose rows are not
+    # aligned is copied
+    elems = 16 // x.element_size()
+    x, b, c, dy = (_rows_aligned(t, elems) for t in (x, b, c, dy))
     dt = dt.float()
     if a.dtype is not torch.float32 or not a.is_contiguous():
         a = a.float().contiguous()
     chunks = -(-L // _KERNEL_CK)
     bh = bsz * h
-    # per chunk and head: the carried state and adjoint [N, P], the chunk's
-    # decay and its da partial; per step and head: the dB and dC partials
-    scratch = torch.empty(2 * bh * chunks * (n * p + 1) + 2 * bh * L * n,
+    code = _DTYPES[x.dtype]
+    # per chunk and head: the own state and adjoint [N, P] (fp32), then
+    # (bf16) the carried ones as hi and lo planes, the chunk's decay and its
+    # da partial; per step and head: the dB and dC partials
+    scratch = torch.empty((2 + 2 * code) * bh * chunks * n * p
+                          + 2 * bh * chunks + 2 * bh * L * n,
                           dtype=torch.float32, device=dev)
     dims = _BWD_DIMS.pack(bsz, L, h, g, n, p, *x.stride()[:3], *dt.stride(),
                           *b.stride()[:3], *c.stride()[:3], *dy.stride()[:3])
@@ -388,13 +395,14 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                       b.data_ptr(), c.data_ptr(), dy.data_ptr(),
                       dx.data_ptr(), ddt.data_ptr(), da.data_ptr(),
                       db.data_ptr(), dc.data_ptr(), scratch.data_ptr(), dims,
-                      _DTYPES[x.dtype], _raw_stream(x.get_device()))
+                      code, _raw_stream(x.get_device()))
     if err == _INVALID_VALUE:
         raise ValueError(
             f"ssd_scan_bwd kernel does not take B={bsz}, L={L}, H={h}, "
             f"G={g}, N={n}, P={p}: its entry refuses more than 65,535 "
             "(batch, head) rows, 2**30 steps or a block's shared memory "
-            "(csrc/ssd_scan_bwd.cu, out_smem)")
+            "(csrc/ssd_scan_bwd.cu, out_smem: at P 64, N up to 224 in "
+            "bfloat16 and up to 140 in float32)")
     if err:
         _build.check(err, "ssd_scan_bwd")
     ssd_scan_bwd.launches += 1

@@ -16,9 +16,13 @@ each of the two carries its own fp32 error and da, a sum over every
 step, the most.
 
 The CUDA kernel cannot run here, so :func:`_bwd_passes` mirrors its
-arithmetic in torch: unpadded 64-step chunks; per chunk and head its own
-end state and its own adjoint ``sum_t exp(a_cs_t) C_t dy_t^T``; both
-carried across the chunks, the states forward and the adjoint in reverse;
+arithmetic in torch, fp32 for its fp32 route and, for its bf16 route,
+the tensor cores' products (bf16 x bf16 exact in fp32, each fp32 operand
+split into bf16 hi + lo parts, ``SPLIT``; rounded once instead, each of
+them leaves elements outside the tolerance): unpadded 64-step chunks;
+per chunk and head its own end state and its own adjoint ``sum_t
+exp(a_cs_t) C_t dy_t^T``; both carried across the chunks, the states
+forward and the adjoint in reverse;
 then per chunk dC, dB and dx from the chunk's entry state, the adjoint
 carried in and the masked ``[64, 64]`` products, and d(dt) from
 ``dlog_t = lam_t <G_t, s_{t-1}>`` as four sums of products that form no
@@ -140,35 +144,94 @@ def test_plain_matches_autograd_of_plain_forward(L, g):
         assert _rel_err(gt, w.numpy()) <= 4e-5, (name, _rel_err(gt, w))
 
 
-def _bwd_passes(x, dt, a, bm, cm, dy, q=_KERNEL_CK):
-    """The backward kernel's passes (``csrc/ssd_scan_bwd.cu``) in fp32 torch
-    on unpadded inputs: (dx in x's dtype, ddt, da, db, dc in their
-    dtypes)."""
+# The bf16 route of the kernel runs every product on the tensor cores:
+# bf16 x bf16 products exact in fp32, and each fp32 operand split into
+# bf16 parts before its product.  Its parts per operand:
+SPLIT = {"bw": 2,      # B * w of S_own (bwd_chunk)
+         "cw": 2,      # C * exp(a_cs) of D_own (bwd_chunk)
+         "s_in": 2,    # S_in's planes (bwd_carry), in dY.S_in^T
+         "g_out": 2,   # G_out's planes, in X.G_out^T and B.G_out
+         "m1dt": 2,    # M1 * dt_j, times B: dC's intra term
+         "m1t": 2,     # M1^T, times C: u's backward term
+         "m3t": 2}     # M3^T, times dY: dx's backward term
+
+
+def _parts(v, k):
+    """``v`` as ``k`` bf16 parts that add up to it to ~8k significant
+    bits, the smallest first."""
+    out = []
+    for _ in range(k):
+        hi = v.bfloat16().float()
+        out.append(hi)
+        v = v - hi
+    return out[::-1]
+
+
+def _mm(eq, parts, b):
+    """``einsum(eq, part, b)`` of each part of an fp32 operand with the
+    bf16-valued ``b``, added small first."""
+    out = torch.einsum(eq, parts[0], b)
+    for part in parts[1:]:
+        out = out + torch.einsum(eq, part, b)
+    return out
+
+
+def _carry(own, own_adj, last, zero):
+    """bwd_carry: each chunk's entry state S_in, carried forward from zero,
+    and G_out, the adjoint carried back from zero after the last chunk; the
+    last chunk's own state and the first chunk's own adjoint are not read."""
+    s_in = [zero]
+    for s_own, a_last in zip(own[:-1], last):
+        s_in.append(torch.exp(a_last)[..., None, None] * s_in[-1] + s_own)
+    g_out = [zero]
+    for adj, a_last in zip(own_adj[:0:-1], last[:0:-1]):
+        g_out.append(torch.exp(a_last)[..., None, None] * g_out[-1] + adj)
+    return s_in, g_out[::-1]
+
+
+def _dlog(v, k, w, wm):
+    """dlog_t from its four sums of products: v's suffix sums, k, w's
+    exclusive prefix sums and the rectangle sum_{tau >= t > j} W[tau][j]."""
+    t = v.shape[-1]
+    rect = torch.stack([wm[..., s:, :s].sum((-1, -2)) for s in range(t)], -1)
+    return (torch.flip(torch.cumsum(torch.flip(v, [-1]), -1), [-1])
+            + k[..., None] + torch.cumsum(w, -1) - w + rect)
+
+
+def _bwd_passes(x, dt, a, bm, cm, dy, q=_KERNEL_CK, parts=None):
+    """The backward kernel's passes (``csrc/ssd_scan_bwd.cu``) in torch on
+    unpadded inputs: (dx in x's dtype, ddt, da, db, dc in their dtypes).
+    ``parts`` None: the fp32 route, fp32 throughout.  ``parts`` a dict as
+    SPLIT: the bf16 route's products, each fp32 operand split into its
+    ``parts[name]`` bf16 parts, and the dead S_own of the last chunk and
+    D_own of the first skipped."""
     bsz, L, h, p = x.shape
-    g = bm.shape[2]
+    g, n = bm.shape[2], bm.shape[3]
     rep = h // g
     xf, dtf, dyf = x.float(), dt.float(), dy.float()
     bf = bm.float().repeat_interleave(rep, 2)           # [B, L, H, N]
     cf = cm.float().repeat_interleave(rep, 2)
     spans = [slice(c0, min(L, c0 + q)) for c0 in range(0, L, q)]
     own, own_adj, last, cums = [], [], [], []
-    for sl in spans:                                    # bwd_chunk
+    for i, sl in enumerate(spans):                      # bwd_chunk
         acs = a * torch.cumsum(dtf[:, sl], 1)           # [B, T, H]
         w = torch.exp(acs[:, -1:] - acs) * dtf[:, sl]
-        own.append(torch.einsum("bth,bthn,bthp->bhnp", w, bf[:, sl],
-                                xf[:, sl]))
-        own_adj.append(torch.einsum("bth,bthn,bthp->bhnp", torch.exp(acs),
-                                    cf[:, sl], dyf[:, sl]))
+        if parts is None:
+            own.append(torch.einsum("bth,bthn,bthp->bhnp", w, bf[:, sl],
+                                    xf[:, sl]))
+            own_adj.append(torch.einsum("bth,bthn,bthp->bhnp",
+                                        torch.exp(acs), cf[:, sl],
+                                        dyf[:, sl]))
+        else:
+            own.append(None if i + 1 == len(spans) else _mm(
+                "bthn,bthp->bhnp", _parts(bf[:, sl] * w[..., None],
+                                          parts["bw"]), xf[:, sl]))
+            own_adj.append(None if i == 0 else _mm(
+                "bthn,bthp->bhnp", _parts(cf[:, sl] * torch.exp(acs)[
+                    ..., None], parts["cw"]), dyf[:, sl]))
         last.append(acs[:, -1])
         cums.append(acs)
-    s_in = [torch.zeros_like(own[0])] if spans else []  # bwd_carry
-    for s_own, a_last in zip(own, last):
-        s_in.append(torch.exp(a_last)[..., None, None] * s_in[-1] + s_own)
-    g_out = [None] * len(spans)
-    run = torch.zeros_like(own[0]) if spans else None
-    for i in reversed(range(len(spans))):
-        g_out[i] = run
-        run = torch.exp(last[i])[..., None, None] * run + own_adj[i]
+    s_in, g_out = _carry(own, own_adj, last, torch.zeros(bsz, h, n, p))
     dx, ddt = torch.zeros_like(xf), torch.zeros_like(dtf)
     dbh, dch = torch.zeros_like(bf), torch.zeros_like(cf)
     da = torch.zeros(bsz, h)
@@ -183,30 +246,45 @@ def _bwd_passes(x, dt, a, bm, cm, dy, q=_KERNEL_CK):
         m1 = torch.einsum("bthp,bjhp->bhtj", dyc, xc) * decay
         m3 = torch.einsum("bthn,bjhn->bhtj", cc, bc) * decay
         out_w = torch.exp(at[..., -1:] - at)            # exp(a_last - a_cs_t)
-        d_c = (torch.exp(at)[..., None]
-               * torch.einsum("bthp,bhnp->bhtn", dyc, s_in[i])
-               + torch.einsum("bhtj,bhj,bjhn->bhtn", m1, dtc, bc))
-        u = (torch.einsum("bhjt,bjhn->bhtn", m1, cc)
-             + out_w[..., None] * torch.einsum("bhnp,bthp->bhtn", g_out[i],
-                                               xc))
-        dx[:, sl] = (dtc[..., None] * (
-            torch.einsum("bhjt,bjhp->bhtp", m3, dyc)
-            + out_w[..., None] * torch.einsum("bthn,bhnp->bhtp", bc,
-                                              g_out[i]))).transpose(1, 2)
+        if parts is None:
+            d_c = (torch.exp(at)[..., None]
+                   * torch.einsum("bthp,bhnp->bhtn", dyc, s_in[i])
+                   + torch.einsum("bhtj,bhj,bjhn->bhtn", m1, dtc, bc))
+            u = (torch.einsum("bhjt,bjhn->bhtn", m1, cc)
+                 + out_w[..., None] * torch.einsum("bhnp,bthp->bhtn",
+                                                   g_out[i], xc))
+            d_x = (torch.einsum("bhjt,bjhp->bhtp", m3, dyc)
+                   + out_w[..., None] * torch.einsum("bthn,bhnp->bhtp", bc,
+                                                     g_out[i]))
+            # dlog_t = lam_t <G_t, s_{t-1}> in four sums of products
+            v = torch.exp(at) * torch.einsum(
+                "bthn,bhnp,bthp->bht", cc, s_in[i], dyc)
+            k = torch.exp(at[..., -1]) * (g_out[i] * s_in[i]).sum((-1, -2))
+            w = out_w * dtc * torch.einsum("bthn,bhnp,bthp->bht", bc,
+                                           g_out[i], xc)
+        else:
+            s_p = _parts(s_in[i], parts["s_in"])        # the planes
+            g_p = _parts(g_out[i], parts["g_out"])
+            sdy = _mm("bhnp,bthp->bhtn", s_p, dyc)      # S_in dy_t
+            gx = _mm("bhnp,bthp->bhtn", g_p, xc)        # G_out x_t
+            d_c = (torch.exp(at)[..., None] * sdy + _mm(
+                "bhtj,bjhn->bhtn", _parts(m1 * dtc[..., None, :],
+                                          parts["m1dt"]), bc))
+            u = (_mm("bhtj,bjhn->bhtn",
+                     _parts(m1.transpose(-1, -2), parts["m1t"]), cc)
+                 + out_w[..., None] * gx)
+            d_x = (_mm("bhtj,bjhp->bhtp",
+                       _parts(m3.transpose(-1, -2), parts["m3t"]), dyc)
+                   + out_w[..., None] * _mm("bhnp,bthn->bhtp", g_p, bc))
+            v = torch.exp(at) * (cc.transpose(1, 2) * sdy).sum(-1)
+            k = torch.exp(at[..., -1]) * (sum(g_p) * sum(s_p)).sum((-1, -2))
+            w = out_w * dtc * (bc.transpose(1, 2) * gx).sum(-1)
+        dx[:, sl] = (dtc[..., None] * d_x).transpose(1, 2)
         dch[:, sl] = d_c.transpose(1, 2)
         dbh[:, sl] = (dtc[..., None] * u).transpose(1, 2)
         qv = (bc.transpose(1, 2) * u).sum(-1)           # B_t . u_t
-        # dlog_t = lam_t <G_t, s_{t-1}> in four sums of products
-        v = torch.exp(at) * torch.einsum(
-            "bthn,bhnp,bthp->bht", cc, s_in[i], dyc)
-        k = torch.exp(at[..., -1]) * (g_out[i] * s_in[i]).sum((-1, -2))
-        w = out_w * dtc * torch.einsum("bthn,bhnp,bthp->bht", bc, g_out[i],
-                                       xc)
         wm = m1 * torch.einsum("bthn,bjhn->bhtj", cc, bc) * dtc[..., None, :]
-        rect = torch.stack([wm[..., s:, :s].sum((-1, -2)) for s in range(t)],
-                           -1)                          # tau >= t > j
-        dlog = (torch.flip(torch.cumsum(torch.flip(v, [-1]), -1), [-1])
-                + k[..., None] + torch.cumsum(w, -1) - w + rect)
+        dlog = _dlog(v, k, w, wm)
         ddt[:, sl] = (a[:, None] * dlog + qv).transpose(1, 2)
         da = da + (dtc * dlog).sum(-1)
     db = dbh.reshape(bsz, L, g, rep, -1).sum(3)
@@ -229,12 +307,13 @@ def _within_tol(name, got, want, dtype) -> None:
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_mirror(L, dtype):
     """The kernel's passes on strided views (H 4 over G 2) against the plain
-    version at the kernel's tolerance and, in float32, against jax.grad of
-    the reference at the plain version's."""
+    version at the kernel's tolerance (bfloat16: the tensor-core route's
+    products, SPLIT) and, in float32, against jax.grad of the reference at
+    the plain version's."""
     ref, port = _inputs(2, L, 4, 2, 32, 16, seed=L, dtype=dtype,
                         strided=True)
     assert not port[0].is_contiguous() and not port[3].is_contiguous()
-    got = _bwd_passes(*port)
+    got = _bwd_passes(*port, parts=SPLIT if dtype == "bfloat16" else None)
     want = ssd_scan_bwd_plain(*port)
     for name, gt, w in zip(NAMES, got, want):
         _within_tol(name, gt, w, dtype)
@@ -250,6 +329,53 @@ def test_kernel_mirror_long_and_shared():
     want = ssd_scan_bwd_plain(*port)
     for name, gt, w in zip(NAMES, got, want):
         _within_tol(name, gt, w, "float32")
+
+
+def test_kernel_mirror_bf16_long():
+    """The bf16 route's products over 4,096 steps (64 chunks, every S_in and
+    G_out carried), all 8 heads on one B/C group, N 64."""
+    _, port = _inputs(1, 4096, 8, 1, 16, 64, seed=1, dtype="bfloat16",
+                      strided=True)
+    got = _bwd_passes(*port, parts=SPLIT)
+    want = ssd_scan_bwd_plain(*port)
+    for name, gt, w in zip(NAMES, got, want):
+        _within_tol(name, gt, w, "bfloat16")
+
+
+def _outside_tol(got, want, dtype="bfloat16") -> int:
+    """Elements of ``got`` outside TOL_BWD around ``want``."""
+    atol, rtol = TOL_BWD[dtype]
+    g, w = got.float(), want.float()
+    scale = float(w.abs().max()) if w.numel() else 0.0
+    return int(((g - w).abs() > atol * scale + rtol * w.abs()).sum())
+
+
+# per operand the bf16 route splits: (B, L, H, G, P, N, seed, a's scale), a
+# draw where rounding that operand once to bf16 shows; a scaled by 0.01
+# decays slowly, so the states carry over several chunks
+ROUNDED_ONCE = {"bw": (2, 300, 4, 1, 64, 64, 6, 0.01),
+                "cw": (2, 300, 4, 1, 64, 64, 6, 0.01),
+                "s_in": (2, 300, 4, 1, 64, 64, 2, 0.01),
+                "g_out": (2, 300, 4, 1, 64, 64, 4, 0.01),
+                "m1dt": (2, 300, 4, 1, 64, 64, 5, 0.01),
+                "m1t": (2, 300, 4, 1, 64, 64, 2, 1.0),
+                "m3t": (2, 189, 4, 2, 32, 16, 6, 1.0)}
+
+
+@pytest.mark.parametrize("name", sorted(ROUNDED_ONCE))
+def test_one_bf16_rounding_misses_the_tol(name):
+    """Why the bf16 route splits each of its fp32 operands: on the same
+    inputs the split products stay within TOL_BWD, and rounding that one
+    operand once to bf16 instead leaves elements of a gradient outside."""
+    b, L, h, g, p, n, seed, scale = ROUNDED_ONCE[name]
+    _, port = _inputs(b, L, h, g, p, n, seed=seed, dtype="bfloat16",
+                      strided=True)
+    port = (*port[:2], port[2] * scale, *port[3:])
+    want = ssd_scan_bwd_plain(*port)
+    split = _bwd_passes(*port, parts=SPLIT)
+    once = _bwd_passes(*port, parts={**SPLIT, name: 1})
+    assert sum(_outside_tol(gt, w) for gt, w in zip(split, want)) == 0
+    assert sum(_outside_tol(gt, w) for gt, w in zip(once, want)) > 0, name
 
 
 def _model_like(dtype, seed=3, L=70):
