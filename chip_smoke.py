@@ -36,8 +36,10 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    windows, and gemma3's B 1 x 4,096 with its window and global, every
    windowed case given NaN in every row before the window and -1 or
    2**30 in the table entries of pages wholly before it, against the plain
-   version on clean inputs; every element within atol + rtol * |plain| as
-   TOL below states).  flash_attention also non-causal with Sk keys for Sq
+   version on clean inputs; every case again with ``return_lse``: the
+   output bitwise the same, each row's log-sum-exp within the fp32 TOL of
+   the plain version's and exactly -1e30 for an empty row; every element
+   within atol + rtol * |plain| as TOL below states).  flash_attention also non-causal with Sk keys for Sq
    queries (Sq 1, 63, 64, 65, 189 over Sk 1, 65, 1,500; its rows'
    log-sum-exp beside); its backward kernel (dQ, dK, dV) against
    ``flash_attention_bwd_plain`` over S 1-384 (ragged, 63/64/65), head_dim
@@ -187,13 +189,14 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    beside its plain version (no library call computes it; at 4,096 steps
    it is timed by ``scripts/probe.py ssd_bwd``).  The LM
    kernels are also
-   timed at a 4,096-token prefill (flash_attention at zamba2's and at
-   qwen3-1.7b's heads), paged_attention at 8 sequences and at 1 sequence
-   of 4,096 tokens over a shuffled pool; and gemma3-1b's attention: flash
-   at its serving prefill and at 4,096 tokens with its window and global,
-   paged at its serving decode and at 4,096 tokens with its window
-   (bound: the window's rows) and global, beside SDPA with an explicit
-   window mask.
+   timed at a 4,096-token prefill (ssd_scan), and gemma3-1b's attention:
+   flash at its serving prefill and paged at its serving decode, beside
+   SDPA with an explicit window mask.  flash_attention at a 4,096-token
+   prefill (zamba2's and qwen3-1.7b's heads), paged_attention at 8 and at 1
+   sequence of 4,096 tokens over a shuffled pool, and gemma3-1b's flash
+   and paged at 4,096 tokens with its window and global are held against
+   their plain versions here and timed by ``scripts/probe.py flash paged
+   gemma3``.
 6. Cross-checks: zamba2-1.2b in bf16 at full width and depth, every
    Mamba2 layer's final state from the kernel against a sequential fp32
    scan with fp32 dt (the reference's ``ssd_final_state``) on the layer's
@@ -213,19 +216,55 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    1,000-token prompt with a 1,024-token cache and 16 greedy steps, so
    that its window bites in the prefill and in every step; whisper-tiny
    the same at full depth on the first request's prompt and frames.
-7. Where the time goes is read outside the smoke, to keep its time:
-   ``scripts/probe.py profiles`` (vlsm's store path under torch.profiler
-   and cProfile, phase 3d's admission-on serve of vlsm at factor 2) and
-   ``serve_zamba2 serve_qwen3 serve_gemma3 serve_deepseek
-   serve_whisper`` (the serving paths' 2-request profiles).  Every
-   phase's wall seconds go into the report.
+7. Distributed (``repro_torch.distributed``), once the worker is idle:
+   one NCCL rank, then four gloo ranks, each a spawned process on the
+   card (gloo's collectives staged through the host by ``comm``'s table;
+   NCCL will not put two ranks on one card), a failing rank failing the
+   spawn's join.  NCCL: the sequence-sharded decode over one whole cache
+   is paged_attention's output bitwise, ``compressed_psum`` of one rank is
+   its int8 round trip bitwise, ``pipeline_apply`` of one stage is the
+   stage bitwise.  gloo: the sequence-sharded decode at qwen3-1.7b's (16
+   over 8 heads of 128) and gemma3-1b's (4 over 1 of 256) decode heads, B
+   8 over decode_32k's 32,768 cache tokens in four slices of 8,192, bf16
+   and fp32, with sequences ending in every slice (two in the first, so
+   ranks 1-3 hold none of their tokens): one paged_attention launch a rank
+   and call, the result within TOL of paged_attention over the whole cache
+   and of the plain version on rank 0; whisper-tiny's gradients of one
+   bf16 step on each rank's own batch through ``compress_tree`` and the
+   int8 cross-pod mean: int8 payloads gathered, the mean bitwise rank 0's
+   rank-order sum of every rank's dequantized payload, within 0.51 of the
+   largest per-rank scale of the uncompressed mean; qwen3-1.7b's 28
+   blocks at full width as 4 GPipe stages of 7 in bf16 over 4
+   micro-batches of 2 x 189 tokens (28 flash_attention launches a rank)
+   against ``unpipelined_reference``; whisper-tiny's train state
+   (parameters and AdamW moments) checkpointed three times by the smoke's
+   process while the ranks start, then restored by every rank of a (2, 2)
+   ("data", "model") mesh (parameters by ``param_specs``, moments by
+   ``zero1_specs``): opening the store replays its vLSM index
+   (overlap_scan and merge_path must launch on every rank), and every
+   shard is bitwise the saved slice.
+
+Where the time goes is read outside the smoke, to keep its time:
+``scripts/probe.py profiles`` (vlsm's store path under torch.profiler and
+cProfile, phase 3d's admission-on serve of vlsm at factor 2) and
+``serve_zamba2 serve_qwen3 serve_gemma3 serve_deepseek serve_whisper``
+(the serving paths' 2-request profiles); ``probe.py flash_decode`` times
+phase 7's decode.  Every phase's wall seconds go into the report.
 
 The CPU tier's runs that phases 3e and 6 compare against are computed by
 one spawned worker, started once phase 3's store path is done, beside
-db_bench and every later phase, and after db_bench the CPU halves of
-4b's training cross-checks (and mamba2-130m's float64 run); vlsm's store
-path, run once just before and once just after the worker starts,
-records its toll on a host-bound wall.
+every later phase, the CPU halves of 4b's training cross-checks (and
+mamba2-130m's float64 run) queued behind them; vlsm's store path, run
+once just before and once just after the worker starts, records its
+toll on a host-bound wall.  db_bench (3b) and the fleet matrix (3c) run
+in a second spawned process on the card from then on, beside 3c's
+workers, 3d, 3e, 4b's whisper run and cross-checks and 6's serving
+cross-checks (both sides host-bound, the card idle most of the time);
+the serving paths (4), 4b's training steps and the kernel timings (5)
+wait for it, so that none of their walls or device times is taken beside
+it.  The order run: 1-3, 3b-3c in the bench process, 3c's workers, 3d,
+3e, 4b's whisper and cross-checks, 6's serving checks, the wait, 4, 4b's
+steps, 5, 6's store cross-checks, 7.
 
 Prints the card line, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  ``--out DIR`` also writes every number
@@ -380,6 +419,7 @@ CROSS_POLICIES = ("vlsm", "rocksdb")
 N_LOAD = 8_000_000             # uniform keys loaded (before de-duplication)
 N_RUN = 2_000_000              # YCSB Run A ops after the settle
 LINDLEY_ROWS = 4096            # the ragged batch lindley_scan is timed at
+BENCH_WAIT_S = 900             # the wait for the bench process (before 4)
 # db_bench rows against the reference's committed rows: the keys that may
 # differ (timings and machine facts, as scripts/check_row_parity.py drops
 # them, and the two keys naming the tier), the rounded simulated-time
@@ -1312,6 +1352,23 @@ def db_bench_rows(torch, out: Path | None) -> tuple[dict, list]:
         [c[1:] for c in rec.calls if c[0] == "fleet_sweep"]
 
 
+def bench_phase(out: str | None) -> tuple[dict, dict]:
+    """Phases 3b and 3c's fleet matrix in the spawned bench process on the
+    card: ``db_bench_rows``, then ``fleet_matrix`` against db_bench's
+    per-pass calls.  A failed check comes back to the caller as a
+    RuntimeError (a pool worker that exits would leave it waiting)."""
+    import numpy as np
+    import torch
+    try:
+        report, pass_calls = db_bench_rows(
+            torch, None if out is None else Path(out))
+        matrix, batch = fleet_matrix(torch, np, pass_calls)
+    except SystemExit as e:
+        raise RuntimeError(str(e)) from None
+    del batch, pass_calls
+    return report, matrix
+
+
 def fleet_matrix(torch, np, pass_calls: list) -> tuple[dict, tuple]:
     """db_bench's fleet matrix (every policy x shard counts 1, 2, 4, 16 x
     32 rates) through ``fleet.fleet_sweep`` on the card, which must scan
@@ -1873,6 +1930,24 @@ def check_close(what: str, kernel: str, got, want, tol=None) -> float:
     return err
 
 
+def check_paged_lse(torch, what: str, got, card_args, clean_args,
+                    window=None) -> float:
+    """paged_attention with ``return_lse`` on ``card_args``: its output
+    bitwise ``got`` (the call without it), every row with length 0 at lse
+    exactly -1e30, and lse within the fp32 TOL of the plain version's on
+    ``clean_args``.  Returns the largest |lse err|."""
+    from repro_torch.kernels.paged_attention.ops import (
+        NEG_INF, paged_attention, paged_attention_plain)
+    out, lse = paged_attention(*card_args, window=window, return_lse=True)
+    if not torch.equal(out, got):
+        fail(f"{what}: return_lse changed the output")
+    if not bool((lse[card_args[4] <= 0] == NEG_INF).all()):
+        fail(f"{what}: an empty row's lse is not -1e30")
+    _, want = paged_attention_plain(*clean_args, window=window,
+                                    return_lse=True)
+    return check_close(f"{what}, lse", "paged_attention", lse, want)
+
+
 def edge_flash(torch) -> float:
     """flash_attention against its plain version: S 1, 63, 64, 65, 127,
     128, 130, 384; head_dim 64 and 128; GQA rep 1 and 2; window None and
@@ -2303,10 +2378,13 @@ def edge_paged(torch, np) -> float:
                               device="cuda")
             got = paged_attention(q, kp, vp, pt, ln)
             want = paged_attention_plain(q, kp, vp, pt, ln)
-            worst = max(worst, check_close(
-                f"paged_attention edge case B={b} Hkv={hkv} G={g} "
-                f"D={d} PS={ps} lengths={lengths} {dt}",
-                "paged_attention", got, want))
+            what = (f"paged_attention edge case B={b} Hkv={hkv} G={g} "
+                    f"D={d} PS={ps} lengths={lengths} {dt}")
+            worst = max(worst, check_close(what, "paged_attention", got,
+                                           want),
+                        check_paged_lse(torch, what, got,
+                                        (q, kp, vp, pt, ln),
+                                        (q, kp, vp, pt, ln)))
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     per = split_plan(128 * 32, 4, 8, n_sm)[1]
@@ -2333,10 +2411,14 @@ def edge_paged(torch, np) -> float:
             want = paged_attention_plain(q, kp, vp, pt, ln)
             if max(lengths) == 0 and bool(got.any()):
                 fail("paged_attention: an all-empty batch must give zeros")
-            worst = max(worst, check_close(
-                f"paged_attention split case B={b} Hkv={hkv} G={g} D={d} "
-                f"PS={ps} lengths={lengths} ({ns} splits of {per}) {dt}",
-                "paged_attention", got, want))
+            what = (f"paged_attention split case B={b} Hkv={hkv} G={g} "
+                    f"D={d} PS={ps} lengths={lengths} ({ns} splits of "
+                    f"{per}) {dt}")
+            worst = max(worst, check_close(what, "paged_attention", got,
+                                           want),
+                        check_paged_lse(torch, what, got,
+                                        (q, kp, vp, pt, ln),
+                                        (q, kp, vp, pt, ln)))
 
     # sliding windows, poisoned before the window: head_dim 256 (gemma3's
     # G 4 over 1 kv head, and G 1 and 8 over 2) at every window, then the
@@ -2411,10 +2493,13 @@ def paged_window_case(torch, np, gen, rng, n_sm, hkv, g, d, ps, maxp,
     ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     got = paged_attention(q, kp_bad, vp_bad, pt_bad, ln, window=window)
     want = paged_attention_plain(q, kp, vp, pt, ln, window=window)
-    return check_close(
-        f"paged_attention window case B={b} Hkv={hkv} G={g} D={d} PS={ps} "
-        f"MAXP={maxp} window={window} lengths={lengths} {dt}, poisoned "
-        "before the window", "paged_attention", got, want)
+    what = (f"paged_attention window case B={b} Hkv={hkv} G={g} D={d} "
+            f"PS={ps} MAXP={maxp} window={window} lengths={lengths} {dt}, "
+            "poisoned before the window")
+    return max(check_close(what, "paged_attention", got, want),
+               check_paged_lse(torch, what, got,
+                               (q, kp_bad, vp_bad, pt_bad, ln),
+                               (q, kp, vp, pt, ln), window))
 
 
 # --------------------------------------------------------- serving path
@@ -2491,11 +2576,19 @@ def serve_phase(torch, np, arch: str) -> dict:
     SERVE_PATHS[arch] must have launched, paged_attention once per
     attention layer and decode step, flash_attention once per attention
     layer and request."""
+    import gc
     from repro_torch import kernels
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    # the card's free memory (every process's) and this process's tracked
+    # objects before the run: deepseek-v2-lite's serve stalled mid-run in
+    # the whole smoke and not alone (PERF.md, PR 24)
+    before = {"device_free_gb": torch.cuda.mem_get_info()[0] / 1e9,
+              "gc_tracked_objects": len(gc.get_objects()),
+              "gc_counts": gc.get_count()}
     kernels.reset_launch_counts()
     srv = serve_path(torch, np, arch)
+    srv["before"] = before
     counts = srv["launches"] = kernels.launch_counts()
     srv["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.empty_cache()
@@ -2772,14 +2865,15 @@ def ssd_bound(b: int, L: int, h: int, g: int, n: int, p: int,
     return roofline(nbytes, 4 * n * p * L * b * h)
 
 
-def time_flash(torch, s: int, reps: int, hq: int = 32, hkv: int = 32,
-               d: int = 64, window: int | None = None) -> dict:
+def check_flash(torch, s: int, hq: int = 32, hkv: int = 32, d: int = 64,
+                window: int | None = None):
     """A serving model's attention prefill, B 1, bf16, causal, at S tokens
     (seeded random inputs): zamba2-1.2b's shared block by default (32 heads
     of 64, kv 32), qwen3-1.7b's with hq 16, hkv 8, d 128, gemma3-1b's with
     hq 4, hkv 1, d 256 (a local layer's with window 512).  Library: SDPA
     (``enable_gqa``), with an explicit causal and window mask for a
-    window."""
+    window.  Held against its plain version; returns the row and the
+    kernel, plain and library calls."""
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_plain)
     import torch.nn.functional as F
@@ -2804,17 +2898,22 @@ def time_flash(torch, s: int, reps: int, hq: int = 32, hkv: int = 32,
         def library():
             return F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, enable_gqa=hq != hkv)
-    return {"shape": f"BH {hq} (kv {hkv}), S {s}, D {d}, bf16, causal"
-                     + (f", window {window}" if window else ""),
-            "max_abs_err": err, "bound_ms": bound, "bound_by": by,
-            **time_all(torch, lambda: flash_attention(q, k, v, window=window),
-                       lambda: flash_attention_plain(q, k, v, window=window),
-                       library, reps)}
+    return ({"shape": f"BH {hq} (kv {hkv}), S {s}, D {d}, bf16, causal"
+                      + (f", window {window}" if window else ""),
+             "max_abs_err": err, "bound_ms": bound, "bound_by": by},
+            lambda: flash_attention(q, k, v, window=window),
+            lambda: flash_attention_plain(q, k, v, window=window), library)
 
 
-def time_paged(torch, length: int, reps: int, hq: int = 16, hkv: int = 8,
-               d: int = 128, window: int | None = None,
-               smax: int = 512) -> dict:
+def time_flash(torch, s: int, reps: int, hq: int = 32, hkv: int = 32,
+               d: int = 64, window: int | None = None) -> dict:
+    """check_flash's row, timed beside SDPA."""
+    row, *calls = check_flash(torch, s, hq, hkv, d, window)
+    return {**row, **time_all(torch, *calls, reps)}
+
+
+def check_paged(torch, length: int, hq: int = 16, hkv: int = 8,
+                d: int = 128, window: int | None = None, smax: int = 512):
     """A serving model's decode attention as its serving path calls it:
     B 1, bf16, the ``smax``-token decode cache (the serving path's 512 by
     default) viewed as pages of 32 through the identity table, ``length``
@@ -2823,7 +2922,9 @@ def time_paged(torch, length: int, reps: int, hq: int = 16, hkv: int = 8,
     hkv 32, d 64, gemma3-1b's with hq 4, hkv 1, d 256 (a local layer's
     with window 512: the last 512 tokens are live).  Library: SDPA over the
     dense cache with a length (and window) mask, transposes included (the
-    same function only because the table is the identity)."""
+    same function only because the table is the identity).  Held against
+    its plain version; returns the row and the kernel, plain and library
+    calls."""
     from repro_torch.kernels.paged_attention.ops import (
         paged_attention, paged_attention_plain)
     import torch.nn.functional as F
@@ -2859,21 +2960,30 @@ def time_paged(torch, length: int, reps: int, hq: int = 16, hkv: int = 8,
                       plain())
     bound, by = paged_bound(1, hq, hkv, d, length, smax // ps,
                             window=window)
-    return {"shape": f"B 1, H {hq} (kv {hkv}), D {d}, PS {ps}, MAXP "
-                     f"{smax // ps}, length {length}, bf16, identity table"
-                     + (f", window {window}" if window else ""),
-            "max_abs_err": err, "bound_ms": bound, "bound_by": by,
-            "library_max_abs_err": float((library() - got).float().abs()
-                                         .max()),
-            **time_all(torch, kernel, plain, library, reps)}
+    return ({"shape": f"B 1, H {hq} (kv {hkv}), D {d}, PS {ps}, MAXP "
+                      f"{smax // ps}, length {length}, bf16, identity table"
+                      + (f", window {window}" if window else ""),
+             "max_abs_err": err, "bound_ms": bound, "bound_by": by,
+             "library_max_abs_err": float((library() - got).float().abs()
+                                          .max())},
+            kernel, plain, library)
 
 
-def time_paged_long(torch, reps: int, b: int = LONG_DECODE[0]) -> dict:
+def time_paged(torch, length: int, reps: int, hq: int = 16, hkv: int = 8,
+               d: int = 128, window: int | None = None,
+               smax: int = 512) -> dict:
+    """check_paged's row, timed beside SDPA."""
+    row, *calls = check_paged(torch, length, hq, hkv, d, window, smax)
+    return {**row, **time_all(torch, *calls, reps)}
+
+
+def check_paged_long(torch, b: int = LONG_DECODE[0]):
     """Long decode: ``b`` sequences (LONG_DECODE's 8 by default) of 4,096
     tokens each over a pool of 2,048 pages of 32 (H 16 over kv 8, D 128,
     bf16), the sequences' pages drawn without repeats from a shuffled pool.
     Library: SDPA over the same KV laid out contiguously (gathered outside
-    the timing)."""
+    the timing).  Held against its plain version; returns the row and the
+    kernel, plain and library calls."""
     from repro_torch.kernels.paged_attention.ops import (
         paged_attention, paged_attention_plain)
     import torch.nn.functional as F
@@ -2895,13 +3005,19 @@ def time_paged_long(torch, reps: int, b: int = LONG_DECODE[0]) -> dict:
     err = check_close("paged_attention, long decode", "paged_attention",
                       got, paged_attention_plain(q, kp, vp, pt, ln))
     bound, by = paged_bound(b, hq, hkv, d, length, maxp)
-    return {"shape": f"B {b}, H {hq} (kv {hkv}), D {d}, PS {ps}, length "
-                     f"{length}, shuffled table over {n_pages} pages, bf16",
-            "max_abs_err": err, "bound_ms": bound, "bound_by": by,
-            **time_all(torch, lambda: paged_attention(q, kp, vp, pt, ln),
-                       lambda: paged_attention_plain(q, kp, vp, pt, ln),
-                       lambda: F.scaled_dot_product_attention(
-                           q[:, :, None], kc, vc, enable_gqa=True), reps)}
+    return ({"shape": f"B {b}, H {hq} (kv {hkv}), D {d}, PS {ps}, length "
+                      f"{length}, shuffled table over {n_pages} pages, bf16",
+             "max_abs_err": err, "bound_ms": bound, "bound_by": by},
+            lambda: paged_attention(q, kp, vp, pt, ln),
+            lambda: paged_attention_plain(q, kp, vp, pt, ln),
+            lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kc, vc, enable_gqa=True))
+
+
+def time_paged_long(torch, reps: int, b: int = LONG_DECODE[0]) -> dict:
+    """check_paged_long's row, timed beside SDPA."""
+    row, *calls = check_paged_long(torch, b)
+    return {**row, **time_all(torch, *calls, reps)}
 
 
 def time_ssd(torch, L: int, reps: int) -> dict:
@@ -3558,6 +3674,435 @@ def profile_serve(torch, np, arch: str) -> dict:
 
 
 # ------------------------------------------------------------------- main
+# ------------------------------------------------------- distributed (7)
+DIST_RANKS = 4
+DIST_JOIN_S = 300              # the time limit of the phase's ranks
+# sequence-sharded decode at decode_32k's cache length, B 8, in four slices:
+# arch -> (query heads, kv heads, head_dim)
+DIST_DECODE_HEADS = {"qwen3_1_7b": (16, 8, 128), "gemma3_1b": (4, 1, 256)}
+DIST_DECODE = (8, 32768)
+# the last live token of each sequence: two end in the first slice (ranks
+# 1-3 hold none of their tokens), the others in every later slice
+DIST_DECODE_POS = (100, 8191, 8192, 12000, 16383, 20000, 24576, 32767)
+PIPE_STAGES, PIPE_MICRO, PIPE_MB = 4, 4, (2, 189)   # qwen3-1.7b's 28 layers
+COMPRESS_BATCH = (8, 64)       # whisper-tiny's step: B x S tokens a rank
+COMPRESS_SLACK = 0.51          # of the largest per-rank scale (see below)
+# checkpoints of whisper-tiny's train state before the restore: three, as
+# the training phase's run writes, so that the store's index compacts
+CKPT_STEPS = 3
+
+
+def _rank_result(out: str, name: str, obj) -> None:
+    (Path(out) / f"{name}.json").write_text(json.dumps(obj))
+
+
+def _decode_slices(torch, b, t, hkv, d, dtype, slices):
+    """K and V slices ``slices`` (of 4 of t / 4 tokens) of a seeded decode
+    cache [B, T, Hkv, D]: slice r from its own generator, so a rank draws
+    its own slice and rank 0 the whole cache, the same numbers."""
+    t_loc = t // DIST_RANKS
+    out = []
+    for which in (0, 1):
+        parts = []
+        for r in slices:
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(7000 + 10 * r + which)
+            parts.append(_randn(torch, gen, (b, t_loc, hkv, d), dtype))
+        out.append(torch.cat(parts, dim=1) if len(parts) > 1 else parts[0])
+    return out
+
+
+def _mesh(torch, shape, axes):
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh("cuda", tuple(shape), mesh_dim_names=tuple(axes))
+
+
+def _qwen3_stage(torch, cfg):
+    """stage_fn of the pipeline: the stage's decoder blocks in order over
+    [mb, S, D] activations (the model's own block forward, flash_attention
+    inside), every qwen3 layer global."""
+    from repro_torch.models.blocks import (_decoder_block_fwd, layer_meta,
+                                           layer_params)
+    from repro_torch.training.tree import leaves
+    theta, window = layer_meta(cfg)[0]
+    mb, s = PIPE_MB
+    positions = torch.arange(s, device="cuda")[None].expand(mb, s)
+
+    def stage_fn(p, h):
+        for j in range(leaves(p)[0].shape[0]):
+            h = _decoder_block_fwd(cfg, layer_params(p, j), h, positions,
+                                   theta, window, dense=False)[0]
+        return h
+    return stage_fn
+
+
+def dist_nccl_rank(rank, world, out, t_spawn):
+    """Phase 7a, one NCCL rank on cuda:0, over a (1, 1, 1) mesh: the
+    sequence-sharded decode over the whole cache is paged_attention itself,
+    bitwise; compressed_psum of one rank is dequantize(quantize(x)),
+    bitwise; pipeline_apply of one stage is the stage, bitwise."""
+    import torch
+    from repro_torch.distributed.compression import (
+        compressed_psum, dequantize_int8, quantize_int8)
+    from repro_torch.distributed.flash_decode import seq_sharded_decode_attn
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.kernels.paged_attention import paged_attention
+    t_start = time.time()
+    torch.cuda.set_device(0)
+    mesh = _mesh(torch, (1, 1, 1), ("pod", "pipe", "model"))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(71)
+    hq, hkv, d = DIST_DECODE_HEADS["qwen3_1_7b"]
+    b, t = DIST_DECODE[0], DIST_DECODE[1] // DIST_RANKS
+    q = _randn(torch, gen, (b, hq, d), torch.bfloat16)
+    k, v = (_randn(torch, gen, (b, t, hkv, d), torch.bfloat16)
+            for _ in range(2))
+    pos = torch.tensor([min(p, t - 1) for p in DIST_DECODE_POS],
+                       device="cuda")
+    got = seq_sharded_decode_attn(mesh, q, k, v, pos)
+    want = paged_attention(q, k, v, torch.arange(b, dtype=torch.int32,
+                                                 device="cuda")[:, None],
+                           (pos + 1).to(torch.int32))
+    if not torch.equal(got, want):
+        fail("NCCL: the one-rank sequence-sharded decode is not "
+             "paged_attention's output")
+    x = _randn(torch, gen, (1 << 20,), torch.float32)
+    if not torch.equal(compressed_psum(x, mesh, "pod"),
+                       dequantize_int8(*quantize_int8(x))):
+        fail("NCCL: compressed_psum of one rank is not its round trip")
+    w = _randn(torch, gen, (64, 64), torch.float32, 0.125)
+    xs = _randn(torch, gen, (3, 2, 64), torch.float32)
+
+    def stage(p, h):
+        return torch.tanh(h @ p)
+    if not torch.equal(pipeline_apply(mesh, stage, w, xs, n_micro=3),
+                       torch.stack([stage(w, h) for h in xs])):
+        fail("NCCL: pipeline_apply of one stage is not the stage")
+    _rank_result(out, "nccl", {"backend": "nccl", "ranks": world,
+                               "decode_bitwise": True, "psum_bitwise": True,
+                               "pipeline_bitwise": True,
+                               "startup_s": t_start - t_spawn,
+                               "wall_s": time.time() - t_start})
+
+
+def _dist_decode(torch, np, rank, out):
+    """Sequence-sharded decode at qwen3-1.7b's and gemma3-1b's decode heads
+    over decode_32k's 32,768 cache tokens, B 8, a slice of 8,192 a rank,
+    bf16 and fp32: one paged_attention launch a rank and call, the result
+    against paged_attention over the whole cache and its plain version on
+    rank 0."""
+    from repro_torch import kernels
+    from repro_torch.distributed.flash_decode import seq_sharded_decode_attn
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     paged_attention_plain)
+    mesh = _mesh(torch, (DIST_RANKS,), ("model",))
+    b, t = DIST_DECODE
+    pos = torch.tensor(DIST_DECODE_POS, device="cuda")
+    rows = {}
+    for arch, (hq, hkv, d) in DIST_DECODE_HEADS.items():
+        for dt in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt)
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(7100)
+            q = _randn(torch, gen, (b, hq, d), dtype)
+            k_loc, v_loc = _decode_slices(torch, b, t, hkv, d, dtype, [rank])
+            kernels.reset_launch_counts()
+            got = seq_sharded_decode_attn(mesh, q, k_loc, v_loc, pos)
+            launches = kernels.launch_counts()["paged_attention"]
+            if launches != 1:
+                fail(f"decode {arch} {dt}: paged_attention launched "
+                     f"{launches} times on rank {rank}, not once")
+            if rank:
+                continue
+            del k_loc, v_loc
+            k, v = _decode_slices(torch, b, t, hkv, d, dtype,
+                                  range(DIST_RANKS))
+            args = (q, k, v, torch.arange(b, dtype=torch.int32,
+                                          device="cuda")[:, None],
+                    (pos + 1).to(torch.int32))
+            what = f"sequence-sharded decode {arch} {dt}"
+            rows[f"{arch}_{dt}"] = {
+                "vs_kernel_whole_cache": check_close(
+                    f"{what} against paged_attention over the whole cache",
+                    "paged_attention", got, paged_attention(*args)),
+                "vs_plain": check_close(
+                    f"{what} against the plain version", "paged_attention",
+                    got, paged_attention_plain(*args)),
+                "launches_per_rank": launches,
+                "kv_bytes_per_rank": 2 * b * (t // DIST_RANKS) * hkv * d
+                * dtype.itemsize}
+            del k, v, args
+    if rank == 0:
+        _rank_result(out, "decode", rows)
+    torch.cuda.empty_cache()
+
+
+def _dist_compress(torch, np, rank, out):
+    """whisper-tiny's bf16 gradients of one step on this rank's batch,
+    widened to fp32 (as compress_tree widens them), through compress_tree
+    and the int8 cross-pod mean.  The mean must equal, bitwise, rank 0's
+    rank-order sum of every rank's dequantized payload over 4, and sit
+    within COMPRESS_SLACK x the largest per-rank scale of each leaf of the
+    uncompressed mean: compress_tree's rounding is the only lossy one (a
+    half scale), the mean's requantization of its output gives back the
+    same integers at a scale within fp32 rounding of the first."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineState, TokenPipeline
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.compression import (
+        compress_tree, cross_pod_mean_compressed, dequantize_int8,
+        quantize_int8)
+    from repro_torch.models import init_model
+    from repro_torch.models.common import dtype_of
+    from repro_torch.training.step import value_and_grad
+    from repro_torch.training.tree import leaf_paths, tree_map
+    mesh = _mesh(torch, (DIST_RANKS,), ("pod",))
+    cfg = get_config("whisper_tiny")
+    params = init_model(cfg, 0, compute_device="cuda")
+    bsz, seq = COMPRESS_BATCH
+    batch = TokenPipeline(cfg.vocab_size, seq, bsz, PipelineState(
+        seed=1, rank=rank, world=DIST_RANKS)).next_batch()
+    batch["encoder_embeds"] = torch.from_numpy(
+        np.random.default_rng(rank).standard_normal(
+            (bsz, cfg.enc_seq, cfg.d_model))).to("cuda", dtype_of(cfg))
+    _, grads = value_and_grad(cfg, params, batch, compute_device="cuda")
+    g32 = tree_map(lambda g: g.float(), grads)
+    del params
+    comp, _ = compress_tree(g32, {})
+    wire = []
+    gather = comm.all_gather
+
+    def recording(x, mesh, axis):
+        wire.append((str(x.dtype), x.numel()))
+        return gather(x, mesh, axis)
+    comm.all_gather = recording
+    try:
+        mean = cross_pod_mean_compressed(mesh, comp)
+    finally:
+        comm.all_gather = gather
+    torch.cuda.synchronize()
+    payload = sum(n for dt, n in wire if dt == "torch.int8")
+    if not (len(wire) == 2 * len(leaf_paths(comp)) and all(
+            dt == ("torch.int8", "torch.float32")[i % 2]
+            for i, (dt, _) in enumerate(wire))):
+        fail(f"compressed mean: gathered {wire[:4]}..., not int8 payloads "
+             "beside fp32 scales")
+    worst_slack, leaves = 0.0, 0
+    flat_mean = dict(leaf_paths(mean))
+    flat_raw = dict(leaf_paths(grads))     # bf16: half the bytes, exact
+    for path, x in leaf_paths(comp):
+        parts = comm.all_gather(x, mesh, "pod")
+        raws = comm.all_gather(flat_raw[path], mesh, "pod").float()
+        if rank:
+            continue
+        redo = dequantize_int8(*quantize_int8(parts[0]))
+        for r in range(1, DIST_RANKS):
+            redo = redo + dequantize_int8(*quantize_int8(parts[r]))
+        redo = redo / DIST_RANKS
+        if not torch.equal(redo, flat_mean[path]):
+            fail(f"compressed mean {path}: not rank 0's rank-order sum")
+        scale = max(float(quantize_int8(raws[r])[1])
+                    for r in range(DIST_RANKS))
+        err = float((flat_mean[path] - raws.mean(0)).abs().max())
+        worst_slack = max(worst_slack, err / scale)
+        leaves += 1
+    if rank == 0:
+        if not worst_slack <= COMPRESS_SLACK:
+            fail(f"compressed mean: {worst_slack} scales from the "
+                 "uncompressed mean")
+        _rank_result(out, "compress", {
+            "leaves": leaves, "elements": sum(
+                x.numel() for _, x in leaf_paths(comp)),
+            "int8_payload_elements_per_rank": payload,
+            "worst_err_over_scale": worst_slack,
+            "bound_over_scale": COMPRESS_SLACK, "bitwise_rank_order": True})
+    torch.cuda.empty_cache()
+
+
+def _dist_pipeline(torch, np, rank, out):
+    """qwen3-1.7b's 28 blocks at full width as 4 stages of 7 in bf16, M 4
+    micro-batches of 2 x 189 tokens of seeded activations, against
+    unpipelined_reference on rank 0."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.pipeline import (pipeline_apply,
+                                                  unpipelined_reference)
+    from repro_torch.models import init_model
+    from repro_torch.models.common import dtype_of
+    from repro_torch.training.tree import tree_map
+    mesh = _mesh(torch, (PIPE_STAGES,), ("pipe",))
+    cfg = get_config("qwen3_1_7b")
+    layers = init_model(cfg, 0, compute_device="cuda")["layers"]
+    per = cfg.n_layers // PIPE_STAGES
+    stage_fn = _qwen3_stage(torch, cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7200)
+    x = _randn(torch, gen, (PIPE_MICRO, *PIPE_MB, cfg.d_model),
+               dtype_of(cfg))
+    mine = tree_map(lambda a: a[rank * per:(rank + 1) * per], layers)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        got = pipeline_apply(mesh, stage_fn, mine, x, n_micro=PIPE_MICRO)
+    launches = kernels.launch_counts()["flash_attention"]
+    if launches != per * PIPE_MICRO:
+        fail(f"pipeline: flash_attention launched {launches} times on rank "
+             f"{rank}, not {per * PIPE_MICRO}")
+    if rank == 0:
+        stacked = tree_map(lambda a: a.view(PIPE_STAGES, per, *a.shape[1:]),
+                           layers)
+        with torch.no_grad():
+            want = unpipelined_reference(stage_fn, stacked, x)
+        err = check_close("pipeline against unpipelined_reference",
+                          "flash_attention", got, want)
+        _rank_result(out, "pipeline", {
+            "stages": PIPE_STAGES, "layers_per_stage": per,
+            "micro_batches": PIPE_MICRO, "max_abs_err": err,
+            "bitwise": bool(torch.equal(got, want)),
+            "flash_launches_per_rank": launches})
+    del layers, mine
+    torch.cuda.empty_cache()
+
+
+def ckpt_state(torch, steps: int):
+    """whisper-tiny's train state (seeded bf16 parameters and fp32 AdamW
+    moments) after ``steps`` checkpoint intervals, each moving every
+    floating leaf by 0.001, as a training step changes every page: the
+    same bits wherever it is built on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.training import init_opt_state
+    from repro_torch.training.tree import leaves
+    cfg = get_config("whisper_tiny")
+    params = init_model(cfg, 3, compute_device="cuda")
+    state = {"params": params, "opt": init_opt_state(params)}
+    for _ in range(steps):
+        for leaf in leaves(state):
+            if leaf.is_floating_point():
+                leaf.add_(0.001)
+    return cfg, state
+
+
+def save_ckpt(torch, root: Path) -> None:
+    """The state's CKPT_STEPS checkpoints into an ``LSMCheckpointStore`` on
+    the card (its index replays them when a rank opens it), then a marker
+    file."""
+    from repro_torch.checkpoint import LSMCheckpointStore
+    store = LSMCheckpointStore(root, compute_device="cuda")
+    for step in range(CKPT_STEPS):
+        store.save(step, ckpt_state(torch, step + 1)[1])
+    (root / "READY").write_text(str(CKPT_STEPS))
+    torch.cuda.empty_cache()
+
+
+def _dist_restore(torch, np, rank, out):
+    """Each rank of a (2, 2) ("data", "model") mesh opens the checkpoint
+    store that the smoke's process wrote (its vLSM index replays the
+    saves: overlap_scan and merge_path launch) and restores the last step
+    under the mesh onto cuda:0, the parameters by param_specs and the
+    moments by zero1_specs (sanitized against the mesh): every shard
+    bitwise the slice of the rank's own build of the same state."""
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.checkpoint import LSMCheckpointStore
+    from repro_torch.distributed.sharding import (
+        P, axis_sizes, local_slice, param_specs, sanitize_spec, zero1_specs)
+    from repro_torch.training.tree import leaf_paths, tree_map
+    mesh = _mesh(torch, (2, 2), ("data", "model"))
+    root = Path(out) / "ckpt"
+    deadline = time.time() + DIST_JOIN_S
+    while not (root / "READY").exists():
+        if time.time() > deadline:
+            fail("restore: the checkpoint store was never written")
+        time.sleep(0.1)
+    cfg, state = ckpt_state(torch, CKPT_STEPS)
+    params = state["params"]
+    specs = tree_map(
+        lambda leaf, spec: sanitize_spec(mesh, spec, tuple(leaf.shape)),
+        state, {"params": param_specs(cfg, params),
+                "opt": {"m": zero1_specs(cfg, params, mesh),
+                        "v": zero1_specs(cfg, params, mesh), "step": P()}})
+    kernels.reset_launch_counts()
+    tree, stats = LSMCheckpointStore(root, compute_device="cuda").restore(
+        treedef_like=state, mesh=mesh, specs=specs)
+    launches = kernels.launch_counts()
+    if not (launches["overlap_scan"] and launches["merge_path"]):
+        fail(f"restore: the store's index launched {launches} on rank "
+             f"{rank}")
+    sizes = axis_sizes(mesh)
+    coord = dict(zip(sizes, mesh.get_coordinate()))
+    spec_of = dict(leaf_paths(specs))
+    got = dict(leaf_paths(tree))
+    sharded = 0
+    for path, full in leaf_paths(state):
+        box = local_slice(sizes, coord, spec_of[path], tuple(full.shape))
+        shard = got[path].to_local()
+        if not (shard.is_cuda and torch.equal(
+                shard, full[tuple(slice(a, b) for a, b in box)])):
+            fail(f"restore under the mesh: {path} on rank {rank}")
+        sharded += shard.numel() < full.numel()
+    dist.barrier()
+    if rank == 0:
+        _rank_result(out, "restore", {
+            "steps_saved": CKPT_STEPS, "leaves": len(got),
+            "sharded_leaves_rank0": sharded,
+            "index_launches_rank0": {k: launches[k] for k in
+                                     ("overlap_scan", "merge_path")},
+            **stats})
+    del tree, state
+    torch.cuda.empty_cache()
+
+
+def dist_gloo_rank(rank, world, out, t_spawn):
+    """Phase 7b, four gloo ranks on cuda:0 (collectives staged through the
+    host by ``comm``'s table, kernels on the card)."""
+    import numpy as np
+    import torch
+    walls = {"startup_s": time.time() - t_spawn}
+    torch.cuda.set_device(0)
+    torch.set_num_threads(2)
+    for part, fn in (("decode", _dist_decode), ("compress", _dist_compress),
+                     ("pipeline", _dist_pipeline),
+                     ("restore", _dist_restore)):
+        t0 = time.time()
+        fn(torch, np, rank, out)
+        walls[f"{part}_s"] = time.time() - t0
+    if rank == 0:
+        _rank_result(out, "gloo_walls", walls)
+
+
+def distributed_phase(torch) -> dict:
+    """Phase 7: one NCCL rank and four gloo ranks, the two worlds spawned
+    side by side on cuda:0; a failing rank fails its world's join.  While
+    they start, this process writes the checkpoints the restore reads.
+    Each part reports its wall seconds on rank 0, and ``startup_s`` the
+    seconds from the spawn to the rank's first line."""
+    import tempfile
+    from repro_torch.distributed import comm
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        worlds = [(name, comm.start(fn, n, (tmp, time.time()),
+                                    backend=name,
+                                    init_file=Path(tmp) / f"init_{name}"))
+                  for name, fn, n in (("nccl", dist_nccl_rank, 1),
+                                      ("gloo", dist_gloo_rank, DIST_RANKS))]
+        try:
+            # the store that the ranks restore is written while they start
+            save_ckpt(torch, Path(tmp) / "ckpt")
+            report["ckpt_saved_s"] = time.perf_counter() - t0
+            for name, ctx in worlds:
+                comm.join(ctx, DIST_JOIN_S - (time.perf_counter() - t0))
+                report[f"{name}_wall_s"] = time.perf_counter() - t0
+        finally:
+            for _, ctx in worlds:
+                comm.stop(ctx)
+        for part in ("nccl", "decode", "compress", "pipeline", "restore",
+                     "gloo_walls"):
+            report[part] = json.loads((Path(tmp) / f"{part}.json")
+                                      .read_text())
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -3572,18 +4117,22 @@ def main() -> int:
         args.out.mkdir(parents=True, exist_ok=True)
     sys.path.insert(0, str(ROOT / "src"))
     # the CPU tier's runs go to one spawned worker (never fork: CUDA),
-    # which computes them beside the card's phases
-    pool = multiprocessing.get_context("spawn").Pool(1)
+    # which computes them beside the card's phases, and db_bench with the
+    # fleet matrix to another, on the card
+    ctx = multiprocessing.get_context("spawn")
+    pool, bench_pool = ctx.Pool(1), ctx.Pool(1)
     try:
-        return run(args, torch, pool)
+        return run(args, torch, pool, bench_pool)
     finally:
-        pool.terminate()
-        pool.join()
+        for worker in (pool, bench_pool):
+            worker.terminate()
+            worker.join()
 
 
-def run(args, torch, pool) -> int:
+def run(args, torch, pool, bench_pool) -> int:
     """Every phase on the card (``main`` checks for it); ``pool`` is the
-    worker that ``cpu_runs`` goes to once phase 3's store path is done."""
+    worker that ``cpu_runs`` goes to once phase 3's store path is done,
+    ``bench_pool`` the one that runs ``bench_phase`` beside phases 3c-6."""
     import numpy as np
     from repro_torch import kernels
     from repro_torch.kernels import _build
@@ -3699,11 +4248,15 @@ def run(args, torch, pool) -> int:
     torch.cuda.empty_cache()
     lap("store_path")
 
-    # the CPU tier's runs go to the worker now, beside db_bench and the
-    # phases after it; vlsm's store path, run just before and just after
-    # the worker starts, gives the worker's toll on a host-bound wall
+    # the CPU tier's runs go to the worker now, beside every later phase;
+    # vlsm's store path, run just before and just after the worker starts,
+    # gives the worker's toll on a host-bound wall
     _, _, alone = run_main_path(torch, np, "vlsm", trace, "cuda")
     cpu_side = pool.apply_async(cpu_runs)
+    # the training cross-checks' CPU halves follow the store runs in the
+    # worker
+    cross_side = {arch: pool.apply_async(cross_train_cpu, (arch,))
+                  for arch in CROSS_TRAIN}
     _, _, beside = run_main_path(torch, np, "vlsm", trace, "cuda")
     report["worker_toll"] = {"store_path_alone_s": alone,
                              "store_path_beside_worker_s": beside}
@@ -3711,20 +4264,13 @@ def run(args, torch, pool) -> int:
           + json.dumps(report["worker_toll"]), flush=True)
     lap("worker_start")
 
-    report["db_bench"], pass_calls = db_bench_rows(torch, args.out)
-    print("db_bench rows: " + json.dumps(report["db_bench"]), flush=True)
-    lap("db_bench")
-    # the training cross-checks' CPU halves follow the store runs in the
-    # worker once db_bench, the longest host-bound phase, is done
-    cross_side = {arch: pool.apply_async(cross_train_cpu, (arch,))
-                  for arch in CROSS_TRAIN}
-    report["fleet_matrix"], matrix_batch = fleet_matrix(torch, np,
-                                                        pass_calls)
-    del pass_calls
-    print("fleet matrix: " + json.dumps(report["fleet_matrix"]), flush=True)
-    del matrix_batch
-    torch.cuda.empty_cache()
-    lap("fleet_matrix")
+    # db_bench and the fleet matrix (3b, 3c) run in a second spawned process
+    # on the card beside the phases up to the serving paths, which wait for
+    # it with the training steps and the kernel timings: both sides are
+    # host-bound and the card idle most of the time, and no serving or
+    # training wall and no device time is taken beside it
+    bench_side = bench_pool.apply_async(
+        bench_phase, (None if args.out is None else str(args.out),))
     report["fleet_workers"] = workers_rows(torch)
     print("fleet_sweep workers 1 vs 2: " + json.dumps(report["fleet_workers"]),
           flush=True)
@@ -3743,6 +4289,52 @@ def run(args, torch, pool) -> int:
         torch.cuda.empty_cache()
     del memo
     lap("serve_open")
+
+    card_store = shard_card_runs(torch, np)
+    torch.cuda.empty_cache()
+    lap("shard_store_card")
+
+    # the training path's checks
+    report["train_whisper"] = train_whisper(torch, np)
+    print("training whisper-tiny through launch.train (one injected "
+          "failure): " + json.dumps(report["train_whisper"]), flush=True)
+    torch.cuda.empty_cache()
+    report["cross_train"] = {}
+    for arch in CROSS_TRAIN:
+        t0 = time.perf_counter()
+        cpu = cross_side.pop(arch).get()
+        wait = time.perf_counter() - t0
+        report["cross_train"][arch] = train_cross_check(torch, np, arch,
+                                                        cpu)
+        report["cross_train"][arch]["worker_wait_s"] = wait
+        del cpu
+        print(f"cross-check training {arch} (float32): "
+              + json.dumps(report["cross_train"][arch]), flush=True)
+    torch.cuda.empty_cache()
+    lap("train_checks")
+
+    report["zamba2_bf16_states"] = serve_state_check(torch, np)
+    print("zamba2 bf16 states: " + json.dumps(
+        {k: v for k, v in report["zamba2_bf16_states"].items()
+         if k != "per_layer_err"}), flush=True)
+    torch.cuda.empty_cache()
+    for arch, (_, layers) in SERVE_PATHS.items():
+        cross = serve_cross_check(torch, np, arch, layers)
+        report[f"cross_serve_{arch}"] = cross
+        print(f"cross-check serving {arch} (float32, {layers} layers): "
+              + json.dumps(cross), flush=True)
+        torch.cuda.empty_cache()
+
+    lap("serving_checks")
+
+    try:
+        report["db_bench"], report["fleet_matrix"] = bench_side.get(
+            timeout=BENCH_WAIT_S)
+    except multiprocessing.TimeoutError:
+        fail(f"db_bench and the fleet matrix not done in {BENCH_WAIT_S} s")
+    print("db_bench rows: " + json.dumps(report["db_bench"]), flush=True)
+    print("fleet matrix: " + json.dumps(report["fleet_matrix"]), flush=True)
+    lap("bench_wait")
 
     serve_launches = {}
     for arch in SERVE_PATHS:
@@ -3797,30 +4389,40 @@ def run(args, torch, pool) -> int:
     report["qwen3_prefill_flash"] = time_flash(torch, s_serve, 40, 16, 8, 128)
     report["zamba2_decode_paged"] = time_paged(
         torch, s_serve + DECODE_TOKENS - 1, 200, 32, 32, 64)
-    report["gemma3"] = gemma3_timings(
-        torch, max(report["serve_gemma3_1b"]["prompt_tokens"]))
+    s_gemma = max(report["serve_gemma3_1b"]["prompt_tokens"])
+    report["gemma3"] = {
+        "flash_prefill": time_flash(torch, s_gemma, 40, 4, 1, 256),
+        "paged_decode": time_paged(torch, s_gemma + DECODE_TOKENS - 1, 200,
+                                   4, 1, 256, GEMMA_WINDOW)}
+    # the 4,096-token rows of flash, paged and gemma3 are checked against
+    # their plain versions here and timed by scripts/probe.py flash paged
+    # gemma3 (gemma3_timings), to keep the run's time
+    n, w = LONG_PREFILL, GEMMA_WINDOW
+    report["long_checks"] = {name: check(torch, *a)[0] for name, check, a in (
+        ("flash_d64_4096", check_flash, (n,)),
+        ("flash_qwen3_4096", check_flash, (n, 16, 8, 128)),
+        ("paged_long_b8", check_paged_long, ()),
+        ("paged_long_b1", check_paged_long, (1,)),
+        ("flash_gemma3_4096_window", check_flash, (n, 4, 1, 256, w)),
+        ("flash_gemma3_4096_global", check_flash, (n, 4, 1, 256)),
+        ("paged_gemma3_4096_window", check_paged, (n, 4, 1, 256, w, n)),
+        ("paged_gemma3_4096_global", check_paged, (n, 4, 1, 256, None, n)))}
+    checked = {**report["gemma3"], **report["long_checks"]}
     edge_err["flash_attention"] = max(
         edge_err["flash_attention"],
         report["qwen3_prefill_flash"]["max_abs_err"],
-        *(t["max_abs_err"] for k, t in report["gemma3"].items()
+        *(t["max_abs_err"] for k, t in checked.items()
           if k.startswith("flash")))
     edge_err["paged_attention"] = max(
         edge_err["paged_attention"],
         report["zamba2_decode_paged"]["max_abs_err"],
-        *(t["max_abs_err"] for k, t in report["gemma3"].items()
+        *(t["max_abs_err"] for k, t in checked.items()
           if k.startswith("paged")))
     for name, err in edge_err.items():
         if name in timings:
             timings[name]["max_abs_err"] = max(timings[name]["max_abs_err"],
                                                err)
-    report["long_prefill"] = {
-        "flash_attention": time_flash(torch, LONG_PREFILL, 10),
-        "flash_attention_qwen3": time_flash(torch, LONG_PREFILL, 10, 16, 8,
-                                            128),
-        "ssd_scan": time_ssd(torch, LONG_PREFILL, 10)}
-    report["long_decode"] = {
-        "paged_attention": time_paged_long(torch, 20),
-        "paged_attention_b1": time_paged_long(torch, 40, 1)}
+    report["long_prefill"] = {"ssd_scan": time_ssd(torch, LONG_PREFILL, 10)}
     report["card_state"]["after_timings"] = card_query(CARD_STATE)
     print("card state before and after the timings: "
           + json.dumps(report["card_state"]), flush=True)
@@ -3839,34 +4441,14 @@ def run(args, torch, pool) -> int:
     for name, t in report["long_prefill"].items():
         print(f"timing {name} at {LONG_PREFILL} tokens: " + json.dumps(t),
               flush=True)
-    for name, t in report["long_decode"].items():
-        print(f"timing {name}, long decode: " + json.dumps(t), flush=True)
+    for name, t in report["long_checks"].items():
+        print(f"{name} against its plain version (timed by "
+              "scripts/probe.py): " + json.dumps(t), flush=True)
     for name, t in report["gemma3"].items():
         print(f"timing gemma3-1b {name}: " + json.dumps(t), flush=True)
     torch.cuda.empty_cache()
     lap("timings")
 
-    card_store = shard_card_runs(torch, np)
-    torch.cuda.empty_cache()
-    lap("shard_store_card")
-
-    # the training path's checks and timing rows
-    report["train_whisper"] = train_whisper(torch, np)
-    print("training whisper-tiny through launch.train (one injected "
-          "failure): " + json.dumps(report["train_whisper"]), flush=True)
-    torch.cuda.empty_cache()
-    report["cross_train"] = {}
-    for arch in CROSS_TRAIN:
-        t0 = time.perf_counter()
-        cpu = cross_side.pop(arch).get()
-        wait = time.perf_counter() - t0
-        report["cross_train"][arch] = train_cross_check(torch, np, arch,
-                                                        cpu)
-        report["cross_train"][arch]["worker_wait_s"] = wait
-        del cpu
-        print(f"cross-check training {arch} (float32): "
-              + json.dumps(report["cross_train"][arch]), flush=True)
-    torch.cuda.empty_cache()
     s_whisper = max(report["serve_whisper_tiny"]["prompt_tokens"])
     timings["flash_attention_bwd"] = time_flash_bwd(torch, TRAIN_BATCH,
                                                     TRAIN_SEQ, 40)
@@ -3896,21 +4478,8 @@ def run(args, torch, pool) -> int:
     print("timing ssd_scan_bwd at the training shape: "
           + json.dumps(timings["ssd_scan_bwd"]), flush=True)
     torch.cuda.empty_cache()
-    lap("train_beside_worker")
+    lap("bwd_timings")
 
-    report["zamba2_bf16_states"] = serve_state_check(torch, np)
-    print("zamba2 bf16 states: " + json.dumps(
-        {k: v for k, v in report["zamba2_bf16_states"].items()
-         if k != "per_layer_err"}), flush=True)
-    torch.cuda.empty_cache()
-    for arch, (_, layers) in SERVE_PATHS.items():
-        cross = serve_cross_check(torch, np, arch, layers)
-        report[f"cross_serve_{arch}"] = cross
-        print(f"cross-check serving {arch} (float32, {layers} layers): "
-              + json.dumps(cross), flush=True)
-        torch.cuda.empty_cache()
-
-    lap("serving_checks")
 
     cpu = cpu_side.get()
     lap("worker_wait")
@@ -3936,6 +4505,16 @@ def run(args, torch, pool) -> int:
               flush=True)
 
     lap("cross_checks")
+
+    # the worker is idle from here on: the distributed phase's processes
+    # slow no host-bound phase
+    report["distributed"] = dist = distributed_phase(torch)
+    print("distributed, one NCCL rank: " + json.dumps(dist["nccl"]),
+          flush=True)
+    for part in ("decode", "compress", "pipeline", "restore"):
+        print(f"distributed, {DIST_RANKS} gloo ranks, {part}: "
+              + json.dumps(dist[part]), flush=True)
+    lap("distributed")
     print("phase wall s: " + json.dumps(phase_s), flush=True)
     rows = []
     for name, t in timings.items():

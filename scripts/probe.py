@@ -39,6 +39,17 @@ Phases, each made of ``chip_smoke.py``'s own functions:
               backward
     whisper_flash flash_attention at whisper-tiny's encoder (S 1,500,
               non-causal) and cross attention (189 over 1,500)
+    flash_decode the sequence-sharded decode of ``chip_smoke.py`` phase 7
+              at qwen3-1.7b's heads (B 8, bf16, decode_32k's 32,768 cache
+              tokens): paged_attention at one rank's slice (8,192 tokens)
+              with and without its log-sum-exp, beside SDPA over the slice,
+              and over the whole cache on one rank; then 4 gloo ranks on
+              this card: each rank's kernel device time with lse, the
+              combine's wall time and the whole call's
+    distributed ``chip_smoke.py`` phase 7 alone: one NCCL rank, then four
+              gloo ranks on this card (sequence-sharded decode, the int8
+              cross-pod mean, qwen3-1.7b's GPipe stages, a restore under a
+              (2, 2) mesh)
     gemma3    flash_attention and paged_attention at gemma3-1b's shapes
               (head_dim 256, 4 query heads over 1 kv head): its serving
               prefill and decode, and 4,096 tokens with its 512-token window
@@ -313,6 +324,100 @@ def fleet_matrix(torch, np, cs, ctx) -> dict:
 
 def gemma3(torch, np, cs, ctx) -> dict:
     return cs.gemma3_timings(torch, 189)
+
+
+def _decode_args(torch, cs, slices):
+    """q, K, V (``slices`` of the seeded cache), page table and lengths of
+    phase 7's decode at qwen3-1.7b's heads in bf16, every sequence live
+    over the whole of each slice."""
+    hq, hkv, d = cs.DIST_DECODE_HEADS["qwen3_1_7b"]
+    b, t = cs.DIST_DECODE
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7100)
+    q = cs._randn(torch, gen, (b, hq, d), torch.bfloat16)
+    k, v = cs._decode_slices(torch, b, t, hkv, d, torch.bfloat16, slices)
+    pt = torch.arange(b, dtype=torch.int32, device="cuda")[:, None]
+    ln = torch.full((b,), k.shape[1], dtype=torch.int32, device="cuda")
+    return q, k, v, pt, ln
+
+
+def flash_decode_rank(rank, world, out):
+    """One rank of ``flash_decode``'s 4-rank run (gloo, cuda:0): its slice's
+    kernel with lse (device time), the combine (wall, synchronized) and
+    the whole call (wall, synchronized), 40 calls each after a warm-up."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import chip_smoke as cs
+    from repro_torch.distributed.flash_decode import (
+        combine_partials, seq_sharded_decode_attn)
+    from repro_torch.kernels.paged_attention import paged_attention
+    torch.cuda.set_device(0)
+    torch.set_num_threads(2)
+    mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("model",))
+    q, k, v, pt, ln = _decode_args(torch, cs, [rank])
+    pos = torch.full((q.shape[0],), cs.DIST_DECODE[1] - 1, device="cuda")
+    o, lse = paged_attention(q, k, v, pt, ln, return_lse=True)
+
+    def wall_ms(fn, reps=40):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+    row = {"kernel_lse_device_ms": cs.device_ms(
+        torch, lambda: paged_attention(q, k, v, pt, ln, return_lse=True),
+        40),
+        "combine_wall_ms": wall_ms(lambda: combine_partials(mesh, o, lse)),
+        "call_wall_ms": wall_ms(lambda: seq_sharded_decode_attn(
+            mesh, q, k, v, pos))}
+    (Path(out) / f"rank{rank}.json").write_text(json.dumps(row))
+
+
+def flash_decode(torch, np, cs, ctx) -> dict:
+    import tempfile
+    import torch.nn.functional as F
+    from repro_torch.distributed import comm
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     paged_attention_plain)
+    hq, hkv, d = cs.DIST_DECODE_HEADS["qwen3_1_7b"]
+    report = {}
+    for name, slices in (("slice", [0]),
+                         ("whole", list(range(cs.DIST_RANKS)))):
+        q, k, v, pt, ln = _decode_args(torch, cs, slices)
+        b, t = k.shape[:2]
+        kc, vc = (x.transpose(1, 2).contiguous() for x in (k, v))
+        bound, by = cs.paged_bound(b, hq, hkv, d, t, 1)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q[:, :, None], kc, vc, enable_gqa=True)[:, :, 0]
+        cs.check_close(f"paged_attention, decode {name}", "paged_attention",
+                       paged_attention(q, k, v, pt, ln),
+                       paged_attention_plain(q, k, v, pt, ln))
+        for lse in (False, True):
+            report[f"{name}{'_lse' if lse else ''}"] = {
+                "shape": f"B {b} x {t} tokens, H {hq} over {hkv}, D {d}, "
+                         "bf16", "bound_ms": bound, "bound_by": by,
+                **cs.time_all(torch, lambda: paged_attention(
+                    q, k, v, pt, ln, return_lse=lse),
+                    lambda: paged_attention_plain(q, k, v, pt, ln,
+                                                  return_lse=lse),
+                    library, 40)}
+        del q, k, v, kc, vc
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        comm.join(comm.start(flash_decode_rank, cs.DIST_RANKS, (tmp,),
+                             backend="gloo", init_file=Path(tmp) / "init"),
+                  cs.DIST_JOIN_S)
+        report["ranks_wall_s"] = time.perf_counter() - t0
+        report["ranks"] = [json.loads((Path(tmp) / f"rank{r}.json")
+                                      .read_text())
+                           for r in range(cs.DIST_RANKS)]
+    return report
 
 
 def serve_model(arch: str):
@@ -652,6 +757,9 @@ PHASES = {
     "whisper_bwd": (("flash_attention", "flash_attention_bwd"), whisper_bwd),
     "whisper_flash": (("flash_attention",), whisper_flash),
     "gemma3": (("flash_attention", "paged_attention"), gemma3),
+    "flash_decode": (("paged_attention",), flash_decode),
+    "distributed": (STORE + LM + TRAIN, lambda torch, np, cs, ctx:
+                    cs.distributed_phase(torch)),
     "serve_zamba2": (LM + ("ssd_scan",), serve_model("zamba2_1_2b")),
     "serve_qwen3": (LM, serve_model("qwen3_1_7b")),
     "serve_gemma3": (LM, serve_model("gemma3_1b")),

@@ -18,23 +18,30 @@ so page ids, manifests and segment contents are the reference's for the
 same values.  A leaf may be a tensor on any device, a numpy array or a
 scalar; bf16 tensors are stored as their raw 16-bit words with dtype
 ``"bfloat16"`` in the manifest (the reference's bytes, without ml_dtypes).
-``restore`` returns tensors, ``.to(compute_device)`` where one is given:
-the reference's ``device_put`` under shardings; an elastic reshard onto
-another mesh waits for the port's ``distributed/``.  ``async_save`` copies
-CUDA tensors to the host on the calling thread and serialises off it.
+``restore`` returns tensors, ``.to(compute_device)`` where one is given;
+under a ``DeviceMesh`` and a spec tree (``distributed.sharding``) every
+rank reads only the pages that hold its own shard of each leaf and returns
+DTensors built from those shards with no collective: the reference's
+``device_put`` under shardings.  Restoring under another mesh than the one
+that saved is the elastic reshard.  ``async_save`` copies CUDA tensors to
+the host on the calling thread and serialises off it.
 """
 
 from __future__ import annotations
 
 import hashlib
+import itertools
 import json
+import math
 import threading
 from pathlib import Path
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..core import LSMConfig, LSMTree
+from ..distributed.sharding import axis_sizes, local_slice, placements
 from ..training.tree import leaf_paths, unflatten_like
 
 PAGE_BYTES = 1 << 18   # 256 KiB logical pages
@@ -68,6 +75,30 @@ def _tensor(buf: bytearray, dtype: str, shape: list) -> torch.Tensor:
 
 def _itemsize(dtype: str) -> int:
     return 2 if dtype == _BF16 else np.dtype(dtype).itemsize
+
+
+def _slice_runs(ranges, shape, itemsize: int) -> tuple[list[int], int]:
+    """The box ``ranges`` ([start, stop) a dimension) of a C-ordered leaf of
+    ``shape`` as runs of contiguous bytes: (each run's byte offset in the
+    leaf, in the box's own C order, which is ascending; the bytes of a
+    run)."""
+    if any(b <= a for a, b in ranges):
+        return [], 0
+    # dimensions from k on are whole, so each run spans dimension k - 1's
+    # range times their product
+    k = len(shape)
+    while k > 0 and ranges[k - 1] == (0, shape[k - 1]):
+        k -= 1
+    inner = math.prod(shape[k:])
+    if k == 0:
+        return [0], inner * itemsize
+    lo, hi = ranges[k - 1]
+    strides = [math.prod(shape[i + 1:k]) * inner for i in range(k - 1)]
+    runs = [(sum(i * st for i, st in zip(idx, strides)) + lo * inner)
+            * itemsize
+            for idx in itertools.product(*(range(a, b)
+                                           for a, b in ranges[:k - 1]))]
+    return runs, (hi - lo) * inner * itemsize
 
 
 class LSMCheckpointStore:
@@ -207,11 +238,24 @@ class LSMCheckpointStore:
 
     # -------------------------------------------------------------- restore
     def restore(self, step: int | None = None, *, treedef_like=None,
-                compute_device: str | torch.device | None = None):
+                compute_device: str | torch.device | None = None,
+                mesh=None, specs=None):
         """Rebuild the state at ``step`` (default: latest) as tensors.
         ``treedef_like`` is any nested dict of the saved structure (its
         leaves are not read); without it the result is a flat dict of leaf
-        names.  ``compute_device`` moves every leaf there."""
+        names.  ``compute_device`` moves every leaf there.
+
+        With a ``DeviceMesh`` ``mesh`` and ``specs``, a tree of
+        ``sharding.P`` of the saved structure that the mesh divides (as
+        ``launch.specs`` or ``sharding.sanitize_spec`` give them), each
+        leaf is a DTensor on the mesh: this rank reads only the pages of
+        its own slice (``sharding.local_slice`` at its coordinate) into a
+        host buffer of the slice's size, and the shard goes to
+        ``compute_device`` (default: the mesh's device type).  No
+        collective runs; the stats then also count the pages this rank
+        read."""
+        if (mesh is None) != (specs is None):
+            raise ValueError("restore under a mesh takes both mesh and specs")
         with self._lock:
             assert self.steps, "empty store"
             step = max(self.steps) if step is None else step
@@ -224,33 +268,77 @@ class LSMCheckpointStore:
                     break
                 _seg, name, page = self.locator[seq]
                 want[self._page_id(name, page)] = seq
-            segments_touched = set()
-            seg_cache: dict[str, dict] = {}
-            out_leaves = []
             names = list(info["meta"])
-            for name in names:
-                m = info["meta"][name]
-                nbytes = int(np.prod(m["shape"], dtype=np.int64)) \
-                    * _itemsize(m["dtype"])
-                buf = bytearray(nbytes)
-                n_pages = max(1, -(-nbytes // self.page_bytes))
-                for page_no in range(n_pages):
-                    pid = self._page_id(name, page_no)
-                    seq = want.get(pid)
-                    assert seq is not None, f"missing page {name}:{page_no}"
-                    seg, _n, _p = self.locator[seq]
-                    segments_touched.add(seg)
-                    if seg not in seg_cache:
-                        seg_cache[seg] = dict(np.load(
-                            self.root / "segments" / f"{seg}.npz"))
-                    blob = seg_cache[seg][str(seq)].tobytes()
-                    off = page_no * self.page_bytes
-                    buf[off:off + len(blob)] = blob
-                t = _tensor(buf, m["dtype"], m["shape"])
-                out_leaves.append(t if compute_device is None
-                                  else t.to(compute_device))
+            if mesh is not None:
+                spec_names, spec_leaves = _leaf_names(specs)
+                if spec_names != names:
+                    raise ValueError(f"step {step} holds leaves {names}, the "
+                                     f"specs name {spec_names}")
+                sizes = axis_sizes(mesh)
+                coord = dict(zip(sizes, mesh.get_coordinate()))
+                device = compute_device or mesh.device_type
+            segments_touched = set()
+            segs: dict[str, np.lib.npyio.NpzFile] = {}
+            out_leaves = []
+            pages_read = 0
+
+            def page(name: str, page_no: int) -> memoryview:
+                nonlocal pages_read
+                seq = want.get(self._page_id(name, page_no))
+                assert seq is not None, f"missing page {name}:{page_no}"
+                seg, _n, _p = self.locator[seq]
+                segments_touched.add(seg)
+                if seg not in segs:
+                    segs[seg] = np.load(self.root / "segments" / f"{seg}.npz")
+                pages_read += 1
+                return memoryview(segs[seg][str(seq)])
+
+            pb = self.page_bytes
+            try:
+                for i, name in enumerate(names):
+                    m = info["meta"][name]
+                    shape = tuple(m["shape"])
+                    isz = _itemsize(m["dtype"])
+                    if mesh is None:
+                        buf = bytearray(math.prod(shape) * isz)
+                        for page_no in range(max(1, -(-len(buf) // pb))):
+                            blob = page(name, page_no)
+                            off = page_no * pb
+                            buf[off:off + len(blob)] = blob
+                        t = _tensor(buf, m["dtype"], m["shape"])
+                        out_leaves.append(t if compute_device is None
+                                          else t.to(compute_device))
+                        continue
+                    box = local_slice(sizes, coord, spec_leaves[i], shape)
+                    runs, run = _slice_runs(box, shape, isz)
+                    # the shard's bytes, run by run; runs ascend, so each
+                    # page is read once
+                    buf = bytearray(len(runs) * run)
+                    dst, held, blob = 0, -1, None
+                    for start in runs:
+                        pos, end = start, start + run
+                        while pos < end:
+                            if pos // pb != held:
+                                held = pos // pb
+                                blob = page(name, held)
+                            off = pos - held * pb
+                            n = min(end - pos, len(blob) - off)
+                            buf[dst:dst + n] = blob[off:off + n]
+                            pos, dst = pos + n, dst + n
+                    shard = _tensor(buf, m["dtype"], [b - a for a, b in box])
+                    out_leaves.append(DTensor.from_local(
+                        shard.to(device), mesh,
+                        placements(mesh, spec_leaves[i]), run_check=False,
+                        shape=torch.Size(shape),
+                        stride=tuple(math.prod(shape[j + 1:])
+                                     for j in range(len(shape)))))
+            finally:
+                for f in segs.values():
+                    f.close()
             stats = {"segments_touched": len(segments_touched),
                      "segments_total": len(self.seg_live)}
+            if mesh is not None:
+                stats["pages_read"] = pages_read
             if treedef_like is not None:
                 like, _ = _leaf_names(treedef_like)
                 if like != names:

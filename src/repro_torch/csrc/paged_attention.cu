@@ -53,6 +53,12 @@
 //   masked probabilities are zero, the output is acc / max(l, 1e-30), so a
 //   length of 0 gives zeros; expf (not __expf) throughout, and bf16 rounds
 //   once, at the end.
+// * Where the caller asks for it, each output row's fp32 log-sum-exp
+//   m + log(l) over its live tokens (-1e30 for a row with none, the
+//   reference's masked max) goes to lse[b * hq + head]: written where the
+//   row's output is, by the single split's store or by paged_combine, so a
+//   sequence-sharded decode can merge the rows of several caches
+//   (distributed/flash_decode.py).  The output is the same with or without.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -169,8 +175,8 @@ __global__ void __launch_bounds__(kThreads,
 paged_split(const T* __restrict__ q, const T* __restrict__ kp,
             const T* __restrict__ vp, const int* __restrict__ page_table,
             const int* __restrict__ lengths, T* __restrict__ o,
-            float* __restrict__ part, int hkv, int g, int ps, int maxp,
-            int split_tokens, float scale, int window) {
+            float* __restrict__ part, float* __restrict__ lse, int hkv, int g,
+            int ps, int maxp, int split_tokens, float scale, int window) {
   using C = Cfg<T, D>;
   extern __shared__ __align__(16) unsigned char smem[];
   float* sq = reinterpret_cast<float*>(smem + C::RING);   // [kMaxG][D]
@@ -370,6 +376,8 @@ paged_split(const T* __restrict__ q, const T* __restrict__ kp,
     }
     if (ns == 1) {
       store(o + q_off + idx, ab / fmaxf(lb, 1e-30f));
+      if (lse != nullptr && d == 0)
+        lse[q_off / D + gi] = lb > 0.f ? mb + logf(lb) : kNegInf;
     } else {
       const size_t pi = prow + (size_t)gi * ns;
       part[2 * rows_ns + pi * D + d] = ab;
@@ -392,8 +400,8 @@ constexpr int kCombineBatch = 16;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(D)
-paged_combine(const float* __restrict__ part, T* __restrict__ o, int ns,
-              size_t rows_ns) {
+paged_combine(const float* __restrict__ part, T* __restrict__ o,
+              float* __restrict__ lse, int ns, size_t rows_ns) {
   extern __shared__ float sw[];          // [ns] weights, then [ns] w * l
   float* swl = sw + ns;
   __shared__ float smax[D / 32];
@@ -433,13 +441,15 @@ paged_combine(const float* __restrict__ part, T* __restrict__ o, int ns,
     }
   }
   store(o + row * D + d, a / fmaxf(lsum, 1e-30f));
+  if (lse != nullptr && d == 0)
+    lse[row] = lsum > 0.f ? mx + logf(lsum) : kNegInf;
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* pt,
-           const void* lengths, void* o, void* part, int b, int hkv, int g,
-           int ps, int maxp, int ns, int split_tokens, float scale,
-           int window, cudaStream_t stream) {
+           const void* lengths, void* o, void* part, void* lse, int b,
+           int hkv, int g, int ps, int maxp, int ns, int split_tokens,
+           float scale, int window, cudaStream_t stream) {
   using C = Cfg<T, D>;
   static bool configured = false;
   if (!configured) {
@@ -454,14 +464,15 @@ int launch(const void* q, const void* k, const void* v, const void* pt,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(pt),
       static_cast<const int*>(lengths), static_cast<T*>(o),
-      static_cast<float*>(part), hkv, g, ps, maxp, split_tokens, scale,
-      window);
+      static_cast<float*>(part), static_cast<float*>(lse), hkv, g, ps, maxp,
+      split_tokens, scale, window);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || ns == 1) return static_cast<int>(e);
   const size_t rows = (size_t)b * hkv * g;
   paged_combine<T, D><<<static_cast<unsigned>(rows), D,
                          2 * sizeof(float) * ns, stream>>>(
-      static_cast<const float*>(part), static_cast<T*>(o), ns, rows * ns);
+      static_cast<const float*>(part), static_cast<T*>(o),
+      static_cast<float*>(lse), ns, rows * ns);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -473,14 +484,14 @@ int launch(const void* q, const void* k, const void* v, const void* pt,
 // int32; lengths: [b] int32; all contiguous, q/k/v 16-byte aligned.  ns
 // splits of split_tokens (a multiple of 32) tokens each, ns <= 4096, whose
 // ns * split_tokens cover min(maxp * ps, window); with ns > 1, part is
-// fp32 scratch of b * hq * ns * (d + 2) floats.  Both kernels go on one
-// stream.
+// fp32 scratch of b * hq * ns * (d + 2) floats.  lse: nullptr, or fp32
+// [b, hq] for each row's log-sum-exp.  Both kernels go on one stream.
 extern "C" int paged_attention_launch(const void* q, const void* k,
                                       const void* v, const void* page_table,
                                       const void* lengths, void* o,
-                                      void* part, int b, int hq, int hkv,
-                                      int d, int ps, int maxp, int ns,
-                                      int split_tokens, float scale,
+                                      void* part, void* lse, int b, int hq,
+                                      int hkv, int d, int ps, int maxp,
+                                      int ns, int split_tokens, float scale,
                                       int window, int dtype, void* stream) {
   if (b <= 0 || hq <= 0) return 0;
   if (hkv <= 0 || hq % hkv != 0 || hq / hkv > kMaxG || ps <= 0 || maxp < 0 ||
@@ -491,8 +502,9 @@ extern "C" int paged_attention_launch(const void* q, const void* k,
   const int g = hq / hkv;
 #define PAGED_CASE(DT, T, DIM)                                               \
   if (dtype == DT && d == DIM)                                               \
-    return launch<T, DIM>(q, k, v, page_table, lengths, o, part, b, hkv, g,  \
-                          ps, maxp, ns, split_tokens, scale, window, st);
+    return launch<T, DIM>(q, k, v, page_table, lengths, o, part, lse, b,     \
+                          hkv, g, ps, maxp, ns, split_tokens, scale, window, \
+                          st);
   PAGED_CASE(0, float, 64)
   PAGED_CASE(0, float, 128)
   PAGED_CASE(0, float, 256)

@@ -6,8 +6,9 @@ the port's own copy of ``repro/ft/watchdog.py`` (no JAX in it).
 batches through ``data.BatchAllocator`` and/or trigger an elastic remesh.
 ``FailureInjector`` drives the restart path in tests/examples: the train
 loop catches ``InjectedFailure`` and restores from the LSM checkpoint
-store onto the same device — see launch/train.py (the reference's
-elastic remesh waits for the port's ``distributed/``).
+store onto the same device — see launch/train.py; the elastic remesh is a
+restore under the new mesh (``LSMCheckpointStore.restore(mesh=,
+specs=)``, ``launch.mesh.make_mesh``).
 """
 
 from __future__ import annotations

@@ -20,6 +20,12 @@ of each sequence: with the reference's decode mask ``pos - kj < window``
 and ``lengths = pos + 1``, the live tokens are ``[max(0, length - window),
 length)``.  ``None`` or a window below 1 means global.
 
+``return_lse`` also returns each output row's fp32 log-sum-exp ``[B, Hq]``,
+``m + log(l)`` over the row's live tokens (``NEG_INF`` for a row with
+none), as flash_attention's ``return_lse`` does: a sequence-sharded decode
+merges the rows that several cache slices give with it
+(``distributed/flash_decode.py``).  The output is the same either way.
+
 Page-table entries of pages past a sequence's length, or wholly before its
 window, are never read, and neither are the rows of a page outside the
 live range: callers may leave garbage there.  The lengths are not checked
@@ -57,7 +63,8 @@ RESIDENT_BLOCKS_D256 = {torch.bfloat16: 2, torch.float32: 1}
 _sm_counts: dict[int, int] = {}
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
              ctypes.c_void_p]
@@ -126,10 +133,12 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
                           v_pages: torch.Tensor, page_table: torch.Tensor,
                           lengths: torch.Tensor, *,
                           window: int | None = None,
-                          scale: float | None = None) -> torch.Tensor:
+                          scale: float | None = None,
+                          return_lse: bool = False):
     """The kernel's function in plain torch, fp32 throughout: gather every
     sequence's pages (entries past its length or wholly before its window
-    read page 0 instead), then one masked softmax per query head."""
+    read page 0 instead), then one masked softmax per query head.  With
+    ``return_lse``, ``(out, lse)``."""
     b, hq, d = q.shape
     _, ps, hkv, _ = k_pages.shape
     maxp = page_table.shape[1]
@@ -155,18 +164,23 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(logits - m), 0.0)
     out = torch.einsum("bhgt,bthd->bhgd", p, v)
-    out = out / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-    return out.reshape(b, hq, d).to(q.dtype)
+    den = p.sum(dim=-1, keepdim=True)
+    out = (out / torch.clamp(den, min=1e-30)).reshape(b, hq, d).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(den > 0, m + torch.log(den), NEG_INF)
+    return out, lse.reshape(b, hq)
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, page_table: torch.Tensor,
                     lengths: torch.Tensor, *, window: int | None = None,
-                    scale: float | None = None) -> torch.Tensor:
+                    scale: float | None = None, return_lse: bool = False):
     """q: [B, Hq, D]; k_pages, v_pages: [NP, PS, Hkv, D] with Hq % Hkv == 0;
     page_table: [B, MAXP] int32; lengths: [B] int32; ``window``: None (or
     < 1) for global, else the last ``window`` tokens.  Returns [B, Hq, D]
-    in q's dtype."""
+    in q's dtype, and with ``return_lse`` also the rows' fp32 log-sum-exp
+    [B, Hq]."""
     b, hq, d = q.shape
     n_pages, ps, hkv = k_pages.shape[:3]
     maxp = page_table.shape[1] if page_table.dim() == 2 else -1
@@ -184,7 +198,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError("all arguments must be on one device")
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, page_table,
-                                     lengths, window=window, scale=scale)
+                                     lengths, window=window, scale=scale,
+                                     return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in _DTYPES:
@@ -206,8 +221,10 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if not lengths.is_contiguous():
         lengths = lengths.contiguous()
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if q.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     if _launch is None:
         _resolve()
     dev = q.get_device()
@@ -222,14 +239,15 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         if ns > 1 else None
     err = _launch(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                   page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                  None if part is None else part.data_ptr(), b, hq, hkv, d,
+                  None if part is None else part.data_ptr(),
+                  None if lse is None else lse.data_ptr(), b, hq, hkv, d,
                   ps, maxp, ns, per,
                   float(scale if scale is not None else d ** -0.5), w,
                   _DTYPES[q.dtype], stream)
     if err:
         _build.check(err, "paged_attention")
     paged_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 paged_attention.launches = 0

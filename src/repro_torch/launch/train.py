@@ -7,9 +7,9 @@ and backward is a flash_attention / flash_attention_bwd kernel launch,
 and the checkpoint's page index is the port's vLSM ``LSMTree`` on the same
 device (overlap_scan and merge_path launches).  An injected failure
 mid-run restores the latest incremental checkpoint onto the same device
-(the reference's restore under a different mesh waits for the port's
-``distributed/``) and training resumes at the checkpointed step with the
-pipeline cursor intact.
+and training resumes at the checkpointed step with the pipeline cursor
+intact.  This driver runs one process; a restore under another mesh (the
+elastic reshard) is ``LSMCheckpointStore.restore(mesh=, specs=)``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_2_3b \\
         --smoke --steps 60 --ckpt-every 20 [--fail-at 30] \\

@@ -37,53 +37,55 @@ from .blocks import (check_params_device, cross_rows, decoder_layers,
 from .common import dtype_of, norm, sinusoidal_positions
 
 
-def init_cache(cfg, batch: int, max_seq: int, *,
-               compute_device: str | torch.device = "cuda") -> dict:
+def cache_shapes(cfg, batch: int, max_seq: int) -> dict:
+    """name -> (shape, dtype) of every tensor of :func:`init_cache`, without
+    allocating anything (``launch.specs.decode_specs`` reads them at sizes
+    no device holds)."""
     require_ported(cfg)
-    dev = resolve_compute_device(compute_device)
     dt = dtype_of(cfg)
+    pos = ((1,), torch.int32)
     if cfg.family == "encdec":
-        shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-        cross = (cfg.n_layers, batch, cross_rows(cfg), cfg.n_kv_heads,
-                 cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=dt, device=dev),
-                "v": torch.zeros(shape, dtype=dt, device=dev),
-                "cross_k": torch.zeros(cross, dtype=dt, device=dev),
-                "cross_v": torch.zeros(cross, dtype=dt, device=dev),
-                "pos": torch.zeros((1,), dtype=torch.int32, device=dev)}
+        kv = ((cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim),
+              dt)
+        cross = ((cfg.n_layers, batch, cross_rows(cfg), cfg.n_kv_heads,
+                  cfg.head_dim), dt)
+        return {"k": kv, "v": kv, "cross_k": cross, "cross_v": cross,
+                "pos": pos}
     if cfg.family == "decoder":
         n_scan = cfg.n_layers - cfg.first_dense_layers
         if cfg.attn_kind == "mla":
-            cache = {}
+            shapes = {}
             for pre, n in (("", n_scan), ("d_", cfg.first_dense_layers)):
                 if n:
-                    cache[pre + "ckv"] = torch.zeros(
-                        (n, batch, max_seq, cfg.kv_lora_rank), dtype=dt,
-                        device=dev)
-                    cache[pre + "kr"] = torch.zeros(
-                        (n, batch, max_seq, cfg.qk_rope_dim), dtype=dt,
-                        device=dev)
+                    shapes[pre + "ckv"] = ((n, batch, max_seq,
+                                            cfg.kv_lora_rank), dt)
+                    shapes[pre + "kr"] = ((n, batch, max_seq,
+                                           cfg.qk_rope_dim), dt)
         else:
-            shape = (n_scan, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-            cache = {"k": torch.zeros(shape, dtype=dt, device=dev),
-                     "v": torch.zeros(shape, dtype=dt, device=dev)}
-        cache["pos"] = torch.zeros((1,), dtype=torch.int32, device=dev)
-        return cache
-    cache = {
-        "conv": torch.zeros((cfg.n_layers, batch, cfg.conv_kernel - 1,
-                             ssd_mod.conv_dim(cfg)), dtype=dt, device=dev),
-        "state": torch.zeros((cfg.n_layers, batch, cfg.ssm_heads,
-                              cfg.ssm_state, cfg.ssm_head_dim),
-                             dtype=torch.float32, device=dev),
-        "pos": torch.zeros((1,), dtype=torch.int32, device=dev),
+            kv = ((n_scan, batch, max_seq, cfg.n_kv_heads, cfg.head_dim), dt)
+            shapes = {"k": kv, "v": kv}
+        shapes["pos"] = pos
+        return shapes
+    shapes = {
+        "conv": ((cfg.n_layers, batch, cfg.conv_kernel - 1,
+                  ssd_mod.conv_dim(cfg)), dt),
+        "state": ((cfg.n_layers, batch, cfg.ssm_heads, cfg.ssm_state,
+                   cfg.ssm_head_dim), torch.float32),
+        "pos": pos,
     }
     if cfg.attn_every:
         n_apps = len(range(cfg.attn_every, cfg.n_layers, cfg.attn_every))
-        cache["attn_k"] = torch.zeros(
-            (n_apps, batch, max_seq, cfg.n_kv_heads, cfg.head_dim), dtype=dt,
-            device=dev)
-        cache["attn_v"] = torch.zeros_like(cache["attn_k"])
-    return cache
+        kv = ((n_apps, batch, max_seq, cfg.n_kv_heads, cfg.head_dim), dt)
+        shapes["attn_k"] = shapes["attn_v"] = kv
+    return shapes
+
+
+def init_cache(cfg, batch: int, max_seq: int, *,
+               compute_device: str | torch.device = "cuda") -> dict:
+    """Zero tensors of :func:`cache_shapes` on ``compute_device``."""
+    dev = resolve_compute_device(compute_device)
+    return {k: torch.zeros(shape, dtype=dt, device=dev)
+            for k, (shape, dt) in cache_shapes(cfg, batch, max_seq).items()}
 
 
 def decode_step(cfg, params, tokens, pos, cache, *, batch_extras=None,

@@ -5,8 +5,11 @@
 opt_state, metrics)``: the loss and its gradient by autograd through the
 port's forward (every attention's gradient the flash_attention_bwd
 kernel; each stacked layer rematerialised when ``remat``), optional
-gradient accumulation over micro-batches, then AdamW with clipping
-(parameters and moments updated in place).  It runs eagerly: the
+gradient accumulation over micro-batches, with ``compress_grads`` the
+gradients' int8 quantization with error feedback
+(``distributed.compression.compress_tree``, its residual carried across
+steps in ``opt_state["ef"]``), then AdamW with clipping (parameters and
+moments updated in place).  It runs eagerly: the
 reference jits it.  ``make_serve_step`` returns the single-token decode,
 ``make_prefill`` the full-sequence prefill.
 """
@@ -18,6 +21,7 @@ from typing import Any
 import torch
 
 from ..core.types import resolve_compute_device
+from ..distributed.compression import compress_tree
 from ..models import decode_step, forward, train_loss
 from .optimizer import AdamWConfig, adamw_update
 from .tree import leaves, tree_map, unflatten_like
@@ -49,10 +53,6 @@ def make_train_step(cfg, opt_cfg: AdamWConfig | None = None, *,
                     remat: bool = True, grad_accum: int = 1,
                     compress_grads: bool = False,
                     compute_device: str | torch.device = "cuda"):
-    if compress_grads:
-        raise NotImplementedError(
-            "compress_grads waits for distributed/compression.py "
-            "(ROADMAP.md, queue 1, item 9)")
     opt_cfg = opt_cfg or AdamWConfig()
     dev = resolve_compute_device(compute_device)
 
@@ -72,6 +72,8 @@ def make_train_step(cfg, opt_cfg: AdamWConfig | None = None, *,
         else:
             loss, grads = value_and_grad(cfg, params, batch, remat=remat,
                                          compute_device=dev)
+        if compress_grads:
+            grads, opt_state = compress_tree(grads, opt_state)
         params, opt_state, gnorm = adamw_update(opt_cfg, params, grads,
                                                 opt_state)
         return params, opt_state, {"loss": loss, "grad_norm": gnorm}

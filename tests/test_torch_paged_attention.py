@@ -196,18 +196,22 @@ def test_split_plan_covers_every_capacity():
         assert n <= wanted
 
 
-def _split_mirror(q, kp, vp, pt, ln, ns, per, scale=None, window=None):
+def _split_mirror(q, kp, vp, pt, ln, ns, per, scale=None, window=None,
+                  return_lse=False):
     """The kernel's arithmetic in torch, fp32: each split's partial (m, l,
     unnormalised acc) over its own tokens (from the window's first token,
     ``max(0, length - window)``, if there is a window), an empty split (m
     -1e30, l 0), then the combine in split order.  Only page-table entries
-    of live tokens are read."""
+    of live tokens are read.  With ``return_lse`` also each row's
+    log-sum-exp as the combine stores it: mx + log(den), -1e30 where den
+    is 0."""
     b, hq, d = q.shape
     _, ps, hkv, _ = kp.shape
     g = hq // hkv
     cap = pt.shape[1] * ps
     scale = scale if scale is not None else d ** -0.5
     out = torch.zeros((b, hq, d), dtype=torch.float32)
+    lse = torch.zeros((b, hq), dtype=torch.float32)
     for bi in range(b):
         n_tok = max(0, min(int(ln[bi]), cap))
         first = max(0, int(ln[bi]) - window) if window else 0
@@ -237,7 +241,8 @@ def _split_mirror(q, kp, vp, pt, ln, ns, per, scale=None, window=None):
             num = num + w[:, None] * acc
             den = den + w * l
         out[bi] = num / torch.clamp(den, min=1e-30)[:, None]
-    return out
+        lse[bi] = torch.where(den > 0, mx + torch.log(den), -1e30)
+    return (out, lse) if return_lse else out
 
 
 @pytest.mark.parametrize("n_sm", [132, 8])
@@ -268,6 +273,32 @@ def test_split_combine_mirror(n_sm):
         *(jnp.asarray(x) for x in (q, kp, vp)), jnp.asarray(safe, jnp.int32),
         jnp.asarray(ln)).astype(jnp.float32))
     assert np.max(np.abs(got - oracle)) < TOL["float32"]
+
+
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("n_sm", [132, 8])
+def test_split_combine_mirror_lse(n_sm, window):
+    """The combine's log-sum-exp (``return_lse``, the sequence-sharded
+    decode's input) against the plain version's, over the split mirror's
+    lengths, with and without a window: within the fp32 2e-5, -1e30 for
+    the empty row, the output the same with and without it."""
+    hq, hkv, d, ps, maxp = 4, 2, 64, 16, 12
+    cap = maxp * ps
+    ns, per = split_plan(min(cap, window or cap), 6, hkv, n_sm)
+    assert ns > 1
+    lengths = [0, 1, per - 1, per, per + 1, cap]
+    q, kp, vp, pt, ln, _ = _inputs(len(lengths), hq, hkv, d, 20, ps, maxp,
+                                   "float32", lengths=lengths, seed=12)
+    tq, tk, tv, tpt, tln = (torch.from_numpy(x) for x in (q, kp, vp, pt, ln))
+    out, lse = _split_mirror(tq, tk, tv, tpt, tln, ns, per, window=window,
+                             return_lse=True)
+    p_out, p_lse = paged_attention_plain(tq, tk, tv, tpt, tln, window=window,
+                                         return_lse=True)
+    assert torch.equal(p_out, paged_attention_plain(tq, tk, tv, tpt, tln,
+                                                    window=window))
+    assert torch.all(lse[0] == -1e30) and torch.all(p_lse[0] == -1e30)
+    assert float((lse - p_lse).abs().max()) < TOL["float32"]
+    assert float((out - p_out).abs().max()) < TOL["float32"]
 
 
 # --------------------------------------------------------------------------
