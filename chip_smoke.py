@@ -85,7 +85,12 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    structural field equal (perf_trajectory's task, cache-hit, cache-miss
    and worker counts included), a rounded simulated-time field within one
    unit of its last digit (counted), the parity gap within 1e-9 s; at
-   least one row must stall.
+   least one row must stall.  Under ``REPRO_PARANOID_CHECKS=1`` every row
+   must pass the schema gate ``paranoid_validate_rows`` checks
+   against the families ``repro_torch.analysis`` extracts from the port's
+   emitter, and all 902 must have been validated (the switch is set
+   around that validation only: it also arms the store's invariant
+   checks, which double db_bench's time).
 3c. The fleet matrix (every policy x shard counts 1, 2, 4, 16 x 32 rates:
    4,416 queues) through ``fleet.fleet_sweep``: ONE lindley_scan launch,
    its queues and departures bit for bit those of the 768 per-pass
@@ -150,7 +155,15 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    ``make_train_step(remat=True)`` on B 8 x S 64 batches of
    ``TokenPipeline``: 56 flash_attention launches a step (a forward and its
    recomputation a layer) and 28 flash_attention_bwd, finite losses, fp32
-   moments, ms a step and peak memory.  zamba2-1.2b at full width and
+   moments, ms a step and peak memory; the bytes requested from the
+   card's allocator once the parameters, moments and first batch are on
+   it, before the first step, must equal the dry-run's argument bytes for
+   the cell (``launch.dryrun.plan_cell`` at mesh sizes data 1 x model 1,
+   planned in the CPU worker) to the byte, and the bytes allocated be no
+   fewer than those rounded to 512 a tensor (more where the allocator
+   reuses a cached block without splitting it), printed beside the
+   dry-run's roofline time, ``train_bound_ms``, the measured ms a step
+   and the temporaries' estimate against the measured peak.  zamba2-1.2b at full width and
    depth in bf16, 5 steps of ``make_train_step(remat=True)`` at B 8 x S 64
    on one fixed batch of a stream it can learn (``learnable_batch``),
    repeated: 76 ssd_scan, 38 ssd_scan_bwd, 6 flash_attention and 6
@@ -276,9 +289,11 @@ from __future__ import annotations
 
 import argparse
 import collections
+import gc
 import json
 import math
 import multiprocessing
+import os
 import re
 import subprocess
 import sys
@@ -349,6 +364,8 @@ BWD_CROSS = ((1, WHISPER_FRAMES), (63, 65), (65, 1), (64, 64),
 # the training phase: qwen3-1.7b at full size, and whisper-tiny through the
 # training launcher with one injected failure
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "qwen3_1_7b", 8, 64, 4
+# the caching allocator rounds every block up to a multiple of this
+ALLOC_ROUND = 512
 WHISPER_TRAIN = {"steps": 40, "ckpt_every": 20, "fail_at": 30, "batch": 8,
                  "seq": 64}
 # its losses' band around ln(vocab): no divergence (see train_whisper)
@@ -1288,13 +1305,58 @@ class BenchLaunches:
             setattr(db_bench, f, fn)
 
 
+class SchemaGate:
+    """The schema gate over ``db_bench.main``'s rows: its closing
+    ``paranoid_validate_rows`` runs under ``REPRO_PARANOID_CHECKS=1``, and
+    each row it holds to the schemas the port's lint extracts from its
+    emitter is counted (both wrapped by their module names).  The switch
+    is set around that call only: set for the whole run it also arms the
+    store's invariant checks (``LSMConfig.paranoid_checks``, read as each
+    config is made), which doubled db_bench's time on the card.  The
+    schemas must not be empty, or the gate would pass every row unread."""
+
+    def __enter__(self):
+        from repro_torch.analysis import schemas
+        self.families = sorted(schemas.load_schemas())
+        if not self.families:
+            fail("db_bench: no row schema extracted from the port's emitter")
+        self.validated = 0
+        self._orig = (schemas.paranoid_validate_rows,
+                      schemas.validate_emitted_row)
+        validate_rows, validate_row = self._orig
+
+        def gated(rows, *a, **kw):
+            env = os.environ.get("REPRO_PARANOID_CHECKS")
+            os.environ["REPRO_PARANOID_CHECKS"] = "1"
+            try:
+                validate_rows(rows, *a, **kw)
+            finally:
+                if env is None:
+                    os.environ.pop("REPRO_PARANOID_CHECKS")
+                else:
+                    os.environ["REPRO_PARANOID_CHECKS"] = env
+
+        def counted(row, *a, **kw):
+            validate_row(row, *a, **kw)
+            self.validated += 1
+        schemas.paranoid_validate_rows = gated
+        schemas.validate_emitted_row = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.analysis import schemas
+        schemas.paranoid_validate_rows, schemas.validate_emitted_row = \
+            self._orig
+
+
 def db_bench_rows(torch, out: Path | None) -> tuple[dict, list]:
     """db_bench's eight benches at the reference's full sizes for every
     registered policy, on the card (``db_bench.main``, from rewound uid
     counters as in a fresh process), their rows held in order against
-    every committed ``BENCH_dbbench.json`` row (``compare_row``); at least
-    one row must stall.  Returns the report and fleet_sweep's per-pass
-    Lindley calls (``RecordLindley``)."""
+    every committed ``BENCH_dbbench.json`` row (``compare_row``), each
+    through the schema gate (``SchemaGate``); at least one row must stall.
+    Returns the report and fleet_sweep's per-pass Lindley calls
+    (``RecordLindley``)."""
     from repro_torch import kernels
     from repro_torch.bench_kv import db_bench
     from repro_torch.core import DEFAULT_CACHE
@@ -1304,7 +1366,8 @@ def db_bench_rows(torch, out: Path | None) -> tuple[dict, list]:
     reset_uid_counters()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    with BenchLaunches() as by_bench, RecordLindley(by_bench) as rec:
+    with BenchLaunches() as by_bench, RecordLindley(by_bench) as rec, \
+            SchemaGate() as gate:
         rows = db_bench.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1313,6 +1376,9 @@ def db_bench_rows(torch, out: Path | None) -> tuple[dict, list]:
     if len(rows) != len(want):
         fail(f"db_bench: {len(rows)} rows, the committed file has "
              f"{len(want)}")
+    if gate.validated != len(rows):
+        fail(f"db_bench: {gate.validated} of {len(rows)} rows through the "
+             f"schema gate")
     flips: list[str] = []
     for i, (g, w) in enumerate(zip(rows, want)):
         if g["bench"] != w["bench"]:
@@ -1335,7 +1401,9 @@ def db_bench_rows(torch, out: Path | None) -> tuple[dict, list]:
             per_bench[r["bench"]] += r["wall_clock_s"]
     summary = next(r for r in rows if r.get("engine") == "summary")
     serve = [r for r in rows if r["bench"] == "serve_sweep"]
-    return {"rows": len(rows), "last_digit_flips": len(flips),
+    return {"rows": len(rows), "schema_validated_rows": gate.validated,
+            "schema_families": gate.families,
+            "last_digit_flips": len(flips),
             "flips": flips[:20], "stalled_rows": len(stalled),
             "stalled": stalled[:12], "wall_s": wall,
             "row_wall_s": dict(per_bench),
@@ -1576,7 +1644,6 @@ def serve_open(torch, np, policy: str, memo: dict) -> dict:
     LINDLEY_TOL_S.  Launch counts are zeroed at the start and read at the
     end: merge_path, overlap_scan and lindley_scan must each have
     launched.  ``memo`` is ``ServeClock``'s."""
-    import os
     from repro_torch import kernels
     from repro_torch.bench_kv.db_bench import make_serve_spec
     from repro_torch.core import (DeviceModel, FleetEngine, Simulator,
@@ -3108,10 +3175,77 @@ def time_ssd_bwd(torch, b: int, L: int, reps: int) -> dict:
             "passes": pass_ms(torch, lambda: ssd_scan_bwd(*args), reps)}
 
 
-def train_qwen3(torch, np) -> dict:
+def dryrun_train_plan(arch: str = TRAIN_ARCH, batch: int = TRAIN_BATCH,
+                      seq: int = TRAIN_SEQ) -> dict:
+    """The dry-run's plan of the training cell at the smoke's own shape
+    on one card (``launch.dryrun.plan_cell`` at mesh sizes data 1 x model
+    1; its fake trace on the CPU), with the argument tensors' bytes each
+    rounded up to ``ALLOC_ROUND`` as the card's allocator rounds them."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun
+    cfg, sizes = get_config(arch), {"data": 1, "model": 1}
+    shape = ShapeSpec("smoke", seq, batch, "train")
+    plan = dryrun.plan_cell(cfg, shape, sizes)
+    args = dryrun.cell_args(cfg, shape, sizes, fsdp=plan["fsdp"])
+    plan["argument_bytes_rounded"] = sum(
+        -(-dryrun.leaf_bytes(sizes, leaf) // ALLOC_ROUND) * ALLOC_ROUND
+        for leaf in dryrun.arg_leaves(args))
+    return plan
+
+
+def card_bytes(torch) -> tuple[int, int]:
+    """(bytes the caching allocator has handed out, bytes its callers
+    asked for): ``memory_allocated`` and ``requested_bytes.all.current``."""
+    stats = torch.cuda.memory_stats()
+    if "requested_bytes.all.current" not in stats:
+        fail("the allocator reports no requested_bytes")
+    return (torch.cuda.memory_allocated(),
+            stats["requested_bytes.all.current"])
+
+
+def dryrun_against_card(plan: dict, allocated: int, requested: int,
+                        temp_peak: int, out: dict) -> dict:
+    """The dry-run's plan beside what the card held and took: its
+    argument bytes against the bytes requested for the parameters,
+    moments and first batch (equal, to the byte) and the bytes allocated
+    for them (each tensor rounded up to ``ALLOC_ROUND``, or more where
+    the allocator hands out a cached block without splitting it), its
+    roofline time beside ``train_bound_ms`` and the measured step, its
+    temporaries' estimate beside the measured peak."""
+    mem, roof = plan["memory"], plan["roofline"]
+    raw, n = mem["argument_bytes"], mem["argument_tensors"]
+    if requested != raw or allocated < plan["argument_bytes_rounded"]:
+        fail(f"dry-run: {requested} bytes requested and {allocated} "
+             f"allocated for the arguments, the plan's {raw} "
+             f"({plan['argument_bytes_rounded']} rounded) over {n} tensors")
+    return {"argument_bytes": raw, "argument_tensors": n,
+            "requested_bytes": requested,
+            "argument_bytes_rounded": plan["argument_bytes_rounded"],
+            "allocated_bytes": allocated,
+            "allocated_minus_rounded": allocated
+            - plan["argument_bytes_rounded"],
+            "within_rounding": allocated - raw <= ALLOC_ROUND * n,
+            "roofline_ms": (roof["t_compute_s"] + roof["t_memory_s"]) * 1e3,
+            "t_compute_ms": roof["t_compute_s"] * 1e3,
+            "t_memory_ms": roof["t_memory_s"] * 1e3,
+            "train_bound_ms": out["bound_ms"],
+            "step_ms_after_first": out["step_ms_after_first"],
+            "temp_bytes_estimate": mem["temp_bytes"],
+            "temp_peak_bytes_measured": temp_peak,
+            "flops_per_device": plan["flops_per_device"],
+            "useful_flops_ratio": plan["useful_flops_ratio"],
+            "trace_s": plan["trace_s"]}
+
+
+def train_qwen3(torch, np, plan: dict | None = None) -> dict:
     """The training phase's qwen3-1.7b check: ``train_steps`` at B
-    TRAIN_BATCH x S TRAIN_SEQ for TRAIN_STEPS steps."""
-    out, state = train_steps(torch, np, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS)
+    TRAIN_BATCH x S TRAIN_SEQ for TRAIN_STEPS steps, held to the dry-run's
+    ``plan`` of the cell (``dryrun_train_plan``, made here when not
+    given)."""
+    if plan is None:
+        plan = dryrun_train_plan()
+    out, state = train_steps(torch, np, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS,
+                             plan=plan)
     del state
     torch.cuda.empty_cache()
     return out
@@ -3161,7 +3295,8 @@ def learnable_batch(np, vocab: int, batch: int, seq: int,
 
 
 def train_steps(torch, np, batch: int, seq: int, steps: int,
-                arch: str = TRAIN_ARCH, fixed: dict | None = None):
+                arch: str = TRAIN_ARCH, fixed: dict | None = None,
+                plan: dict | None = None):
     """``arch`` (qwen3-1.7b by default) at full width and depth in bf16
     (seeded weights): ``steps`` steps of ``make_train_step(remat=True)``
     with the reference's AdamW defaults on batch x seq batches from
@@ -3169,9 +3304,12 @@ def train_steps(torch, np, batch: int, seq: int, steps: int,
     must then fall from the first step to the last.  Launch counts are
     zeroed just before each step and read just after; they must be
     ``train_launches``'.  The losses and grad norms must be finite and the
-    moments fp32.  Returns the report (ms a step against
-    ``train_bound_ms``, the peak memory) and the run's state, ``(step,
-    params, opt, pipe)``, for a caller that goes on stepping."""
+    moments fp32.  Given the dry-run's ``plan`` of the cell, the first
+    batch goes to the card with the parameters and moments, and the bytes
+    then allocated are held to it (``dryrun_against_card``).  Returns the
+    report (ms a step against ``train_bound_ms``, the peak memory) and the
+    run's state, ``(step, params, opt, pipe)``, for a caller that goes on
+    stepping."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import PipelineState, TokenPipeline
@@ -3180,18 +3318,31 @@ def train_steps(torch, np, batch: int, seq: int, steps: int,
                                       make_train_step)
     from repro_torch.training.tree import leaves
     cfg = get_config(arch)
+    gc.collect()
     torch.cuda.empty_cache()
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base, base_requested = card_bytes(torch)
     params = init_model(cfg, 0, compute_device="cuda")
     opt = init_opt_state(params)
     pipe = TokenPipeline(cfg.vocab_size, seq, batch,
                          PipelineState(seed=0, rank=0, world=1))
+    first = None
+    if plan is not None:
+        first = {k: torch.as_tensor(v, device="cuda") for k, v in (
+            pipe.next_batch() if fixed is None else fixed).items()}
+        torch.cuda.synchronize()
+        allocated, requested = card_bytes(torch)
+        allocated, requested = allocated - base, requested - base_requested
     step = make_train_step(cfg, AdamWConfig(), remat=True,
                            compute_device="cuda")
     want = train_launches(cfg)
     losses, gnorms, step_ms, total = [], [], [], collections.Counter()
     for i in range(steps):
-        tokens = pipe.next_batch() if fixed is None else fixed
+        if i == 0 and first is not None:
+            tokens = first
+        else:
+            tokens = pipe.next_batch() if fixed is None else fixed
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
@@ -3225,6 +3376,10 @@ def train_steps(torch, np, batch: int, seq: int, steps: int,
            "launches_per_step": want, "launches": dict(total),
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated()
            / 1e9}
+    if plan is not None:
+        out["dryrun"] = dryrun_against_card(
+            plan, allocated, requested,
+            torch.cuda.max_memory_allocated() - base - allocated, out)
     return out, (step, params, opt, pipe)
 
 
@@ -4257,6 +4412,8 @@ def run(args, torch, pool, bench_pool) -> int:
     # worker
     cross_side = {arch: pool.apply_async(cross_train_cpu, (arch,))
                   for arch in CROSS_TRAIN}
+    # then the dry-run's plan of qwen3-1.7b's training cell (4b)
+    dry_side = pool.apply_async(dryrun_train_plan)
     _, _, beside = run_main_path(torch, np, "vlsm", trace, "cuda")
     report["worker_toll"] = {"store_path_alone_s": alone,
                              "store_path_beside_worker_s": beside}
@@ -4332,6 +4489,12 @@ def run(args, torch, pool, bench_pool) -> int:
             timeout=BENCH_WAIT_S)
     except multiprocessing.TimeoutError:
         fail(f"db_bench and the fleet matrix not done in {BENCH_WAIT_S} s")
+    print(f"db_bench rows through the schema gate "
+          f"(REPRO_PARANOID_CHECKS=1): "
+          f"{report['db_bench']['schema_validated_rows']} of "
+          f"{report['db_bench']['rows']}, "
+          f"{report['db_bench']['last_digit_flips']} last-digit flips",
+          flush=True)
     print("db_bench rows: " + json.dumps(report["db_bench"]), flush=True)
     print("fleet matrix: " + json.dumps(report["fleet_matrix"]), flush=True)
     lap("bench_wait")
@@ -4348,7 +4511,11 @@ def run(args, torch, pool, bench_pool) -> int:
     torch.cuda.empty_cache()
     lap("serving")
 
-    report["train_qwen3"] = train_qwen3(torch, np)
+    report["train_qwen3"] = train_qwen3(torch, np, dry_side.get(timeout=600))
+    report["dryrun_train"] = report["train_qwen3"].pop("dryrun")
+    print(f"dry-run against the card, {TRAIN_ARCH} training B {TRAIN_BATCH} "
+          f"x S {TRAIN_SEQ}: " + json.dumps(report["dryrun_train"]),
+          flush=True)
     print(f"training {TRAIN_ARCH}: " + json.dumps(report["train_qwen3"]),
           flush=True)
     report["train_zamba2"] = train_zamba2(torch, np)

@@ -451,7 +451,12 @@ def fleet_sweep_bench(policies: list[str], n_ops: int = 30_000,
                              rate=rate, dist=dist, wall=t_fleet / n_runs,
                              bench="fleet_sweep")
             row["engine"] = "fleet"
-            row.update(ft.row(ri))
+            frag = ft.row(ri)
+            row["structural_s"] = frag["structural_s"]
+            row["temporal_s"] = frag["temporal_s"]
+            row["lindley_s"] = frag["lindley_s"]
+            row["finalize_s"] = frag["finalize_s"]
+            row["cache_hit"] = frag["cache_hit"]
             rows.append(row)
 
     summary = {
@@ -811,6 +816,11 @@ def main(argv=None) -> list[dict]:
         }
         rows.append(row)
         print(f"db_bench.perf_trajectory: {row}")
+    # under REPRO_PARANOID_CHECKS=1 every row must match the schema the
+    # port's lint extracts from this module's dict literals (B6xx):
+    # emitter drift fails the run, not just the linter
+    from ..analysis.schemas import paranoid_validate_rows
+    paranoid_validate_rows(rows)
     if args.json:
         Path(args.json).write_text(json.dumps(rows, indent=1))
         print(f"wrote {args.json} ({len(rows)} rows)")

@@ -96,7 +96,7 @@ class CompactionPolicy:
 
     .. contract-table-start
 
-    Hook surface:
+    Hook surface (generated; regenerate with ``python -m repro_torch.analysis --write-contract-table``):
 
     default_config(scale, **kw)            [required]
     level_target(cfg, level)               [default provided]
