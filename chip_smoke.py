@@ -44,9 +44,11 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    log-sum-exp beside); its backward kernel (dQ, dK, dV) against
    ``flash_attention_bwd_plain`` over S 1-384 (ragged, 63/64/65), head_dim
    64/128/256, GQA rep 1/2/4/8, causal and windows 1/16/512 and
-   non-causal Sq != Sk, fp32 and bf16 (bf16 at head_dim 64 and 128 on
-   its wgmma kernels), each case launched twice and bitwise
-   equal; ssd_scan's backward kernel (dx, d(dt), da, dB, dC) against
+   non-causal Sq != Sk, fp32 and bf16 (bf16 on its wgmma kernels at
+   every head_dim), whisper-tiny's training shapes and gemma3-1b's (4
+   query heads over 1 of 256, 4,096 tokens, window 512 and global), each
+   case launched twice and bitwise equal, gemma3's bf16 cases profiled:
+   their kernels must be the tensor-core ones (``BWD_D256_KERNELS``); ssd_scan's backward kernel (dx, d(dt), da, dB, dC) against
    ``ssd_scan_bwd_plain`` over L 0, 1, 63, 64, 65, 189, 300 and 4,096, H 4
    over G 1 and 2 and zamba2's 64 heads (and mamba2-130m's 24 at N 128)
    over one group, (N, P) of (64, 64), (128, 64), (16, 32) and (64, 48),
@@ -135,16 +137,20 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    attention block applied 6 times), qwen3-1.7b (28 GQA layers, d_model
    2048, 16 query heads over 8 kv heads of 128), gemma3-1b (26 layers,
    d_model 1152, 4 query heads over 1 kv head of 256, 5:1 local:global
-   with a 512-token window) and deepseek-v2-lite (27 layers, the first
+   with a 512-token window), deepseek-v2-lite (27 layers, the first
    dense, MLA, 64 routed experts top-6 plus 2 shared; 15.7 B parameters,
-   its peak memory recorded).  Launch counts are zeroed just before each
+   its peak memory recorded), llama3.2-3b (28 layers, 24 query heads over
+   8 of 128), yi-6b (32 layers, 32 over 4 of 128), qwen2-vl-2b (28
+   layers, 12 over 2 of 128, M-RoPE over token prompts as the reference
+   serves it) and mamba2-130m (24 Mamba2 layers, N 128, no attention).  Launch counts are zeroed just before each
    run and read just after: overlap_scan must have launched, and
    flash_attention and paged_attention (and ssd_scan for zamba2) where
    the model has attention layers, paged_attention once per attention
    layer and decode step (6 x 15 x 8 = 720 for zamba2, 28 x 15 x 8 =
-   3,360 for qwen3, 26 x 15 x 8 = 3,120 for gemma3, 0 for deepseek's MLA)
-   and flash_attention once per attention layer and request (48, 224,
-   208, 0); and whisper-tiny (4 encoder and 4 decoder layers, d_model 384,
+   3,360 for qwen3, llama3.2 and qwen2-vl, 26 x 15 x 8 = 3,120 for
+   gemma3, 3,840 for yi, 0 for deepseek's MLA and mamba2) and
+   flash_attention once per attention layer and request (48, 224, 208,
+   256 for yi, 0 and 0; mamba2's ssd_scan must launch); and whisper-tiny (4 encoder and 4 decoder layers, d_model 384,
    6 heads of 64, 1,500 encoder frames from ``default_rng(request id)``):
    flash_attention 12 times a request (4 encoder, 4 self, 4 cross: 96)
    and paged_attention 8 times a decode step (self and cross: 960).
@@ -169,7 +175,14 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    repeated: 76 ssd_scan, 38 ssd_scan_bwd, 6 flash_attention and 6
    flash_attention_bwd launches a step, finite losses that fall from the
    first step to the last, fp32 moments, ms a step against its bound and
-   peak memory.  (After phase 5 and 3e's card runs:) whisper-tiny at full
+   peak memory.  gemma3-1b the same (5 steps, one repeated learnable
+   batch): 52 flash_attention and 26 flash_attention_bwd launches a step
+   at head_dim 256, the backward on its tensor-core kernels.
+   deepseek-v2-lite at full width, depth cut to 4 layers (1 dense, 3
+   MoE; the full 27 layers' weights, gradients and moments do not fit
+   one card), 3 steps from ``TokenPipeline``: finite losses, no attention
+   kernel launched (MLA is plain torch), ms a step and peak memory.
+   (After phase 5 and 3e's card runs:) whisper-tiny at full
    size through
    ``launch.train.run(smoke=False, steps=40, ckpt_every=20, fail_at=30)``:
    one restart restoring the vLSM checkpoint of step 20 with its pipeline
@@ -178,8 +191,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    checkpoint's pages, segments and index statistics and the store
    kernels' launches recorded; then qwen3-1.7b cut to 2 layers,
    whisper-tiny at full size, zamba2-1.2b cut to 7 layers (one shared
-   attention application) and mamba2-130m at its full 24 layers (N 128),
-   in float32, card against CPU: ``train_loss``, every gradient leaf and
+   attention application), mamba2-130m at its full 24 layers (N 128),
+   gemma3-1b cut to 6 layers (5 local, 1 global) and deepseek-v2-lite cut
+   to 2 (its dense layer and one MoE layer), in float32, card against CPU: ``train_loss``, every gradient leaf and
    the parameters after 2 AdamW steps, mamba2-130m's parameters against a
    float64 run (``float64_tier``): the card no further from it than the
    CPU tier.
@@ -221,8 +235,9 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    ``compute_device="cpu"`` (per-op reads/probed and stall counts
    identical, latency within 1e-9 s); each
    serving model in float32 at full width, depth cut (zamba2 to 7 layers,
-   one shared-attention application; qwen3 to 2; deepseek-v2-lite to 2,
-   its dense layer and one MoE layer, decoded absorbed and expanded),
+   one shared-attention application; qwen3, llama3.2-3b, yi-6b and
+   qwen2-vl-2b to 2; deepseek-v2-lite to 2, its dense layer and one MoE
+   layer, decoded absorbed and expanded; mamba2-130m at its full 24),
    card against CPU on the first request's prefill and 4 greedy decode
    steps (tokens identical, logits within 1e-3 of max(1, max|logit|));
    gemma3-1b the same at 6 layers, five local and one global, on a seeded
@@ -262,14 +277,18 @@ Where the time goes is read outside the smoke, to keep its time:
 cProfile, phase 3d's admission-on serve of vlsm at factor 2) and
 ``serve_zamba2 serve_qwen3 serve_gemma3 serve_deepseek serve_whisper``
 (the serving paths' 2-request profiles); ``probe.py flash_decode`` times
-phase 7's decode.  Every phase's wall seconds go into the report.
+phase 7's decode, ``probe.py gemma3_bwd`` the backward at gemma3-1b's
+shapes, ``probe.py train_gemma3_long`` a profiled 4,096-token gemma3 step.  Every phase's wall seconds go into the report.
 
 The CPU tier's runs that phases 3e and 6 compare against are computed by
 one spawned worker, started once phase 3's store path is done, beside
-every later phase, the CPU halves of 4b's training cross-checks (and
-mamba2-130m's float64 run) queued behind them; vlsm's store path, run
-once just before and once just after the worker starts, records its
-toll on a host-bound wall.  db_bench (3b) and the fleet matrix (3c) run
+every later phase, queued behind the CPU halves of 4b's training
+cross-checks (and mamba2-130m's float64 run; gemma3-1b's and
+deepseek-v2-lite's halves are computed in the main process, whose
+results would take longer to come back through the worker's pipe than
+to compute) and the dry-run's plan, which are wanted sooner; vlsm's
+store path, run once just before and once just after the worker
+starts, records its toll on a host-bound wall.  db_bench (3b) and the fleet matrix (3c) run
 in a second spawned process on the card from then on, beside 3c's
 workers, 3d, 3e, 4b's whisper run and cross-checks and 6's serving
 cross-checks (both sides host-bound, the card idle most of the time);
@@ -336,16 +355,21 @@ DECODE_TOKENS = 16             # serve.run's default, the reference's
 PROFILE_REQUESTS = 2           # the profiled serving runs (probe.py serve_*)
 # serving model -> (kernels its run must launch, depth of the float32
 # card-vs-CPU cross-check); deepseek-v2-lite's MLA and MoE run no kernel of
-# their own, so only the prefix cache's overlap_scan launches there
+# their own, so only the prefix cache's overlap_scan launches there;
+# mamba2-130m is attention-free (ssd_scan in its prefill, the recurrence in
+# plain torch in its decode) and is cross-checked at its full 24 layers
+GQA_SERVE = ("flash_attention", "overlap_scan", "paged_attention")
 SERVE_PATHS = {
     "zamba2_1_2b": (("flash_attention", "ssd_scan", "overlap_scan",
                      "paged_attention"), 7),
-    "qwen3_1_7b": (("flash_attention", "overlap_scan", "paged_attention"),
-                   2),
-    "gemma3_1b": (("flash_attention", "overlap_scan", "paged_attention"), 6),
+    "qwen3_1_7b": (GQA_SERVE, 2),
+    "gemma3_1b": (GQA_SERVE, 6),
     "deepseek_v2_lite": (("overlap_scan",), 2),
-    "whisper_tiny": (("flash_attention", "overlap_scan", "paged_attention"),
-                     4)}
+    "whisper_tiny": (GQA_SERVE, 4),
+    "llama3_2_3b": (GQA_SERVE, 2),
+    "yi_6b": (GQA_SERVE, 2),
+    "qwen2_vl_2b": (GQA_SERVE, 2),
+    "mamba2_130m": (("ssd_scan", "overlap_scan"), 24)}
 # cross-checks whose prompt is not the first serving request's: (seeded
 # prompt tokens, cache length, greedy steps); gemma3's 1,000 tokens pass
 # its 512-token window in the prefill and in every decode step (its 6
@@ -373,7 +397,9 @@ WHISPER_LOSS_BAND = 0.25
 # the float32 card-vs-CPU training cross-check: arch -> (depth, None for
 # the full depth; batch; sequence; whether the parameters are held to a
 # float64 run too); zamba2 at 7 layers has one shared-attention
-# application, as its serving cross-check.  mamba2-130m (N 128) runs at
+# application, as its serving cross-check; gemma3 at 6 has five local
+# layers and a global one (its D 256 backward), deepseek-v2-lite at 2 its
+# dense first layer and one MoE layer (MLA, plain torch on both sides).  mamba2-130m (N 128) runs at
 # its full 24 layers, where the fp32 rounding of either side is amplified
 # the most: two AdamW steps, whose normalised update follows the sign of
 # gradients at the rounding's level, leave from ~0.06% to ~0.5% of the
@@ -384,10 +410,24 @@ WHISPER_LOSS_BAND = 0.25
 CROSS_TRAIN = {TRAIN_ARCH: (2, 2, 32, False),
                "whisper_tiny": (None, 2, 32, False),
                "zamba2_1_2b": (7, 2, 32, False),
-               "mamba2_130m": (None, 2, 32, True)}
+               "mamba2_130m": (None, 2, 32, True),
+               "gemma3_1b": (6, 2, 32, False),
+               "deepseek_v2_lite": (2, 2, 32, False)}
+# the cross-checks whose CPU half the main process computes itself: their
+# results (3.7 and 8.7 GB of gradients and parameters) took 72 and 196 s
+# to come back from the worker through its pipe, against 24 and 66 s of
+# computing (``scripts/probe.py cross_train_worker``, PERF.md)
+CROSS_TRAIN_HERE = ("gemma3_1b", "deepseek_v2_lite")
 # the ssm/hybrid training phase: zamba2-1.2b at full size, TRAIN_BATCH x
 # TRAIN_SEQ, on one fixed batch of a stream it can learn (learnable_batch)
 SSM_TRAIN_ARCH, SSM_TRAIN_STEPS = "zamba2_1_2b", 5
+# gemma3-1b's training at full size, as zamba2's (its flash_attention_bwd
+# runs at D 256, its local layers with the 512-token window)
+GEMMA_TRAIN_STEPS = 5
+# deepseek-v2-lite's training at full width, depth cut to 4 layers (1 dense,
+# 3 MoE; 2.25 B parameters, ~27 GB of bf16 weights and gradients and fp32
+# moments, where the full 27 layers would take ~188 GB), on TokenPipeline
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = "deepseek_v2_lite", 4, 3
 # ssd_scan_bwd's edge cases (phase 2): sequence lengths, and (N, P)
 SSD_BWD_L = (0, 1, 63, 64, 65, 189, 300)
 SSD_BWD_NP = ((64, 64), (128, 64), (16, 32), (64, 48))
@@ -409,6 +449,10 @@ TOL_BWD = {"float32": (2e-4, 1e-4), "bfloat16": (1e-3, 1e-2)}
 BWD_WHISPER = ((WHISPER_FRAMES, WHISPER_FRAMES, False),
                (WHISPER_TRAIN["seq"], WHISPER_FRAMES, False),
                (WHISPER_TRAIN["seq"], WHISPER_TRAIN["seq"], True))
+# flash_attention_bwd's edge cases at gemma3-1b's long shapes: B 1, 4 query
+# heads over 1 kv head of 256, 4,096 tokens, causal, with its local layers'
+# 512-token window and global (the LONG_PREFILL and GEMMA_WINDOW below)
+BWD_GEMMA = (1, 4, 1, 256)
 CROSS_TOL = 1e-3               # of max(1, max|logit|), see serve_cross_check
 LONG_PREFILL = 4096
 GEMMA_WINDOW = 512             # gemma3-1b's local layers
@@ -416,6 +460,9 @@ GEMMA_WINDOWS = (1, 16, GEMMA_WINDOW)   # flash_attention's D 256 edge cases
 LONG_DECODE = (8, 4096, 2048)  # sequences, tokens each, pages in the pool
 STORE_KERNELS = ("merge_path", "overlap_scan", "lindley_scan")
 # the serving path whose launches each LM kernel's row reports
+# (flash_attention_bwd's row: qwen3-1.7b's training steps, the D 128 route
+# it is timed at; gemma3-1b's D 256 launches are in the report's
+# train_gemma3)
 ROW_PATH = {"flash_attention": "zamba2_1_2b", "ssd_scan": "zamba2_1_2b",
             "flash_attention_bwd": "train_qwen3",
             "ssd_scan_bwd": "train_zamba2",
@@ -1881,6 +1928,12 @@ def shard_run(np, compute_device: str, n_shards: int) -> tuple:
             "state": store_state(store, jobs)}, store
 
 
+def cpu_worker_init() -> None:
+    """The CPU worker's two threads, beside the host-bound phases."""
+    import torch
+    torch.set_num_threads(2)
+
+
 def cpu_runs() -> dict:
     """The CPU tier's runs that phases 6 and 3e hold the card against,
     computed in a spawned worker: the store path of CROSS_POLICIES (per-op
@@ -1888,7 +1941,6 @@ def cpu_runs() -> dict:
     3e's stores of SHARD_COUNT shards and of one (``shard_run``)."""
     import numpy as np
     import torch
-    torch.set_num_threads(2)
     trace = ycsb_trace(np, N_LOAD, N_RUN)
     out: dict = {}
     for policy in CROSS_POLICIES:
@@ -2108,7 +2160,9 @@ def bwd_cases() -> list:
     causal and with windows 1, 16 and 512, fp32 and bf16, GQA rep cycling
     through 1, 2, 4 and 8; then non-causal Sq != Sk (whisper's cross
     attention) the same way; then BWD_WHISPER at whisper-tiny's training
-    batch and heads, fp32 and bf16."""
+    batch and heads, fp32 and bf16; then gemma3-1b's long shapes
+    (BWD_GEMMA at LONG_PREFILL tokens, its window and global), fp32 and
+    bf16."""
     cases, i = [], 0
     for d in (64, 128, 256):
         for dt in ("float32", "bfloat16"):
@@ -2125,7 +2179,31 @@ def bwd_cases() -> list:
     cases += [(b, 6, 6, sq, sk, 64, causal, None, dt)
               for sq, sk, causal in BWD_WHISPER
               for dt in ("float32", "bfloat16")]
+    gb, ghq, ghkv, gd = BWD_GEMMA
+    cases += [(gb, ghq, ghkv, LONG_PREFILL, LONG_PREFILL, gd, True, win, dt)
+              for win in (GEMMA_WINDOW, None)
+              for dt in ("float32", "bfloat16")]
     return cases
+
+
+# the kernels of flash_attention_bwd's bf16 route at head_dim 256 (and
+# bwd_dkdv_sum where dK and dV's blocks are split over the query heads):
+# the CUDA-core bwd_dq<__nv_bfloat16, 256> and bwd_dkdv<...> it replaced
+# must never run there
+BWD_D256_KERNELS = {"bwd_dq_wgmma<256>", "bwd_dkdv_wgmma2<256>"}
+BWD_HEAD_SUM = "bwd_dkdv_sum"
+
+
+def bwd_kernel_names(torch, fn) -> set:
+    """The ``bwd_*`` names (with their template arguments) of the kernels
+    one call of ``fn`` runs (torch.profiler, device activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {m.group(0) for n, _, _ in kernel_times_us(prof)
+            for m in [re.search(r"bwd_\w+(<[^>]*>)?", n)] if m}
 
 
 def edge_flash_bwd(torch) -> float:
@@ -2134,7 +2212,10 @@ def edge_flash_bwd(torch) -> float:
     (the forward kernel's) and dO, over ``bwd_cases()``, within TOL's
     ``flash_attention_bwd`` entries; every case is launched twice and the
     two results must be bitwise equal (the kernel sums in a fixed order).
-    Returns the largest |err|."""
+    gemma3's bf16 cases are also profiled: their kernels must be
+    BWD_D256_KERNELS, the tensor-core route, and BWD_HEAD_SUM (its one kv
+    head splits dK and dV's blocks over the query heads).  Returns the
+    largest |err|."""
     from repro_torch.kernels.flash_attention.ops import (
         _forward, flash_attention_bwd, flash_attention_bwd_plain)
     gen = torch.Generator(device="cuda")
@@ -2153,6 +2234,12 @@ def edge_flash_bwd(torch) -> float:
         want = flash_attention_bwd_plain(*args, causal=causal, window=win)
         what = (f"flash_attention_bwd B={b} H={hq}/{hkv} Sq={sq} Sk={sk} "
                 f"D={d} causal={causal} window={win} {dt}")
+        if (b, hq, hkv, d) == BWD_GEMMA and dt == "bfloat16":
+            names = bwd_kernel_names(torch, lambda: flash_attention_bwd(
+                *args, causal=causal, window=win))
+            if names != BWD_D256_KERNELS | {BWD_HEAD_SUM}:
+                fail(f"{what}: ran {sorted(names)}, not "
+                     f"{sorted(BWD_D256_KERNELS | {BWD_HEAD_SUM})}")
         for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
             if not torch.equal(g, a):
                 fail(f"{what}: {name} differs between two calls")
@@ -2574,11 +2661,14 @@ def attention_layers(cfg) -> int:
     """Attention layers a decode step runs through the attention kernels:
     every layer of a GQA decoder, none of an MLA one (its attention is
     plain torch, as the reference's), each shared-block application of a
-    hybrid, whisper's self and cross attention of every decoder layer."""
+    hybrid, none of a pure SSM (``attn_every`` 0), whisper's self and cross
+    attention of every decoder layer."""
     if cfg.family == "decoder":
         return cfg.n_layers if cfg.attn_kind == "gqa" else 0
     if cfg.family == "encdec":
         return 2 * cfg.n_layers
+    if not cfg.attn_every:
+        return 0
     return len(range(cfg.attn_every, cfg.n_layers, cfg.attn_every))
 
 
@@ -2898,16 +2988,24 @@ def serve_state_check(torch, np) -> dict:
 
 
 # ----------------------------------------------------- LM kernel timings
+def attn_pairs(sq: int, sk: int, causal: bool,
+               window: int | None = None) -> int:
+    """Unmasked (query, key) pairs of one head: S(S+1)/2 causal, each
+    query's min(i + 1, window) with a window, Sq x Sk non-causal."""
+    if not causal:
+        return sq * sk
+    w = min(window or sq, sq)
+    return w * (w + 1) // 2 + (sq - w) * w
+
+
 def flash_bound(bh: int, s: int, d: int, bkv: int | None = None,
                 nbytes_el: int = 2, window: int | None = None):
     """q, k, v read and o written once (k and v of ``bkv`` heads); 4*D
     operations per unmasked (query, key) pair: S(S+1)/2 pairs per head
     (causal), each query's min(i + 1, window) with a window."""
     bkv = bh if bkv is None else bkv
-    w = window or s
-    pairs = w * (w + 1) // 2 + max(0, s - w) * w
     return roofline((2 * bh + 2 * bkv) * s * d * nbytes_el,
-                    4 * d * pairs * bh)
+                    4 * d * attn_pairs(s, s, True, window) * bh)
 
 
 def paged_bound(b: int, hq: int, hkv: int, d: int, length: int,
@@ -3252,16 +3350,29 @@ def train_qwen3(torch, np, plan: dict | None = None) -> dict:
 
 
 def train_launches(cfg) -> dict:
-    """Kernel launches a training step with remat must make: per stacked
-    decoder layer flash_attention twice (the forward and its recomputation)
-    and its backward once; per Mamba2 layer ssd_scan twice and ssd_scan_bwd
-    once; per application of the hybrid's shared attention block, which
-    runs outside remat as in the reference, flash_attention and its
-    backward once each."""
+    """Kernel launches a training step with remat must make: per GQA
+    decoder layer flash_attention's backward once and its forward twice
+    (the forward and remat's recomputation), but once in each of the
+    ``first_dense_layers`` dense layers before the MoE stack, which run
+    outside remat as the reference's unscanned layers do (no GQA decoder
+    of the registry has any: the term counts for an MoE one); none in an
+    MLA decoder, whose attention is plain torch as the reference's; per
+    Mamba2 layer ssd_scan twice and ssd_scan_bwd once; per application of
+    the hybrid's shared attention block, which runs outside remat as in
+    the reference, flash_attention and its backward once each; whisper's
+    backward once per attention (an encoder layer's self attention, a
+    decoder layer's self and cross), its forward twice in the decoder
+    layers, which run under remat, and once in the encoder, which does
+    not (the reference's ``encode`` is not checkpointed either)."""
     from repro_torch.models.blocks import segments
     if cfg.family == "decoder":
+        if cfg.attn_kind != "gqa":
+            return {"flash_attention": 0, "flash_attention_bwd": 0}
         return {"flash_attention": 2 * cfg.n_layers - cfg.first_dense_layers,
                 "flash_attention_bwd": cfg.n_layers}
+    if cfg.family == "encdec":
+        return {"flash_attention": cfg.enc_layers + 4 * cfg.n_layers,
+                "flash_attention_bwd": cfg.enc_layers + 2 * cfg.n_layers}
     apps = sum(1 for _, end in segments(cfg)
                if cfg.attn_every and end < cfg.n_layers)
     return {"ssd_scan": 2 * cfg.n_layers, "ssd_scan_bwd": cfg.n_layers,
@@ -3296,9 +3407,9 @@ def learnable_batch(np, vocab: int, batch: int, seq: int,
 
 def train_steps(torch, np, batch: int, seq: int, steps: int,
                 arch: str = TRAIN_ARCH, fixed: dict | None = None,
-                plan: dict | None = None):
-    """``arch`` (qwen3-1.7b by default) at full width and depth in bf16
-    (seeded weights): ``steps`` steps of ``make_train_step(remat=True)``
+                plan: dict | None = None, layers: int | None = None):
+    """``arch`` (qwen3-1.7b by default) at full width and depth (or
+    ``layers`` deep) in bf16 (seeded weights): ``steps`` steps of ``make_train_step(remat=True)``
     with the reference's AdamW defaults on batch x seq batches from
     ``TokenPipeline``, or on the one batch ``fixed`` repeated, whose loss
     must then fall from the first step to the last.  Launch counts are
@@ -3318,6 +3429,8 @@ def train_steps(torch, np, batch: int, seq: int, steps: int,
                                       make_train_step)
     from repro_torch.training.tree import leaves
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.with_(n_layers=layers)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -3365,6 +3478,7 @@ def train_steps(torch, np, batch: int, seq: int, steps: int,
              f"moment dtypes {set(str(m.dtype) for m in moments)}, step "
              f"{int(opt['step'])}")
     out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "full_n_layers": get_config(arch).n_layers,
            "params": cfg.param_count(), "param_dtype": cfg.param_dtype,
            "batch": batch, "seq": seq, "steps": steps,
            "stream": "one fixed learnable batch" if fixed is not None
@@ -3396,6 +3510,41 @@ def train_zamba2(torch, np) -> dict:
         torch, np, TRAIN_BATCH, TRAIN_SEQ, SSM_TRAIN_STEPS,
         arch=SSM_TRAIN_ARCH,
         fixed=learnable_batch(np, cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ))
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_gemma3(torch, np) -> dict:
+    """gemma3-1b's training at full width and depth in bf16, as
+    ``train_zamba2``'s: GEMMA_TRAIN_STEPS steps at B TRAIN_BATCH x S
+    TRAIN_SEQ on one ``learnable_batch`` repeated, 52 flash_attention (26
+    layers, each recomputed under remat) and 26 flash_attention_bwd
+    launches a step at head_dim 256 (the local layers with their 512-token
+    window, which S 64 does not reach), a loss that falls, fp32 moments."""
+    from repro_torch.configs import get_config
+    cfg = get_config("gemma3_1b")
+    out, state = train_steps(
+        torch, np, TRAIN_BATCH, TRAIN_SEQ, GEMMA_TRAIN_STEPS,
+        arch="gemma3_1b",
+        fixed=learnable_batch(np, cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ))
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_deepseek(torch, np) -> dict:
+    """deepseek-v2-lite's training at full width in bf16, depth cut to
+    MOE_TRAIN_LAYERS (its dense first layer and 3 MoE layers; the full
+    depth's weights, gradients and moments do not fit one card):
+    MOE_TRAIN_STEPS steps at B TRAIN_BATCH x S TRAIN_SEQ from
+    TokenPipeline, finite losses, fp32 moments, no attention kernel
+    launched (MLA is plain torch, as the reference's).  Its
+    ``train_bound_ms`` counts every expert's parameters, not the 6 of 64
+    a token is routed to."""
+    out, state = train_steps(torch, np, TRAIN_BATCH, TRAIN_SEQ,
+                             MOE_TRAIN_STEPS, arch=MOE_TRAIN_ARCH,
+                             layers=MOE_TRAIN_LAYERS)
     del state
     torch.cuda.empty_cache()
     return out
@@ -3569,11 +3718,13 @@ def cross_train_cpu(arch: str) -> dict:
     spawned worker beside the card's phases: ``cross_steps`` on the CPU
     tier, and, where CROSS_TRAIN asks for it, in float64
     (``float64_tier``); tensors as numpy arrays (the float64 run's rounded
-    to float32, far below the tolerances)."""
+    to float32, far below the tolerances), and under ``worker`` the task's
+    wall clock at its start and end and its set-up seconds."""
     import numpy as np
     import torch
 
     from repro_torch.training.tree import tree_map
+    start = time.time()
 
     def arrays(res):
         loss, grads, params, secs = res
@@ -3581,6 +3732,7 @@ def cross_train_cpu(arch: str) -> dict:
                        for path, g in grads],
                 [p.to(torch.float32).numpy() for p in params], secs)
     cfg, params, batch = cross_setup(torch, np, arch)
+    setup_s = time.time() - start
     out = {"cpu": arrays(cross_steps(
         torch, cfg, tree_map(lambda p: p.clone(), params), batch, "cpu"))}
     if CROSS_TRAIN[arch][3]:
@@ -3589,6 +3741,7 @@ def cross_train_cpu(arch: str) -> dict:
                               tree_map(lambda p: p.double(), params), batch,
                               "cpu")
         out["float64"] = arrays(res)
+    out["worker"] = {"start": start, "setup_s": setup_s, "end": time.time()}
     return out
 
 
@@ -3698,11 +3851,11 @@ def train_cross_check(torch, np, arch: str,
 
 
 def bwd_bound(b: int, hq: int, hkv: int, sq: int, sk: int, d: int,
-              causal: bool, nbytes_el: int = 2):
+              causal: bool, nbytes_el: int = 2, window: int | None = None):
     """q, k, v, o, dO read and dq, dk, dv written once, lse read once (fp32);
     10*D operations per unmasked (query, key) pair (Q.K^T and dO.V^T
     recomputed, dV, dK, dQ)."""
-    pairs = (sq * (sq + 1) // 2 if causal else sq * sk) * b * hq
+    pairs = attn_pairs(sq, sk, causal, window) * b * hq
     nbytes = nbytes_el * (4 * b * hq * sq * d + 4 * b * hkv * sk * d) \
         + 4 * b * hq * sq
     return roofline(nbytes, 10 * d * pairs)
@@ -3710,13 +3863,15 @@ def bwd_bound(b: int, hq: int, hkv: int, sq: int, sk: int, d: int,
 
 def time_flash_bwd(torch, b: int, s: int, reps: int, hq: int = 16,
                    hkv: int = 8, d: int = 128, sk: int | None = None,
-                   causal: bool = True) -> dict:
+                   causal: bool = True, window: int | None = None) -> dict:
     """flash_attention's backward, bf16, at B x S queries (over ``sk``
-    keys, S by default; causal, or not) with qwen3-1.7b's heads by default
-    (seeded inputs; o and lse from the forward kernel), beside its plain
-    version and SDPA's backward (``enable_gqa``, ``torch.autograd.grad``
-    of one forward, the library yardstick only); ``kernel_device_ms``
-    splits the kernel's device time between its two kernels."""
+    keys, S by default; causal, or not; with a window) with qwen3-1.7b's
+    heads by default (seeded inputs; o and lse from the forward kernel),
+    beside its plain version and SDPA's backward (``enable_gqa``,
+    ``torch.autograd.grad`` of one forward, with an explicit causal and
+    window mask for a window; the library yardstick only);
+    ``kernel_device_ms`` splits the kernel's device time between its two
+    kernels."""
     from repro_torch.kernels.flash_attention.ops import (
         _forward, flash_attention_bwd, flash_attention_bwd_plain)
     import torch.nn.functional as F
@@ -3727,19 +3882,26 @@ def time_flash_bwd(torch, b: int, s: int, reps: int, hq: int = 16,
     k, v = (_randn(torch, gen, (b, hkv, sk, d), torch.bfloat16)
             for _ in range(2))
     do = _randn(torch, gen, (b, hq, s, d), torch.bfloat16)
-    o, lse = _forward(q, k, v, causal, None, None, want_lse=True)
+    o, lse = _forward(q, k, v, causal, window, None, want_lse=True)
     args = (q, k, v, o, lse, do)
-    kw = {"causal": causal}
+    kw = {"causal": causal, "window": window}
     err = max(check_close(f"flash_attention_bwd at B={b} Sq={s} Sk={sk} "
-                          f"H={hq}/{hkv} D={d} causal={causal} {name}",
+                          f"H={hq}/{hkv} D={d} causal={causal} "
+                          f"window={window} {name}",
                           "flash_attention_bwd", g, w)
               for name, g, w in zip(("dq", "dk", "dv"),
                                     flash_attention_bwd(*args, **kw),
                                     flash_attention_bwd_plain(*args, **kw)))
     qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal,
-                                             enable_gqa=hq != hkv)
-    bound, by = bwd_bound(b, hq, hkv, s, sk, d, causal)
+    if window is None:
+        lib_out = F.scaled_dot_product_attention(
+            qr, kr, vr, is_causal=causal, enable_gqa=hq != hkv)
+    else:
+        i = torch.arange(s, device="cuda")
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+        lib_out = F.scaled_dot_product_attention(
+            qr, kr, vr, attn_mask=mask, enable_gqa=hq != hkv)
+    bound, by = bwd_bound(b, hq, hkv, s, sk, d, causal, window=window)
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -3748,7 +3910,9 @@ def time_flash_bwd(torch, b: int, s: int, reps: int, hq: int = 16,
     split = {(re.search(r"bwd_\w+(<[^>]*>)?", n) or [n[:60]])[0]:
              us / reps / 1e3 for n, us, _ in kernel_times_us(prof)}
     return {"shape": f"B {b}, BH {hq} (kv {hkv}), Sq {s}, Sk {sk}, D {d}, "
-                     f"bf16, {'causal' if causal else 'non-causal'}",
+                     f"bf16, {'causal' if causal else 'non-causal'}"
+                     + (f", window {window}" if window else ""),
+            "pairs": attn_pairs(s, sk, causal, window) * b * hq,
             "max_abs_err": err, "bound_ms": bound, "bound_by": by,
             "kernel_device_ms": split,
             **time_all(torch, lambda: flash_attention_bwd(*args, **kw),
@@ -4275,7 +4439,7 @@ def main() -> int:
     # which computes them beside the card's phases, and db_bench with the
     # fleet matrix to another, on the card
     ctx = multiprocessing.get_context("spawn")
-    pool, bench_pool = ctx.Pool(1), ctx.Pool(1)
+    pool, bench_pool = ctx.Pool(1, initializer=cpu_worker_init), ctx.Pool(1)
     try:
         return run(args, torch, pool, bench_pool)
     finally:
@@ -4403,17 +4567,17 @@ def run(args, torch, pool, bench_pool) -> int:
     torch.cuda.empty_cache()
     lap("store_path")
 
-    # the CPU tier's runs go to the worker now, beside every later phase;
-    # vlsm's store path, run just before and just after the worker starts,
-    # gives the worker's toll on a host-bound wall
+    # the worker starts now, beside every later phase: first the training
+    # cross-checks' CPU halves and the dry-run's plan of qwen3-1.7b's
+    # training cell (4b), then the CPU tier's store runs, wanted only at the
+    # end; vlsm's store path, run just before and just after the worker
+    # starts, gives the worker's toll on a host-bound wall
     _, _, alone = run_main_path(torch, np, "vlsm", trace, "cuda")
-    cpu_side = pool.apply_async(cpu_runs)
-    # the training cross-checks' CPU halves follow the store runs in the
-    # worker
+    worker_t0 = time.time()
     cross_side = {arch: pool.apply_async(cross_train_cpu, (arch,))
-                  for arch in CROSS_TRAIN}
-    # then the dry-run's plan of qwen3-1.7b's training cell (4b)
+                  for arch in CROSS_TRAIN if arch not in CROSS_TRAIN_HERE}
     dry_side = pool.apply_async(dryrun_train_plan)
+    cpu_side = pool.apply_async(cpu_runs)
     _, _, beside = run_main_path(torch, np, "vlsm", trace, "cuda")
     report["worker_toll"] = {"store_path_alone_s": alone,
                              "store_path_beside_worker_s": beside}
@@ -4458,13 +4622,20 @@ def run(args, torch, pool, bench_pool) -> int:
     torch.cuda.empty_cache()
     report["cross_train"] = {}
     for arch in CROSS_TRAIN:
-        t0 = time.perf_counter()
-        cpu = cross_side.pop(arch).get()
-        wait = time.perf_counter() - t0
-        report["cross_train"][arch] = train_cross_check(torch, np, arch,
-                                                        cpu)
-        report["cross_train"][arch]["worker_wait_s"] = wait
-        del cpu
+        if arch in CROSS_TRAIN_HERE:
+            report["cross_train"][arch] = train_cross_check(torch, np, arch)
+        else:
+            t0 = time.perf_counter()
+            cpu = cross_side.pop(arch).get()
+            wait = time.perf_counter() - t0
+            task = cpu.pop("worker")
+            report["cross_train"][arch] = train_cross_check(torch, np, arch,
+                                                            cpu)
+            report["cross_train"][arch].update(
+                worker_wait_s=wait, worker_setup_s=task["setup_s"],
+                worker_task_s=task["end"] - task["start"],
+                worker_start_s=task["start"] - worker_t0)
+            del cpu
         print(f"cross-check training {arch} (float32): "
               + json.dumps(report["cross_train"][arch]), flush=True)
     torch.cuda.empty_cache()
@@ -4521,6 +4692,12 @@ def run(args, torch, pool, bench_pool) -> int:
     report["train_zamba2"] = train_zamba2(torch, np)
     print(f"training {SSM_TRAIN_ARCH}: " + json.dumps(report["train_zamba2"]),
           flush=True)
+    report["train_gemma3"] = train_gemma3(torch, np)
+    print("training gemma3_1b: " + json.dumps(report["train_gemma3"]),
+          flush=True)
+    report["train_deepseek"] = train_deepseek(torch, np)
+    print(f"training {MOE_TRAIN_ARCH} at {MOE_TRAIN_LAYERS} layers: "
+          + json.dumps(report["train_deepseek"]), flush=True)
     lap("train")
 
     # the card, its driver and clocks beside the device times, which have

@@ -33,6 +33,12 @@ Phases, each made of ``chip_smoke.py``'s own functions:
               training shape (B 8 x S 64) and at 4,096 tokens, beside SDPA's
               backward, with the registers, stack and spills ptxas reports
               for every kernel of its library
+    gemma3_bwd the backward at gemma3-1b's shapes (4 query heads over 1 kv
+              head of 256): its training step (B 8 x S 64) and a 4,096-
+              token step's global and local (window 512) layers, beside
+              SDPA's backward, with ptxas's registers and spills
+              (``gemma3_bwd_unsplit``: dK and dV's blocks never split
+              over the query heads)
     whisper_bwd the backward at whisper-tiny's training shapes (B 8, 6
               heads of 64, non-causal): the encoder's 1,500 x 1,500 and the
               cross attention's 64 queries over 1,500 frames, beside SDPA's
@@ -55,6 +61,7 @@ Phases, each made of ``chip_smoke.py``'s own functions:
               prefill and decode, and 4,096 tokens with its 512-token window
               and global
     serve_zamba2 serve_qwen3 serve_gemma3 serve_deepseek serve_whisper
+    serve_llama3 serve_yi serve_qwen2vl serve_mamba2
               a model's serving path at full size (``chip_smoke.py`` phase
               4: launches, peak memory), and its 2-request profile
     train_qwen3 train_whisper cross_train
@@ -62,11 +69,20 @@ Phases, each made of ``chip_smoke.py``'s own functions:
               tiny through the launcher with a restore, the float32
               card-vs-CPU training checks (qwen3-1.7b at 2 layers,
               whisper-tiny at full size, zamba2-1.2b at 7 layers,
-              mamba2-130m at its full 24 against a float64 run too), their
-              CPU halves in this process
+              mamba2-130m at its full 24 against a float64 run too,
+              gemma3-1b at 6, deepseek-v2-lite at 2), their CPU halves in
+              this process
     train_qwen3_long qwen3-1.7b at full size in bf16 on B 1 x S 4,096: 2
               steps (ms a step, launches, peak memory), then a third under
               torch.profiler for the backward kernels' share of the step
+    train_gemma3 train_deepseek
+              gemma3-1b's training phase at full size in bf16 (5 steps on
+              one fixed learnable batch, 52 flash and 26 backward launches
+              a step) and deepseek-v2-lite's at full width and 4 layers (3
+              steps, no attention kernel)
+    train_gemma3_long gemma3-1b at full size in bf16 on B 1 x S 4,096: 2
+              steps, then a third under torch.profiler: flash_attention's
+              kernels' share of the step, forward and backward
     train_zamba2 zamba2-1.2b's training phase at full size in bf16 (5 steps
               on one fixed learnable batch: launches, losses, ms a step,
               peak memory), then a sixth step under torch.profiler: the
@@ -75,6 +91,10 @@ Phases, each made of ``chip_smoke.py``'s own functions:
     cross_train_ssm the float32 card-vs-CPU training checks of zamba2-1.2b
               (7 layers) and mamba2-130m (24 layers, and its float64 run)
               alone
+    cross_train_new those of gemma3-1b (6 layers) and deepseek-v2-lite (2)
+    cross_train_worker the CPU halves of those checks that the smoke's
+              spawned worker computes, queued as there: each task's start,
+              set-up, length and the time its result takes to arrive
     cross_depth mamba2-130m's training check at 16 and 24 layers, and at
               24 with ssd_scan's plain versions on the card, from weights
               drawn on the CPU and (at 24) on the card: the card and the
@@ -89,8 +109,9 @@ Phases, each made of ``chip_smoke.py``'s own functions:
               matrix in one lindley_scan launch against its passes, and
               lindley_scan timed over the matrix's batch
     long_decode gemma3-1b's 4,096-token prefill and 16 windowed decode steps
-    cross_gemma3 cross_deepseek cross_whisper
-              a model's float32 card-vs-CPU cross-check (phase 6)
+    cross_gemma3 cross_deepseek cross_whisper cross_llama3 cross_yi
+    cross_qwen2vl cross_mamba2
+              a model's float32 card-vs-CPU serving cross-check (phase 6)
     seekrandom db_bench's seekrandom at full size for every policy, from
               rewound uid counters: its wall, its launches and its rows
     serve_sweep db_bench's serve_sweep at full size for every policy: its
@@ -228,6 +249,34 @@ def flash_bwd(torch, np, cs, ctx) -> dict:
             "qwen3_4096": cs.time_flash_bwd(torch, 1, cs.LONG_PREFILL, 4)}
 
 
+def gemma3_bwd(torch, np, cs, ctx) -> dict:
+    """flash_attention's backward at gemma3-1b's shapes (4 query heads over
+    1 kv head of 256, bf16): its training step's (B 8 x S 64, causal; the
+    local layers' window does not reach past S 64) and a 4,096-token
+    step's global and local (window 512) layers, beside SDPA's backward;
+    each row's ``kernel_device_ms`` names the kernels that ran."""
+    b, hq, hkv, d = cs.BWD_GEMMA
+    n, w = cs.LONG_PREFILL, cs.GEMMA_WINDOW
+    return {"ptxas": ptxas_summary("flash_attention_bwd"),
+            "train": cs.time_flash_bwd(torch, cs.TRAIN_BATCH, cs.TRAIN_SEQ,
+                                       40, hq, hkv, d),
+            "global_4096": cs.time_flash_bwd(torch, b, n, 4, hq, hkv, d),
+            "local_4096": cs.time_flash_bwd(torch, b, n, 4, hq, hkv, d,
+                                            window=w)}
+
+
+def gemma3_bwd_unsplit(torch, np, cs, ctx) -> dict:
+    """``gemma3_bwd`` with dK and dV's blocks never split over the query
+    heads (``ops._head_split`` off): one block per (b, kv head, 64 keys)."""
+    from repro_torch.kernels.flash_attention import ops
+    saved = ops._head_split
+    ops._head_split = lambda *a: False
+    try:
+        return gemma3_bwd(torch, np, cs, ctx)
+    finally:
+        ops._head_split = saved
+
+
 def whisper_bwd(torch, np, cs, ctx) -> dict:
     n, b = cs.WHISPER_FRAMES, cs.WHISPER_TRAIN["batch"]
     return {"encoder": cs.time_flash_bwd(torch, b, n, 10, 6, 6, 64,
@@ -244,6 +293,23 @@ def train_qwen3_long(torch, np, cs, ctx) -> dict:
     out["profiled_step"] = profile_train_step(
         torch, cs, step, params, opt, pipe.next_batch(),
         out["step_ms_after_first"])
+    del params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_gemma3_long(torch, np, cs, ctx) -> dict:
+    """gemma3-1b's training at B 1 x S LONG_PREFILL, full size in bf16 (its
+    22 local layers run their 512-token window, its 4 global layers the
+    whole causal span): 2 steps, then one more step profiled, with
+    flash_attention's kernels forward and backward."""
+    out, (step, params, opt, pipe) = cs.train_steps(
+        torch, np, 1, cs.LONG_PREFILL, 2, arch="gemma3_1b")
+    out["profiled_step"] = profile_train_step(
+        torch, cs, step, params, opt, pipe.next_batch(),
+        out["step_ms_after_first"],
+        {"flash_attention": ("flash_fwd",),
+         "flash_attention_bwd": ("bwd_dq", "bwd_dkdv")})
     del params, opt
     torch.cuda.empty_cache()
     return out
@@ -303,6 +369,33 @@ def profile_train_step(torch, cs, step, params, opt, tokens, step_ms: float,
     out["top_device"] = [{"name": n[:90], "ms": us / 1e3, "count": c}
                          for n, us, c in rows[:12]]
     return out
+
+
+def cross_train_worker(torch, np, cs, ctx) -> dict:
+    """The training cross-checks' CPU halves as the smoke computes them in
+    its spawned worker (two threads; all but CROSS_TRAIN_HERE's, queued at
+    once), nothing else running; per arch its task's start (from the
+    queueing), set-up and task seconds, and the seconds its result took to
+    reach this process."""
+    import multiprocessing
+    pool = multiprocessing.get_context("spawn").Pool(
+        1, initializer=cs.cpu_worker_init)
+    try:
+        t0 = time.time()
+        jobs = {arch: pool.apply_async(cs.cross_train_cpu, (arch,))
+                for arch in cs.CROSS_TRAIN if arch not in cs.CROSS_TRAIN_HERE}
+        out = {}
+        for arch, job in jobs.items():
+            task = job.get()["worker"]
+            out[arch] = {"start_s": task["start"] - t0,
+                         "setup_s": task["setup_s"],
+                         "task_s": task["end"] - task["start"],
+                         "transfer_s": time.time() - task["end"]}
+        out["all_s"] = time.time() - t0
+        return out
+    finally:
+        pool.terminate()
+        pool.join()
 
 
 def whisper_flash(torch, np, cs, ctx) -> dict:
@@ -757,6 +850,8 @@ PHASES = {
     "whisper_bwd": (("flash_attention", "flash_attention_bwd"), whisper_bwd),
     "whisper_flash": (("flash_attention",), whisper_flash),
     "gemma3": (("flash_attention", "paged_attention"), gemma3),
+    "gemma3_bwd": (TRAIN, gemma3_bwd),
+    "gemma3_bwd_unsplit": (TRAIN, gemma3_bwd_unsplit),
     "flash_decode": (("paged_attention",), flash_decode),
     "distributed": (STORE + LM + TRAIN, lambda torch, np, cs, ctx:
                     cs.distributed_phase(torch)),
@@ -765,10 +860,19 @@ PHASES = {
     "serve_gemma3": (LM, serve_model("gemma3_1b")),
     "serve_deepseek": (LM, serve_model("deepseek_v2_lite")),
     "serve_whisper": (LM, serve_model("whisper_tiny")),
+    "serve_llama3": (LM, serve_model("llama3_2_3b")),
+    "serve_yi": (LM, serve_model("yi_6b")),
+    "serve_qwen2vl": (LM, serve_model("qwen2_vl_2b")),
+    "serve_mamba2": (LM + ("ssd_scan",), serve_model("mamba2_130m")),
     "train_qwen3": (TRAIN, lambda torch, np, cs, ctx:
                     cs.train_qwen3(torch, np)),
     "train_qwen3_long": (TRAIN, train_qwen3_long),
     "train_zamba2": (TRAIN + SSM, train_zamba2),
+    "train_gemma3": (TRAIN, lambda torch, np, cs, ctx:
+                     cs.train_gemma3(torch, np)),
+    "train_gemma3_long": (TRAIN, train_gemma3_long),
+    "train_deepseek": (TRAIN, lambda torch, np, cs, ctx:
+                       cs.train_deepseek(torch, np)),
     "train_whisper": (TRAIN + STORE, lambda torch, np, cs, ctx:
                       cs.train_whisper(torch, np)),
     "cross_train": (TRAIN + SSM, lambda torch, np, cs, ctx: {
@@ -777,6 +881,10 @@ PHASES = {
     "cross_train_ssm": (TRAIN + SSM, lambda torch, np, cs, ctx: {
         arch: cs.train_cross_check(torch, np, arch)
         for arch in ("zamba2_1_2b", "mamba2_130m")}),
+    "cross_train_worker": ((), cross_train_worker),
+    "cross_train_new": (TRAIN + SSM, lambda torch, np, cs, ctx: {
+        arch: cs.train_cross_check(torch, np, arch)
+        for arch in ("gemma3_1b", "deepseek_v2_lite")}),
     "cross_depth": (TRAIN + SSM, cross_depth),
     "cross_whisper": (LM, cross_model("whisper_tiny")),
     "fleet_matrix": (STORE, fleet_matrix),
@@ -784,6 +892,10 @@ PHASES = {
                     cs.long_window_decode(torch, np)),
     "cross_gemma3": (LM, cross_model("gemma3_1b")),
     "cross_deepseek": (LM, cross_model("deepseek_v2_lite")),
+    "cross_llama3": (LM, cross_model("llama3_2_3b")),
+    "cross_yi": (LM, cross_model("yi_6b")),
+    "cross_qwen2vl": (LM, cross_model("qwen2_vl_2b")),
+    "cross_mamba2": (LM + ("ssd_scan",), cross_model("mamba2_130m")),
     "seekrandom": (STORE, seekrandom),
     "serve_sweep": (STORE, serve_sweep),
     "serve_open": (STORE, serve_open),

@@ -26,32 +26,36 @@
 //   then it walks the key tiles the rows can see and accumulates dQ.
 // * dkdv: one block per (b, kv head, key tile).  It walks every query
 //   tile that can see its keys, for every query head of its GQA group in
-//   turn, so the group's sum happens inside the block.  Launched after
-//   dq on the same stream, it reads delta from it.
+//   turn, so the group's sum happens inside the block (at bf16 D 256 it
+//   may take one query head a block and leave the group's sum to a third
+//   kernel, below).  Launched after dq on the same stream, it reads delta
+//   from it.
 //
 // Bound on the H100: 10 * D operations per unmasked (query, key) pair
 // (five products of 2 * D: Q.K^T and dO.V^T recomputed, dV, dK, dQ),
 // against bf16's tensor-core rate.
 //
-// bf16 at head_dim 64 and 128 (bwd_dq_wgmma, bwd_dkdv_wgmma), the
-// training paths' shapes (qwen3's 128, whisper's 64): one warpgroup a
-// block runs every product as a wgmma with fp32 accumulators, its
-// operands in 128-byte-swizzled shared tiles filled by a cp.async ring
-// (the helpers of wgmma.cuh, shared with the forward):
+// bf16 (bwd_dq_wgmma, with bwd_dkdv_wgmma at head_dim 64 and 128 and
+// bwd_dkdv_wgmma2 at 256), the training paths' shapes (qwen3's 128,
+// whisper's 64, gemma3's 256): every product is a wgmma with fp32
+// accumulators, its operands in 128-byte-swizzled shared tiles filled by a
+// cp.async ring (the helpers of wgmma.cuh, shared with the forward):
 //
 //   bwd_dq, 64 query rows:  S = Q.K^T and dP = dO.V^T with Q and dO
-//     resident and K and V tiles of 64 keys streaming (all K-major), then
-//     dQ += dS.K with dS from registers and K through the descriptor's
-//     transpose (MN-major), as the forward reads V.
+//     resident and K and V tiles streaming (all K-major), then dQ += dS.K
+//     with dS from registers and K through the descriptor's transpose
+//     (MN-major), as the forward reads V.  Key tiles of 64, but of 32 at D
+//     256, where dQ alone is 128 fp32 registers a thread (S and dP then
+//     m64n32, 16 each, as the forward's D 256 scores).
 //   bwd_dkdv, 64 keys:  S^T = K.Q^T and dP^T = V.dO^T with K and V
 //     resident and Q and dO tiles streaming, then dV += P^T.dO and
 //     dK += dS^T.Q with P^T and dS^T from registers and dO and Q
 //     MN-major.  The key tile is M, so the accumulator fragment of S^T is
 //     exactly the A fragment of P^T.dO (wgmma.cuh's note): P, P^T, dS and
-//     dS^T never pass through shared memory and are never transposed, and
-//     each Q or dO tile is a K-major B in one product and an MN-major B in
-//     another.  Each thread reads the lse and delta of its fragment's
-//     query columns from a small shared array that rides with the tile.
+//     dS^T are never transposed, and each Q or dO tile is a K-major B in
+//     one product and an MN-major B in another.  Each thread reads the lse
+//     and delta of its fragment's query columns from a small shared array
+//     that rides with the tile.
 //
 // The plain version multiplies fp32 P and dS into dV, dK and dQ; one bf16
 // rounding of them leaves dozens of elements of each gradient outside the
@@ -61,22 +65,44 @@
 // 10 products of 2 * D a pair, twice the bound's count.  Registers: at D
 // 128 dK and dV alone take 128 fp32 accumulators a thread, so bwd_dkdv
 // there takes 32-query tiles (S^T and dP^T as m64n32, 16 each); at D 64,
-// 64-query tiles.  bwd_dq takes 64-key tiles at both.  Longest work
-// first: bwd_dq runs its query tiles in reverse (the long causal rows
-// first), bwd_dkdv its key tiles from 0.  dV's wgmmas run while dS^T is
-// formed; otherwise each warpgroup waits on its own wgmmas, and the
-// probabilities, the mask and the splits run on the CUDA cores.
+// 64-query tiles.  Longest work first: bwd_dq runs its query tiles in
+// reverse (the long causal rows first), bwd_dkdv its key tiles from 0.
+// At D 64 and 128, dV's wgmmas run while dS^T is formed; otherwise each
+// warpgroup waits on its own wgmmas, and the probabilities, the mask and
+// the splits run on the CUDA cores.
+//
+// bwd_dkdv at D 256 (gemma3's 4 query heads over 1 kv head): dK and dV of
+// 64 keys would take 128 + 128 fp32 registers a thread in one warpgroup,
+// so bwd_dkdv_wgmma2 runs two warpgroups a block, WG0 owning dV and WG1
+// dK, each with one 128-register accumulator.  On each 32-query tile WG0
+// computes S^T = K.Q^T and P^T under the mask and hands P^T, in fp32, to
+// WG1 through 8 KB of shared memory (each thread's 16 values at the same
+// fragment position in both warpgroups, so thread t of WG1 reads what
+// thread t of WG0 wrote; a named barrier, arrive then sync, orders them),
+// then dV += P^T.dO; WG1 meanwhile computes dP^T = V.dO^T, takes P^T and
+// forms dS^T = P^T * (dP^T - delta), then dK += dS^T.Q.  Each warpgroup
+// runs one SS and one split RS product a tile, on the same products and
+// in the same fp32 arithmetic as bwd_dkdv_wgmma.  One exchange buffer is
+// enough:
+// the ring's __syncthreads at the top of every tile keeps the two
+// warpgroups within one tile of each other.  This was chosen over two
+// one-warpgroup passes (dV, then dK, each recomputing S^T) because it
+// costs no product beyond the one-warpgroup design's and the exchange is a
+// plain per-thread copy.  K and V stay resident (64 KB), Q and dO tiles of
+// 32 rows come through a four-stage ring (128 KB), one block an SM.  With
+// gemma3's one kv head, one block per (b, kv head, 64 keys) is 64 blocks
+// at 4,096 tokens on 132 SMs, the first walking 4 heads x 128 query tiles
+// (measured: dK and dV took 5x dQ's time), so with GQA the wrapper passes
+// fp32 scratch and each block takes one query head of the group and
+// writes its unscaled sums there; bwd_dkdv_sum then adds the group's
+// heads in order, scales dK and rounds both once to bf16 (still no
+// atomics).
 //
 // What stays on the CUDA-core kernels below (bwd_dq, bwd_dkdv: every
 // product in fp32 from fp32 shared tiles, 256 threads, T x T tiles, T 64,
-// 32 at D 256):
-// * bf16 at D 256: dK and dV alone would take 128 + 128 fp32 registers a
-//   thread in one warpgroup; splitting their columns over two warpgroups
-//   needs S^T shared through shared memory, which is later work.  No
-//   training path runs D 256 (gemma3 does not train).
-// * every fp32 call: the fp32 TOL (1e-4, 1e-4) and the float32 card-vs-CPU
-//   training cross-checks need fp32 operands; bf16 or TF32 ones do not
-//   meet them.
+// 32 at D 256): every fp32 call.  The fp32 TOL (1e-4, 1e-4) and the
+// float32 card-vs-CPU training cross-checks need fp32 operands; bf16 or
+// TF32 ones do not meet them.
 
 #include <cstdint>
 #include <type_traits>
@@ -90,13 +116,7 @@ namespace {
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 template <int D>
 struct Cfg {
@@ -396,22 +416,26 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <int D>
 struct WCfg {
   static constexpr int TILE = kRows * D * 2;   // a resident 64-row tile
-  // bwd_dq_wgmma: 64-key K and V tiles through an NS_Q-stage ring
-  static constexpr int BK = 64;
-  static constexpr int NS_Q = D == 64 ? 3 : 2;
+  // bwd_dq_wgmma: BK-key K and V tiles through an NS_Q-stage ring
+  static constexpr int BK = D == 256 ? 32 : 64;
+  static constexpr int NS_Q = D == 64 ? 3 : D == 128 ? 2 : 4;
   static constexpr int KV_TILE = BK * D * 2;
   static constexpr int STAGE_Q = 2 * KV_TILE;   // K tile then V tile
   // + 1024 to align the tiles to the swizzle's 1024-byte period
   static constexpr size_t SMEM_DQ = 1024 + 2 * TILE + NS_Q * STAGE_Q;
-  // bwd_dkdv_wgmma: BQ-query Q and dO tiles through an NS_K-stage ring,
+  // bwd_dkdv_wgmma(2): BQ-query Q and dO tiles through an NS_K-stage ring,
   // each stage's rows' lse and delta in a float array after the ring
   static constexpr int BQ = D == 64 ? 64 : 32;
-  static constexpr int NS_K = 3;
+  static constexpr int NS_K = D == 256 ? 4 : 3;
   static constexpr int Q_TILE = BQ * D * 2;
   static constexpr int STAGE_K = 2 * Q_TILE;    // Q tile then dO tile
   static constexpr size_t SMEM_DKDV =
       1024 + 2 * TILE + NS_K * STAGE_K + NS_K * 2 * BQ * sizeof(float);
-  static_assert(SMEM_DQ <= 232448 && SMEM_DKDV <= 232448,
+  // bwd_dkdv_wgmma2's P^T exchange (static shared memory): BQ / 2 fp32
+  // values a thread of one warpgroup
+  static constexpr size_t XCH = BQ / 2 * kWg * sizeof(float);
+  static_assert(SMEM_DQ + kRows * sizeof(float) <= 232448 &&
+                    SMEM_DKDV + (D == 256 ? XCH : 0) <= 232448,
                 "a block's shared memory");
 };
 
@@ -843,42 +867,313 @@ bwd_dkdv_wgmma(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// bwd_dkdv_wgmma's dK and dV at D 256 with two warpgroups a block (the
+// header's note): WG0 computes S^T = K.Q^T, P^T, hands P^T to WG1 and
+// accumulates dV += P^T.dO; WG1 computes dP^T = V.dO^T, dS^T from P^T and
+// accumulates dK += dS^T.Q.  The Q and dO tiles, their lse and delta and
+// the copies are shared by both.  Given `part`, one block a (b, q head, 64
+// keys) walks only its head's query tiles and writes its fp32 sums to
+// part ([2][b * hq][sk][D]: dV's, then dK's, unscaled) for bwd_dkdv_sum;
+// else one block a (b, kv head, 64 keys) walks its whole GQA group.
+template <int D>
+__global__ void __launch_bounds__(2 * kWg, 1)
+bwd_dkdv_wgmma2(const __nv_bfloat16* __restrict__ q,
+                const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v,
+                const float* __restrict__ lse,
+                const __nv_bfloat16* __restrict__ dout,
+                const float* __restrict__ delta,
+                __nv_bfloat16* __restrict__ dk,
+                __nv_bfloat16* __restrict__ dv, float* __restrict__ part,
+                int hq, int hkv, int sq, int sk, int causal, int window,
+                float scale) {
+  using C = WCfg<D>;
+  constexpr int BQ = C::BQ, NS = C::NS_K;
+  constexpr int KS = D / 16;     // k-steps of S^T and dP^T
+  constexpr int NT = BQ / 8;     // 8-query groups of a tile
+  constexpr int DT = D / 8;      // 8-column groups of dK or dV
+  constexpr int NTH = 2 * kWg;
+  extern __shared__ unsigned char smem_raw[];
+  // P^T of the current tile, WG0 -> WG1: value e of thread t at e * kWg + t
+  __shared__ float s_xch[NT * 4 * kWg];
+  const uint32_t raw = smem_base(smem_raw);
+  const uint32_t s_k = (raw + 1023u) & ~1023u;
+  const uint32_t s_v = s_k + C::TILE;
+  const uint32_t s_ring = s_v + C::TILE;
+  const uint32_t s_rows = s_ring + NS * C::STAGE_K;   // [NS][lse, delta][BQ]
+  const float* rows_f =
+      reinterpret_cast<const float*>(smem_raw + (s_rows - raw));
+
+  const int rep = hq / hkv;
+  // blockIdx.x: b * hq + q head with part, else b * hkv + kv head
+  const int b = blockIdx.x / (part ? hq : hkv);
+  const int kvh = part ? blockIdx.x % hq / rep : blockIdx.x % hkv;
+  const int bkv = b * hkv + kvh;
+  const int g0 = part ? blockIdx.x % hq % rep : 0;   // the first head
+  const int heads = part ? 1 : rep;                  // of the group
+  const int k0 = blockIdx.y * kRows;
+  const __nv_bfloat16* kg = k + (size_t)bkv * sk * D;
+  const __nv_bfloat16* vg = v + (size_t)bkv * sk * D;
+  const int tid = threadIdx.x;
+  const int wg = tid / kWg;          // 0: dV, 1: dK (warp-uniform)
+  const int t = tid % kWg;           // the thread's place in its warpgroup
+  const int warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int ka = k0 + warp * 16 + g, kb = ka + 8;   // this thread's keys
+
+  load_swz<D, kRows, NTH>(s_k, kg, k0, sk);
+  load_swz<D, kRows, NTH>(s_v, vg, k0, sk);
+  cp_async_commit();
+  const int k_last = min(k0 + kRows - 1, sk - 1);
+  const int n_qt = (sq + BQ - 1) / BQ;
+  const int qt_lo = causal ? k0 / BQ : 0;
+  const int qt_hi =
+      window > 0 ? min(n_qt, (k_last + window - 1) / BQ + 1) : n_qt;
+  const int nqt = max(0, qt_hi - qt_lo);
+  const int n_items = heads * nqt;
+  auto load_item = [&](int i) {
+    const size_t row0 = (size_t)(b * hq + kvh * rep + g0 + i / nqt) * sq;
+    const int q0 = (qt_lo + i % nqt) * BQ;
+    const uint32_t st = s_ring + (i % NS) * C::STAGE_K;
+    load_swz<D, BQ, NTH>(st, q + row0 * D, q0, sq);
+    load_swz<D, BQ, NTH>(st + C::Q_TILE, dout + row0 * D, q0, sq);
+    if (tid < 2 * BQ) {   // lse for tid < BQ, then delta
+      const int r = tid % BQ;
+      const bool in = q0 + r < sq;
+      const float* src = (tid < BQ ? lse : delta) + row0 + q0 + r;
+      cp_async4(s_rows + ((i % NS) * 2 * BQ + tid) * 4, in ? src : lse,
+                in ? 4 : 0);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < NS - 1; ++i) {
+    if (i < n_items) load_item(i);
+    cp_async_commit();
+  }
+
+  float acc[DT * 4];   // dV in WG0, dK in WG1
+#pragma unroll
+  for (int i = 0; i < DT * 4; ++i) acc[i] = 0.f;
+  const float scale2 = scale * kLog2e;
+  const uint32_t s_a = wg == 0 ? s_k : s_v;   // A of the SS product
+
+  for (int i = 0; i < n_items; ++i) {
+    cp_async_wait<NS - 2>();   // K, V and item i have landed (this thread's)
+    fence_proxy_async();
+    __syncthreads();           // ... everyone's; item i - 1 is done
+    if (i + NS - 1 < n_items) load_item(i + NS - 1);
+    cp_async_commit();
+
+    const int q0 = (qt_lo + i % nqt) * BQ;
+    const uint32_t s_qt = s_ring + (i % NS) * C::STAGE_K;
+    const uint32_t s_dot = s_qt + C::Q_TILE;
+    const float* lse_t = rows_f + (i % NS) * 2 * BQ;
+    const float* del_t = lse_t + BQ;
+    // WG0: S^T = K.Q^T; WG1: dP^T = V.dO^T (all K-major)
+    const uint32_t s_b = wg == 0 ? s_qt : s_dot;
+    float st[NT * 4];   // the first k-step overwrites it
+    fence_regs(st);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const uint32_t off = (ks & 3) * 32;
+      wgmma_ss<BQ>(st, smem_desc(s_a + (ks >> 2) * kRows * 128 + off, 16, 1024),
+                   smem_desc(s_b + (ks >> 2) * BQ * 128 + off, 16, 1024),
+                   ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+
+    if (wg == 0) {
+      // P^T: key ka (e < 2) or kb, query column q0 + 8 nt + 2 tq + (e & 1)
+      auto probs = [&](auto masked_t) {
+        constexpr bool kMasked = decltype(masked_t)::value;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = nt * 8 + tq * 2 + (e & 1);
+            float p = ex2(fmaf(st[nt * 4 + e], scale2, -lse_t[c] * kLog2e));
+            if constexpr (kMasked) {
+              if (!keep(q0 + c, e < 2 ? ka : kb, sq, sk, causal, window))
+                p = 0.f;
+            }
+            st[nt * 4 + e] = p;
+          }
+      };
+      const bool masked = q0 + BQ > sq || k0 + kRows > sk ||
+                          (causal && k0 + kRows - 1 > q0) ||
+                          (window > 0 && q0 + BQ - 1 - k0 >= window);
+      if (masked)
+        probs(std::true_type{});
+      else
+        probs(std::false_type{});
+#pragma unroll
+      for (int e = 0; e < NT * 4; ++e) s_xch[e * kWg + t] = st[e];
+      bar_arrive(1, NTH);
+    } else {
+      bar_sync(1, NTH);        // WG0's P^T of this tile is in s_xch
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          st[nt * 4 + e] = s_xch[(nt * 4 + e) * kWg + t] *
+                           (st[nt * 4 + e] -
+                            del_t[nt * 8 + tq * 2 + (e & 1)]);   // dS^T
+    }
+    // WG0: dV += P^T.dO; WG1: dK += dS^T.Q (the tile MN-major)
+    const uint32_t s_n = wg == 0 ? s_dot : s_qt;
+    uint32_t hi[BQ / 16][4], lo[BQ / 16][4];
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j) split_frag<BQ>(st, j, hi[j], lo[j]);
+    fence_regs(acc);
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j) {
+      fence_regs(hi[j]);
+      fence_regs(lo[j]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j) {
+      // queries 16j..16j+15 of the tile
+      const uint64_t db = smem_desc(s_n + j * 2048, BQ * 128, 1024);
+      wgmma_rs<D>(acc, hi[j], db);
+      wgmma_rs<D>(acc, lo[j], db);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j) {
+      fence_regs(hi[j]);
+      fence_regs(lo[j]);
+    }
+  }
+  cp_async_wait<0>();
+
+  if (part) {
+    float* pout = part + ((size_t)wg * gridDim.x + blockIdx.x) * sk * D;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      const int col = dt * 8 + tq * 2;
+      if (ka < sk)
+        *reinterpret_cast<float2*>(&pout[(size_t)ka * D + col]) =
+            make_float2(acc[dt * 4 + 0], acc[dt * 4 + 1]);
+      if (kb < sk)
+        *reinterpret_cast<float2*>(&pout[(size_t)kb * D + col]) =
+            make_float2(acc[dt * 4 + 2], acc[dt * 4 + 3]);
+    }
+    return;
+  }
+  __nv_bfloat16* out = (wg == 0 ? dv : dk) + (size_t)bkv * sk * D;
+  const float f = wg == 0 ? 1.f : scale;
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) {
+    const int col = dt * 8 + tq * 2;
+    if (ka < sk)
+      *reinterpret_cast<__nv_bfloat162*>(&out[(size_t)ka * D + col]) =
+          __floats2bfloat162_rn(acc[dt * 4 + 0] * f, acc[dt * 4 + 1] * f);
+    if (kb < sk)
+      *reinterpret_cast<__nv_bfloat162*>(&out[(size_t)kb * D + col]) =
+          __floats2bfloat162_rn(acc[dt * 4 + 2] * f, acc[dt * 4 + 3] * f);
+  }
+}
+
+// dV and dK of every (b, kv head, key) from bwd_dkdv_wgmma2's per-head
+// fp32 sums: the group's heads added in order (deterministic), dK scaled,
+// both rounded once to bf16; four columns a thread.
+__global__ void __launch_bounds__(256)
+bwd_dkdv_sum(const float* __restrict__ part, __nv_bfloat16* __restrict__ dk,
+             __nv_bfloat16* __restrict__ dv, int b, int hq, int hkv, int sk,
+             int d, float scale) {
+  const int rep = hq / hkv;
+  const size_t row = (size_t)sk * d;               // one head's elements
+  const size_t half = (size_t)b * hq * row;        // dV's sums, then dK's
+  const size_t n4 = (size_t)b * hkv * row / 4;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t e = 4 * i;
+    const size_t bkv = e / row, off = e % row;
+    const size_t bh0 = (bkv / hkv) * hq + (bkv % hkv) * rep;
+    float4 sv = make_float4(0.f, 0.f, 0.f, 0.f), sk4 = sv;
+    for (int g = 0; g < rep; ++g) {
+      const size_t src = (bh0 + g) * row + off;
+      const float4 pv = *reinterpret_cast<const float4*>(part + src);
+      const float4 pk = *reinterpret_cast<const float4*>(part + half + src);
+      sv.x += pv.x; sv.y += pv.y; sv.z += pv.z; sv.w += pv.w;
+      sk4.x += pk.x; sk4.y += pk.y; sk4.z += pk.z; sk4.w += pk.w;
+    }
+    __nv_bfloat162* ov = reinterpret_cast<__nv_bfloat162*>(dv + e);
+    __nv_bfloat162* ok = reinterpret_cast<__nv_bfloat162*>(dk + e);
+    ov[0] = __floats2bfloat162_rn(sv.x, sv.y);
+    ov[1] = __floats2bfloat162_rn(sv.z, sv.w);
+    ok[0] = __floats2bfloat162_rn(sk4.x * scale, sk4.y * scale);
+    ok[1] = __floats2bfloat162_rn(sk4.z * scale, sk4.w * scale);
+  }
+}
+
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
                  const float* lse, const void* dout, void* dq, void* dk,
-                 void* dv, float* delta, int b, int hq, int hkv, int sq,
-                 int sk, int causal, int window, float scale,
+                 void* dv, float* delta, float* part, int b, int hq, int hkv,
+                 int sq, int sk, int causal, int window, float scale,
                  cudaStream_t stream) {
   using C = WCfg<D>;
+  using B = const __nv_bfloat16*;
+  using O = __nv_bfloat16*;
+  // D 256: two warpgroups a block (bwd_dkdv_wgmma2), else one
+  constexpr bool kPair = D == 256;
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
         bwd_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(C::SMEM_DQ));
     if (e != cudaSuccess) return static_cast<int>(e);
-    e = cudaFuncSetAttribute(bwd_dkdv_wgmma<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(C::SMEM_DKDV));
+    if constexpr (kPair)
+      e = cudaFuncSetAttribute(bwd_dkdv_wgmma2<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(C::SMEM_DKDV));
+    else
+      e = cudaFuncSetAttribute(bwd_dkdv_wgmma<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(C::SMEM_DKDV));
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   const int n_qt = (sq + kRows - 1) / kRows, n_kt = (sk + kRows - 1) / kRows;
   if (n_qt > 65535 || n_kt > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  using B = const __nv_bfloat16*;
   bwd_dq_wgmma<D><<<dim3(b * hq, n_qt), kWg, C::SMEM_DQ, stream>>>(
       static_cast<B>(q), static_cast<B>(k), static_cast<B>(v),
-      static_cast<B>(o), lse, static_cast<B>(dout),
-      static_cast<__nv_bfloat16*>(dq), delta, hq, hkv, sq, sk, causal,
-      window, scale);
+      static_cast<B>(o), lse, static_cast<B>(dout), static_cast<O>(dq),
+      delta, hq, hkv, sq, sk, causal, window, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   if (sk <= 0) return 0;
-  bwd_dkdv_wgmma<D><<<dim3(b * hkv, n_kt), kWg, C::SMEM_DKDV, stream>>>(
-      static_cast<B>(q), static_cast<B>(k), static_cast<B>(v), lse,
-      static_cast<B>(dout), delta, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), hq, hkv, sq, sk, causal, window,
-      scale);
+  if constexpr (kPair) {
+    // with part: a block per query head, then the group's sum
+    bwd_dkdv_wgmma2<D><<<dim3(b * (part ? hq : hkv), n_kt), 2 * kWg,
+                         C::SMEM_DKDV, stream>>>(
+        static_cast<B>(q), static_cast<B>(k), static_cast<B>(v), lse,
+        static_cast<B>(dout), delta, static_cast<O>(dk), static_cast<O>(dv),
+        part, hq, hkv, sq, sk, causal, window, scale);
+    if (part == nullptr) return static_cast<int>(cudaGetLastError());
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const size_t n4 = (size_t)b * hkv * sk * D / 4;
+    const size_t want = (n4 + 255) / 256;
+    const int blocks = want < 4096 ? static_cast<int>(want) : 4096;
+    bwd_dkdv_sum<<<blocks, 256, 0, stream>>>(part, static_cast<O>(dk),
+                                             static_cast<O>(dv), b, hq, hkv,
+                                             sk, D, scale);
+  } else {
+    if (part != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    bwd_dkdv_wgmma<D><<<dim3(b * hkv, n_kt), kWg, C::SMEM_DKDV, stream>>>(
+        static_cast<B>(q), static_cast<B>(k), static_cast<B>(v), lse,
+        static_cast<B>(dout), delta, static_cast<O>(dk), static_cast<O>(dv),
+        hq, hkv, sq, sk, causal, window, scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -888,32 +1183,39 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
 // global; sk != sq only for a non-causal, unwindowed call.
 // q, o, dout, dq: [b*hq, sq, d]; k, v, dk, dv: [b*hkv, sk, d]; lse (the
 // forward's) and delta (scratch, written here): [b*hq, sq] fp32; all
-// contiguous.
+// contiguous.  part: null, or (bf16 at d 256 only) fp32 scratch of
+// [2, b*hq, sk, d], which splits dK and dV's blocks over the query heads
+// of each GQA group and adds the heads' sums in a second kernel.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* dq, void* dk, void* dv,
-    void* delta, int b, int hq, int hkv, int sq, int sk, int d, int causal,
-    int window, float scale, int dtype, void* stream) {
+    void* delta, void* part, int b, int hq, int hkv, int sq, int sk, int d,
+    int causal, int window, float scale, int dtype, void* stream) {
   if (b * hq <= 0 || sq <= 0) return 0;
   if (hkv <= 0 || hq % hkv != 0 || sk < 0 || b * hq > 65535 ||
       (sk != sq && (causal || window > 0)))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (part != nullptr && (dtype != 1 || d != 256))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
+  float* pt = static_cast<float*>(part);
 #define FLASH_BWD(T_, D)                                                    \
   return launch<T_, D>(q, k, v, o, l, dout, dq, dk, dv, dl, b, hq, hkv, sq, \
                        sk, causal, window, scale, st)
   if (dtype == 0 && d == 64) FLASH_BWD(float, 64);
   if (dtype == 0 && d == 128) FLASH_BWD(float, 128);
   if (dtype == 0 && d == 256) FLASH_BWD(float, 256);
-  if (dtype == 1 && d == 256) FLASH_BWD(__nv_bfloat16, 256);
 #undef FLASH_BWD
   if (dtype == 1 && d == 64)
-    return launch_wgmma<64>(q, k, v, o, l, dout, dq, dk, dv, dl, b, hq, hkv,
-                            sq, sk, causal, window, scale, st);
+    return launch_wgmma<64>(q, k, v, o, l, dout, dq, dk, dv, dl, pt, b, hq,
+                            hkv, sq, sk, causal, window, scale, st);
   if (dtype == 1 && d == 128)
-    return launch_wgmma<128>(q, k, v, o, l, dout, dq, dk, dv, dl, b, hq, hkv,
-                             sq, sk, causal, window, scale, st);
+    return launch_wgmma<128>(q, k, v, o, l, dout, dq, dk, dv, dl, pt, b, hq,
+                             hkv, sq, sk, causal, window, scale, st);
+  if (dtype == 1 && d == 256)
+    return launch_wgmma<256>(q, k, v, o, l, dout, dq, dk, dv, dl, pt, b, hq,
+                             hkv, sq, sk, causal, window, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

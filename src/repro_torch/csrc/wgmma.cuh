@@ -1,8 +1,9 @@
 // wgmma helpers shared by the bf16 attention kernels (flash_attention.cu,
-// flash_attention_bwd.cu): cp.async copies and fences, the 128-byte
-// swizzle and its shared-memory descriptors, wgmma m64nNk16 with A from
-// shared memory (N 32, 64) or from registers (N 64, 128, 256), and the
-// split of fp32 values into bf16 hi + lo A fragments.  sm_90a only.
+// flash_attention_bwd.cu): cp.async copies, fences and named barriers,
+// the 128-byte swizzle and its shared-memory descriptors, wgmma m64nNk16
+// with A from shared memory (N 32, 64) or from registers (N 64, 128,
+// 256), and the split of fp32 values into bf16 hi + lo A fragments.
+// sm_90a only.
 //
 // Fragments: one warpgroup (128 threads) computes a 64-row tile; warp w
 // holds rows 16w..16w+15 of every accumulator, and lane (g = lane / 4,
@@ -69,6 +70,15 @@ __device__ __forceinline__ float ex2(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
+// Named barrier `id` (1-15; 0 is __syncthreads') over `n` threads: arrive
+// without waiting (a producer), or wait for all n (a consumer).  Shared
+// memory written before the arrive is visible after the wait.
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -121,16 +131,17 @@ __device__ __forceinline__ uint32_t smem_base(const void* p) {
 
 // Rows [r0, r0 + ROWS) of a [rows, D] bf16 matrix (row-major, 16-byte
 // aligned rows) into a swizzled ROWS-row tile at dst by cp.async, zeros
-// past `rows`, the 128 threads of a warpgroup sharing the copies.
-template <int D, int ROWS>
+// past `rows`, the block's THREADS threads (one warpgroup, or two)
+// sharing the copies.
+template <int D, int ROWS, int THREADS = 128>
 __device__ __forceinline__ void load_swz(uint32_t dst,
                                          const __nv_bfloat16* src, int r0,
                                          int rows) {
   constexpr int CPR = D / 8;   // 16-byte chunks a row
-  static_assert(ROWS * CPR % 128 == 0, "whole rounds of 128 copies");
+  static_assert(ROWS * CPR % THREADS == 0, "whole rounds of copies");
 #pragma unroll
-  for (int j = 0; j < ROWS * CPR / 128; ++j) {
-    const int idx = threadIdx.x + j * 128;
+  for (int j = 0; j < ROWS * CPR / THREADS; ++j) {
+    const int idx = threadIdx.x + j * THREADS;
     const int r = idx / CPR, c = idx % CPR;
     const bool in = r0 + r < rows;
     cp_async16(dst + swz(r, c, ROWS),

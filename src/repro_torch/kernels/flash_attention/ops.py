@@ -28,9 +28,9 @@ Gradients: when q, k or v requires grad, the call goes through an
 ``autograd.Function`` whose forward also writes each row's fp32
 log-sum-exp and whose backward is :func:`flash_attention_bwd`: on CUDA
 tensors the hand-written kernels of ``csrc/flash_attention_bwd.cu`` (its
-own launch counter; bf16 at head_dim 64 and 128 on the tensor cores,
-with P and dS split into bf16 hi and lo halves, the rest on the CUDA
-cores in fp32), on CPU tensors :func:`flash_attention_bwd_plain`.
+own launch counter; bf16 at every head_dim, 64, 128 and 256, on the
+tensor cores with P and dS split into bf16 hi and lo halves, fp32 on the
+CUDA cores), on CPU tensors :func:`flash_attention_bwd_plain`.
 The reference has no backward kernel (it differentiates plain jnp
 attention); the formulas are the standard ones, under the same mask.
 """
@@ -49,7 +49,7 @@ HEAD_DIMS = (64, 128, 256)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
              ctypes.c_float, _I, _P]
-_BWD_ARGTYPES = [_P] * 10 + [_I] * 8 + [ctypes.c_float, _I, _P]
+_BWD_ARGTYPES = [_P] * 11 + [_I] * 8 + [ctypes.c_float, _I, _P]
 _launch = None       # the C entries, resolved at the first CUDA call
 _launch_bwd = None
 _raw_stream = None   # torch._C._cuda_getCurrentRawStream
@@ -67,6 +67,15 @@ def _resolve_bwd() -> None:
     _raw_stream = torch._C._cuda_getCurrentRawStream
     _launch_bwd = _build.load("flash_attention_bwd",
                               "flash_attention_bwd_launch", _BWD_ARGTYPES)
+
+
+def _head_split(q: torch.Tensor, hkv: int) -> bool:
+    """Whether the backward runs dK and dV a block per query head and adds
+    each GQA group's sums in a second kernel: bf16 at head_dim 256 with
+    GQA, where one block per (b, kv head, 64 keys) leaves SMs idle
+    (gemma3's one kv head: 64 blocks at 4,096 tokens on 132 SMs)."""
+    return (q.dtype == torch.bfloat16 and q.shape[3] == 256
+            and q.shape[1] > hkv)
 
 
 def _mask(s: int, t: int, causal: bool, window: int | None,
@@ -208,8 +217,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of :func:`flash_attention` at (q, k, v), given its
     output ``o``, its rows' fp32 log-sum-exp ``lse`` [B, Hq, Sq] and the
     output's gradient ``do``.  On CUDA tensors: the two kernels of
-    ``csrc/flash_attention_bwd.cu`` (one launch counted); on CPU tensors
-    :func:`flash_attention_bwd_plain`."""
+    ``csrc/flash_attention_bwd.cu`` (three where :func:`_head_split`; one
+    launch counted); on CPU tensors :func:`flash_attention_bwd_plain`."""
     _check(q, k, v, causal, window)
     if o.shape != q.shape or do.shape != q.shape or \
             lse.shape != q.shape[:3]:
@@ -227,12 +236,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    hkv, sk = k.shape[1], k.shape[2]
+    part = (torch.empty((2, b * hq, sk, d), dtype=torch.float32,
+                        device=q.device)
+            if _head_split(q, hkv) else None)
     if _launch_bwd is None:
         _resolve_bwd()
     err = _launch_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                       lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                      dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), b, hq,
-                      k.shape[1], sq, k.shape[2], d, int(causal),
+                      dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+                      None if part is None else part.data_ptr(), b, hq,
+                      hkv, sq, sk, d, int(causal),
                       -1 if window is None else int(window),
                       float(scale if scale is not None else d ** -0.5),
                       _DTYPES[q.dtype], _raw_stream(q.get_device()))

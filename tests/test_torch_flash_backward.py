@@ -151,26 +151,32 @@ def test_bwd_rejects_what_the_kernel_does_not_take():
         flash_attention_bwd(x, x, x, x, lse[:, :, :3], x)
 
 
-# The card's bf16 backward at head_dim 64 and 128 runs its five products
-# as wgmmas: bf16 operands, fp32 accumulation, and the fp32 P and dS split
-# into bf16 hi + lo halves before dV, dK and dQ.  _wgmma_mirror repeats
-# that arithmetic in torch; it is held to the plain version at the card's
-# bf16 TOL for the backward (chip_smoke.py): |got - want| <= 1e-3 + 1e-2 *
-# |want| element by element, since both sides accumulate in fp32 and round
-# once to bf16.
+# The card's bf16 backward runs its five products as wgmmas at every
+# head_dim: bf16 operands, fp32 accumulation, and the fp32 P and dS split
+# into bf16 hi + lo halves before dV, dK and dQ.  At head_dim 256 the dK
+# and dV kernel splits its work over two warpgroups: one forms P^T and
+# hands it, in fp32, to the other, which forms dS^T = P^T * (dP^T -
+# delta); the products and splits are those of head_dim 64 and 128.
+# _wgmma_mirror repeats that arithmetic in torch; it is held to the plain
+# version at the card's bf16 TOL for the backward (chip_smoke.py): |got -
+# want| <= 1e-3 + 1e-2 * |want| element by element, since both sides
+# accumulate in fp32 and round once to bf16.
 BF16_TOL = (1e-3, 1e-2)
-MIRROR_CASES = [  # b, hq, hkv, sq, sk, d, causal
-    (1, 4, 2, 64, 64, 128, True),
-    (1, 4, 2, 1024, 1024, 128, True),
-    (1, 6, 6, 64, 1500, 64, False),        # whisper's cross attention
+MIRROR_CASES = [  # b, hq, hkv, sq, sk, d, causal, window
+    (1, 4, 2, 64, 64, 128, True, None),
+    (1, 4, 2, 1024, 1024, 128, True, None),
+    (1, 6, 6, 64, 1500, 64, False, None),  # whisper's cross attention
+    (1, 4, 1, 64, 64, 256, True, None),    # gemma3's heads, training S
+    (1, 4, 1, 600, 600, 256, True, 512),   # gemma3's local layer
 ]
 
 
-def _wgmma_mirror(q, k, v, o, lse, do, causal, split=True):
+def _wgmma_mirror(q, k, v, o, lse, do, causal, split=True, window=None):
     """(dq, dk, dv) in bf16 by the wgmma kernels' arithmetic: P = 2^(S *
-    scale * log2 e - lse * log2 e) under the mask, delta = rowsum(dO * O),
-    dS = P * (dP - delta), and P and dS as bf16 hi + lo parts in the
-    products that take them (``split=False``: rounded once to bf16)."""
+    scale * log2 e - lse * log2 e) under the mask (causal, ``window``),
+    delta = rowsum(dO * O), dS = P * (dP - delta), and P and dS as bf16
+    hi + lo parts in the products that take them (``split=False``:
+    rounded once to bf16)."""
     from repro_torch.kernels.flash_attention.ops import _mask
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -179,7 +185,7 @@ def _wgmma_mirror(q, k, v, o, lse, do, causal, split=True):
     qf, of, dof = q.float(), o.float(), do.float()
     kf = k.float().repeat_interleave(rep, dim=1)
     vf = v.float().repeat_interleave(rep, dim=1)
-    mask = _mask(sq, sk, causal, None, q.device)
+    mask = _mask(sq, sk, causal, window, q.device)
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
     p = torch.where(mask, torch.exp2(s * (scale * log2e)
                                      - (lse * log2e)[..., None]), 0.0)
@@ -197,10 +203,11 @@ def _wgmma_mirror(q, k, v, o, lse, do, causal, split=True):
     return (dq * scale).bfloat16(), dk.bfloat16(), dv.bfloat16()
 
 
-def _bf16_case(b, hq, hkv, sq, sk, d, causal, seed):
+def _bf16_case(b, hq, hkv, sq, sk, d, causal, seed, window=None):
     q, k, v, do = (torch.from_numpy(x).bfloat16() for x in
                    _inputs(b, hq, hkv, sq, sk, d, seed))
-    o, lse = flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    o, lse = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
     return q, k, v, o, lse, do
 
 
@@ -210,11 +217,15 @@ def _outside_tol(got, want) -> int:
     return int(((g - w).abs() > atol + rtol * w.abs()).sum())
 
 
-@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal", MIRROR_CASES)
-def test_wgmma_mirror_meets_the_bf16_tol(b, hq, hkv, sq, sk, d, causal):
-    args = _bf16_case(b, hq, hkv, sq, sk, d, causal, seed=sq)
-    want = flash_attention_bwd_plain(*args, causal=causal)
-    got = _wgmma_mirror(*args, causal)
+@pytest.mark.parametrize(
+    "b,hq,hkv,sq,sk,d,causal,win", MIRROR_CASES,
+    ids=["-".join(map(str, c[:7])) + (f"-w{c[7]}" if c[7] else "")
+         for c in MIRROR_CASES])
+def test_wgmma_mirror_meets_the_bf16_tol(b, hq, hkv, sq, sk, d, causal,
+                                         win):
+    args = _bf16_case(b, hq, hkv, sq, sk, d, causal, seed=sq, window=win)
+    want = flash_attention_bwd_plain(*args, causal=causal, window=win)
+    got = _wgmma_mirror(*args, causal, window=win)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == w.dtype == torch.bfloat16 and g.shape == w.shape
         assert bool(g.float().isfinite().all()), name
@@ -227,5 +238,16 @@ def test_one_bf16_rounding_of_p_and_ds_misses_the_tol():
     args = _bf16_case(1, 4, 2, 64, 64, 128, True, seed=64)
     want = flash_attention_bwd_plain(*args, causal=True)
     got = _wgmma_mirror(*args, True, split=False)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _outside_tol(g, w) > 0, name
+
+
+@pytest.mark.parametrize("sq,win", [(64, None), (600, 512)])
+def test_one_bf16_rounding_misses_the_tol_at_head_dim_256(sq, win):
+    """The same at gemma3's heads (4 over 1 of 256): its training shape
+    and a local layer past its 512-token window."""
+    args = _bf16_case(1, 4, 1, sq, sq, 256, True, seed=sq, window=win)
+    want = flash_attention_bwd_plain(*args, causal=True, window=win)
+    got = _wgmma_mirror(*args, True, split=False, window=win)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert _outside_tol(g, w) > 0, name

@@ -111,3 +111,31 @@ def test_remat_equals_no_remat(pair):
     assert torch.equal(loss_r, loss_n)
     for (path, g), (_, h) in zip(leaf_paths(grads_r), leaf_paths(grads_n)):
         assert torch.equal(g, h), path
+
+
+# gemma3's smoke config at its real head_dim 256 and S 40, past its
+# 16-token smoke window: the local layer masks by the window, the global
+# one causally, so both of the D 256 backward's masks are held to the
+# reference's gradient
+WINDOWED = [("gemma3_1b", 256, 40)]
+
+
+@pytest.mark.parametrize("arch,head_dim,seq", WINDOWED)
+def test_windowed_head_dim_grads(arch, head_dim, seq):
+    cfg = get_config(arch).smoke().with_(head_dim=head_dim)
+    tcfg = port_configs.get_config(arch).smoke().with_(head_dim=head_dim)
+    windows = tcfg.layer_windows()
+    assert any(0 < w < seq for w in windows) and any(w <= 0 for w in windows)
+    rp = ref_params(cfg)
+    tp = params_from_jax(tcfg, jax.tree.map(np.asarray, rp),
+                         compute_device="cpu")
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab_size, (B, seq)).astype(np.int32)
+    labels = np.roll(toks, -1, axis=1)
+    labels[0, -1] = -1
+    batch = {"tokens": toks, "labels": labels}
+    rloss, rgrads = jax.value_and_grad(
+        lambda p: ref_train_loss(cfg, p, batch, use_pallas=False))(rp)
+    loss, grads = value_and_grad(tcfg, tp, batch, compute_device="cpu")
+    assert abs(float(loss) - float(rloss)) <= 1e-5 * abs(float(rloss))
+    grads_close(grads, rgrads)
