@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..kernels.overlap_scan.ops import fence_rank
+from ..trace import span
 from . import merge as merge_backend
 from .level_index import LevelIndex, bloom_false_positives
 from .memtable import Memtable
@@ -147,40 +148,41 @@ class LSMTree:
         SCANs observe the post-write state.  Assigned seqnos are also
         written back into ``batch.seqnos``.
         """
-        kinds = batch.kinds
-        n = len(batch)
-        seqs_out = np.full(n, -1, np.int64)
-        reads = np.zeros(n, np.int32)
-        probed = np.zeros(n, np.int32)
-        offsets = np.zeros(n + 1, np.int64)
-        scan_keys = scan_seqs = np.empty(0, np.int64)
-        w = batch.mask(OpKind.PUT, OpKind.DELETE)
-        if w.any():
-            widx = np.nonzero(w)[0]
-            assigned = self._write_batch(batch.keys[widx],
-                                         kinds[widx] == OpKind.DELETE)
-            seqs_out[widx] = assigned
-            batch.seqnos[widx] = assigned
-        g = kinds == OpKind.GET
-        if g.any():
-            gidx = np.nonzero(g)[0]
-            s, r, p = self._lookup_batch(batch.keys[gidx])
-            seqs_out[gidx] = s
-            reads[gidx] = r
-            probed[gidx] = p
-        sc = kinds == OpKind.SCAN
-        if sc.any():
-            sidx = np.nonzero(sc)[0]
-            counts, r, p, scan_keys, scan_seqs = self._scan_impl(
-                batch.keys[sidx], batch.scan_lens[sidx])
-            seqs_out[sidx] = counts
-            reads[sidx] = r
-            probed[sidx] = p
-            lens = np.zeros(n, np.int64)
-            lens[sidx] = counts
-            np.cumsum(lens, out=offsets[1:])
-        return ResultBatch(kinds, seqs_out, reads, probed, offsets,
-                           scan_keys, scan_seqs)
+        with span("store.apply"):
+            kinds = batch.kinds
+            n = len(batch)
+            seqs_out = np.full(n, -1, np.int64)
+            reads = np.zeros(n, np.int32)
+            probed = np.zeros(n, np.int32)
+            offsets = np.zeros(n + 1, np.int64)
+            scan_keys = scan_seqs = np.empty(0, np.int64)
+            w = batch.mask(OpKind.PUT, OpKind.DELETE)
+            if w.any():
+                widx = np.nonzero(w)[0]
+                assigned = self._write_batch(batch.keys[widx],
+                                             kinds[widx] == OpKind.DELETE)
+                seqs_out[widx] = assigned
+                batch.seqnos[widx] = assigned
+            g = kinds == OpKind.GET
+            if g.any():
+                gidx = np.nonzero(g)[0]
+                s, r, p = self._lookup_batch(batch.keys[gidx])
+                seqs_out[gidx] = s
+                reads[gidx] = r
+                probed[gidx] = p
+            sc = kinds == OpKind.SCAN
+            if sc.any():
+                sidx = np.nonzero(sc)[0]
+                counts, r, p, scan_keys, scan_seqs = self._scan_impl(
+                    batch.keys[sidx], batch.scan_lens[sidx])
+                seqs_out[sidx] = counts
+                reads[sidx] = r
+                probed[sidx] = p
+                lens = np.zeros(n, np.int64)
+                lens[sidx] = counts
+                np.cumsum(lens, out=offsets[1:])
+            return ResultBatch(kinds, seqs_out, reads, probed, offsets,
+                               scan_keys, scan_seqs)
 
     # ------------------------------------------------------------ ingest
     def put_batch(self, keys: np.ndarray) -> np.ndarray:
@@ -194,19 +196,21 @@ class LSMTree:
     def _write_batch(self, keys: np.ndarray, tombs: np.ndarray) -> np.ndarray:
         """Append PUT/DELETE entries in array order; returns logical seqs.
         Keys and encoded seqs go to the device in one transfer."""
-        n = int(keys.shape[0])
-        assert n <= self.memtable.room, "caller must chunk at memtable capacity"
-        seqs = np.arange(self.seq, self.seq + n, dtype=np.int64)
-        self.seq += n
-        tombs = np.asarray(tombs, bool)
-        both = torch.from_numpy(np.stack([np.asarray(keys, np.int64),
-                                          seq_encode(seqs, tombs)]))
-        both = both.to(self.compute_device)
-        self.memtable.put_batch(both[0], both[1])
-        self.stats.user_bytes += n * self.cfg.kv_size
-        self.stats.ops += n
-        self.stats.delete_ops += int(tombs.sum())
-        return seqs
+        with span("store.write"):
+            n = int(keys.shape[0])
+            assert n <= self.memtable.room, \
+                "caller must chunk at memtable capacity"
+            seqs = np.arange(self.seq, self.seq + n, dtype=np.int64)
+            self.seq += n
+            tombs = np.asarray(tombs, bool)
+            both = torch.from_numpy(np.stack([np.asarray(keys, np.int64),
+                                              seq_encode(seqs, tombs)]))
+            both = both.to(self.compute_device)
+            self.memtable.put_batch(both[0], both[1])
+            self.stats.user_bytes += n * self.cfg.kv_size
+            self.stats.ops += n
+            self.stats.delete_ops += int(tombs.sum())
+            return seqs
 
     def seal_memtable(self) -> None:
         assert self.memtable.full or self.memtable.n > 0
@@ -219,7 +223,7 @@ class LSMTree:
         Returns ``(flush_job, chain_jobs)``: the flush itself, plus any
         compaction chain triggered because L0 was at its compaction trigger.
         """
-        with uid_allocator(self._sst_uids):
+        with span("store.flush"), uid_allocator(self._sst_uids):
             return self._flush_immutable()
 
     def _flush_immutable(self) -> tuple[Job, list[Job]]:
@@ -266,26 +270,27 @@ class LSMTree:
                     ) -> tuple[list[Job], list[int]]:
         """Run ONE compaction pass from ``level`` as a first-class chain and
         ledger its :class:`ChainRecord`."""
-        cid = self._next_chain_id()
-        prev, self._active_chain = self._active_chain, cid
-        try:
-            jobs, stage_bytes = self._compact_from(level)
-        finally:
-            self._active_chain = prev
-        if jobs:
-            head = jobs[-1]
-            rec = self.stats.record_chain(ChainRecord(
-                chain_id=cid, trigger=trigger,
-                length=len({j.level for j in jobs}),
-                width=head.l0_consumed or head.n_in_ssts,
-                width_bytes=sum(j.total_bytes for j in jobs),
-                stage_bytes=stage_bytes,
-                n_jobs=len(jobs),
-                job_uids=[j.uid for j in jobs],
-            ))
-            if self.cfg.paranoid_checks:
-                self._check_chain(jobs, rec)
-        return jobs, stage_bytes
+        with span("store.chain"):
+            cid = self._next_chain_id()
+            prev, self._active_chain = self._active_chain, cid
+            try:
+                jobs, stage_bytes = self._compact_from(level)
+            finally:
+                self._active_chain = prev
+            if jobs:
+                head = jobs[-1]
+                rec = self.stats.record_chain(ChainRecord(
+                    chain_id=cid, trigger=trigger,
+                    length=len({j.level for j in jobs}),
+                    width=head.l0_consumed or head.n_in_ssts,
+                    width_bytes=sum(j.total_bytes for j in jobs),
+                    stage_bytes=stage_bytes,
+                    n_jobs=len(jobs),
+                    job_uids=[j.uid for j in jobs],
+                ))
+                if self.cfg.paranoid_checks:
+                    self._check_chain(jobs, rec)
+            return jobs, stage_bytes
 
     def _check_chain(self, jobs: list[Job], rec: ChainRecord) -> None:
         """Chain invariants at emission time."""
@@ -337,9 +342,10 @@ class LSMTree:
                    ) -> tuple[torch.Tensor, torch.Tensor]:
         """Latest-wins k-way merge on the device, with the merged-key
         accounting every compaction stage charges."""
-        keys, seqs = merge_backend.merge_runs(runs)
-        self.stats.merged_keys += int(keys.shape[0])
-        return keys, seqs
+        with span("store.merge_runs"):
+            keys, seqs = merge_backend.merge_runs(runs)
+            self.stats.merged_keys += int(keys.shape[0])
+            return keys, seqs
 
     def merge_down(self, level: int, picked_idx: list[int],
                    deps: list[Job]) -> Job | None:
@@ -347,40 +353,42 @@ class LSMTree:
         into contiguous runs, all accounted as ONE chain stage."""
         if not picked_idx:
             return None
-        cfg = self.cfg
-        picked_idx = sorted(picked_idx)
-        groups: list[list[SST]] = []
-        run: list[int] = []
-        for i in picked_idx:
-            if run and i == run[-1] + 1:
-                run.append(i)
-            else:
-                if run:
-                    groups.append([self.levels[level][j] for j in run])
-                run = [i]
-        groups.append([self.levels[level][j] for j in run])
+        with span("store.merge_down"):
+            cfg = self.cfg
+            picked_idx = sorted(picked_idx)
+            groups: list[list[SST]] = []
+            run: list[int] = []
+            for i in picked_idx:
+                if run and i == run[-1] + 1:
+                    run.append(i)
+                else:
+                    if run:
+                        groups.append([self.levels[level][j] for j in run])
+                    run = [i]
+            groups.append([self.levels[level][j] for j in run])
 
-        read_b = write_b = n_in = n_out = 0
-        for group in groups:
-            lo = min(s.smallest for s in group)
-            hi = max(s.largest for s in group)
-            over = self.overlap(level + 1, lo, hi)
-            runs = [(s.keys, s.seqs) for s in group]
-            runs += [(s.keys, s.seqs) for s in over]
-            keys, seqs = self.merge_runs(runs)
-            keys, seqs = self.strip_bottom_tombstones(level + 1, keys, seqs)
-            new = split_fixed(keys, seqs, cfg.kv_size, cfg.sst_size)
-            self.replace_in_level(level + 1, over, new)
-            guids = {s.uid for s in group}
-            self.levels[level] = [s for s in self.levels[level]
-                                  if s.uid not in guids]
-            self.index.remove_uids(level, sorted(guids))
-            read_b += total_size(group) + total_size(over)
-            write_b += sum(s.size for s in new)
-            n_in += len(group) + len(over)
-            n_out += len(new)
-        return self.emit_compact_job(level, read_b, write_b, n_in, n_out,
-                                     deps)
+            read_b = write_b = n_in = n_out = 0
+            for group in groups:
+                lo = min(s.smallest for s in group)
+                hi = max(s.largest for s in group)
+                over = self.overlap(level + 1, lo, hi)
+                runs = [(s.keys, s.seqs) for s in group]
+                runs += [(s.keys, s.seqs) for s in over]
+                keys, seqs = self.merge_runs(runs)
+                keys, seqs = self.strip_bottom_tombstones(level + 1, keys,
+                                                          seqs)
+                new = split_fixed(keys, seqs, cfg.kv_size, cfg.sst_size)
+                self.replace_in_level(level + 1, over, new)
+                guids = {s.uid for s in group}
+                self.levels[level] = [s for s in self.levels[level]
+                                      if s.uid not in guids]
+                self.index.remove_uids(level, sorted(guids))
+                read_b += total_size(group) + total_size(over)
+                write_b += sum(s.size for s in new)
+                n_in += len(group) + len(over)
+                n_out += len(new)
+            return self.emit_compact_job(level, read_b, write_b, n_in, n_out,
+                                         deps)
 
     def strip_bottom_tombstones(self, target_level: int, keys: torch.Tensor,
                                 seqs: torch.Tensor
@@ -441,7 +449,7 @@ class LSMTree:
 
     def background_triggers(self) -> list[Job]:
         """Soft over-target compactions (the policy sets the soft factor)."""
-        with uid_allocator(self._sst_uids):
+        with span("store.triggers"), uid_allocator(self._sst_uids):
             return self._background_triggers()
 
     def _background_triggers(self) -> list[Job]:
@@ -492,49 +500,51 @@ class LSMTree:
         if n == 0:
             return (np.full(0, -1, np.int64), np.zeros(0, np.int32),
                     np.zeros(0, np.int32))
-        dev = self.compute_device
-        fpr = self.cfg.bloom_fpr
-        k = torch.from_numpy(np.ascontiguousarray(keys, np.int64)).to(dev)
-        seqs = torch.full((n,), -1, dtype=torch.int64, device=dev)
-        reads = torch.zeros(n, dtype=torch.int32, device=dev)
-        probed = torch.zeros(n, dtype=torch.int32, device=dev)
-        active = torch.ones(n, dtype=torch.bool, device=dev)
-        # Memtable probes are free (no device reads), newest first.
-        for mt in [self.memtable] + self.immutables[::-1]:
-            if mt.n == 0:
-                continue
-            got = mt.get_batch(k)
-            hit = active & (got >= 0)
-            _resolved(hit, got, seqs)
-            active &= ~hit
-        # L0 newest -> oldest: every range-overlapping SST is probed.
-        l0 = self.levels[0]
-        for p in range(len(l0) - 1, -1, -1):
-            inr = (active & (k >= self.index.dev_smallest[0][p])
-                   & (k <= self.index.dev_largest[0][p]))
-            self._probe_sst_batch(l0[p], self.index.bloom[0][p], inr, k,
-                                  seqs, reads, probed, active)
-        # Leveled: at most one fence-selected SST per level.  A sorted,
-        # disjoint level's concatenated keys are globally sorted, so ONE
-        # rank over the flat level resolves every candidate probe.
-        for level in range(1, self.cfg.max_levels):
-            n_ssts = self.index.n_ssts(level)
-            if n_ssts == 0:
-                continue
-            starts, ends = self.index.overlap_ranges(level, k, k)
-            cand = active & (ends > starts)
-            fkeys, fseqs = self._flat_level(level)
-            probed += cand
-            pos = fence_rank(fkeys, k, "left").clamp_(max=fkeys.shape[0] - 1)
-            found = cand & (fkeys[pos] == k)
-            _resolved(found, fseqs[pos], seqs)
-            reads += found     # bloom true positive -> one block read
-            active &= ~found
-            seed = self.index.bloom[level][starts.clamp(max=n_ssts - 1)]
-            reads += cand & ~found & bloom_false_positives(k, seed, fpr)
-        out = torch.stack([seqs, reads.to(torch.int64),
-                           probed.to(torch.int64)]).cpu().numpy()
-        return out[0], out[1].astype(np.int32), out[2].astype(np.int32)
+        with span("store.lookup"):
+            dev = self.compute_device
+            fpr = self.cfg.bloom_fpr
+            k = torch.from_numpy(np.ascontiguousarray(keys, np.int64)).to(dev)
+            seqs = torch.full((n,), -1, dtype=torch.int64, device=dev)
+            reads = torch.zeros(n, dtype=torch.int32, device=dev)
+            probed = torch.zeros(n, dtype=torch.int32, device=dev)
+            active = torch.ones(n, dtype=torch.bool, device=dev)
+            # Memtable probes are free (no device reads), newest first.
+            for mt in [self.memtable] + self.immutables[::-1]:
+                if mt.n == 0:
+                    continue
+                got = mt.get_batch(k)
+                hit = active & (got >= 0)
+                _resolved(hit, got, seqs)
+                active &= ~hit
+            # L0 newest -> oldest: every range-overlapping SST is probed.
+            l0 = self.levels[0]
+            for p in range(len(l0) - 1, -1, -1):
+                inr = (active & (k >= self.index.dev_smallest[0][p])
+                       & (k <= self.index.dev_largest[0][p]))
+                self._probe_sst_batch(l0[p], self.index.bloom[0][p], inr, k,
+                                      seqs, reads, probed, active)
+            # Leveled: at most one fence-selected SST per level.  A sorted,
+            # disjoint level's concatenated keys are globally sorted, so ONE
+            # rank over the flat level resolves every candidate probe.
+            for level in range(1, self.cfg.max_levels):
+                n_ssts = self.index.n_ssts(level)
+                if n_ssts == 0:
+                    continue
+                starts, ends = self.index.overlap_ranges(level, k, k)
+                cand = active & (ends > starts)
+                fkeys, fseqs = self._flat_level(level)
+                probed += cand
+                pos = fence_rank(fkeys, k, "left").clamp_(
+                    max=fkeys.shape[0] - 1)
+                found = cand & (fkeys[pos] == k)
+                _resolved(found, fseqs[pos], seqs)
+                reads += found     # bloom true positive -> one block read
+                active &= ~found
+                seed = self.index.bloom[level][starts.clamp(max=n_ssts - 1)]
+                reads += cand & ~found & bloom_false_positives(k, seed, fpr)
+            out = torch.stack([seqs, reads.to(torch.int64),
+                               probed.to(torch.int64)]).cpu().numpy()
+            return out[0], out[1].astype(np.int32), out[2].astype(np.int32)
 
     def _flat_level(self, level: int) -> tuple[torch.Tensor, torch.Tensor]:
         """The level's keys/seqs as one sorted flat device pair, cached

@@ -9,6 +9,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 import torch
 
+from ...trace import span
 from ..sst import SST, ssts_from_cuts
 from ..types import LSMConfig
 from ..vsst import plan_vssts, select_good_vssts
@@ -45,22 +46,25 @@ class VLSMPolicy(CompactionPolicy):
     def build_l1_ssts(self, tree: "LSMTree", keys: torch.Tensor,
                       seqs: torch.Tensor) -> list[SST]:
         """Cut the merged L1 stream into overlap-aware vSSTs (§4.2)."""
-        cfg = tree.cfg
-        fence_lo, fence_hi = tree.index.fences(2)
-        plans = plan_vssts(keys, cfg.kv_size, cfg.s_m, cfg.s_M,
-                           cfg.growth_factor, fence_lo, fence_hi,
-                           cfg.sst_size)
-        tree.stats.overlap_probes += int(keys.shape[0])  # per-key look-ahead
-        out = ssts_from_cuts(keys, seqs, cfg.kv_size,
-                             [p.start for p in plans], [p.end for p in plans])
-        for p, sst in zip(plans, out):
-            if p.good:
-                tree.stats.vssts_good += 1
-                tree.stats.vsst_good_bytes += sst.size
-            else:
-                tree.stats.vssts_poor += 1
-                tree.stats.vsst_poor_bytes += sst.size
-        return out
+        with span("store.vsst_plan"):
+            cfg = tree.cfg
+            fence_lo, fence_hi = tree.index.fences(2)
+            plans = plan_vssts(keys, cfg.kv_size, cfg.s_m, cfg.s_M,
+                               cfg.growth_factor, fence_lo, fence_hi,
+                               cfg.sst_size)
+            # per-key look-ahead
+            tree.stats.overlap_probes += int(keys.shape[0])
+            out = ssts_from_cuts(keys, seqs, cfg.kv_size,
+                                 [p.start for p in plans],
+                                 [p.end for p in plans])
+            for p, sst in zip(plans, out):
+                if p.good:
+                    tree.stats.vssts_good += 1
+                    tree.stats.vsst_good_bytes += sst.size
+                else:
+                    tree.stats.vssts_poor += 1
+                    tree.stats.vsst_poor_bytes += sst.size
+            return out
 
     def pick_compaction(self, tree: "LSMTree", level: int,
                         deps: list["Job"]) -> "Job | None":

@@ -28,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..trace import span
 from .lsm import Job, LSMTree
 from .stats import FleetStats, Stats
 from .types import LSMConfig, OpKind, RequestBatch, ResultBatch
@@ -140,67 +141,68 @@ class ShardedStore:
         contract, fleet-wide).  Results land back at their op's arrival
         position, so the gather is order-preserving by construction.
         """
-        n = len(batch)
-        kinds = batch.kinds
-        shard_ids = self.router.shard_of(batch.keys)
-        seqs_out = np.full(n, -1, np.int64)
-        reads = np.zeros(n, np.int32)
-        probed = np.zeros(n, np.int32)
-        offsets = np.zeros(n + 1, np.int64)
-        is_write = batch.mask(OpKind.PUT, OpKind.DELETE)
-        is_get = batch.mask(OpKind.GET)
-        is_scan = batch.mask(OpKind.SCAN)
-        # 1. writes, per shard, in arrival order within the shard
-        for s in range(self.n_shards):
-            widx = np.nonzero(is_write & (shard_ids == s))[0]
-            if widx.shape[0] == 0:
-                continue
-            assigned = self._ingest(s, batch.keys[widx],
-                                    kinds[widx] == OpKind.DELETE)
-            seqs_out[widx] = assigned
-            batch.seqnos[widx] = assigned
-        # 2. point reads, per shard
-        for s in range(self.n_shards):
-            gidx = np.nonzero(is_get & (shard_ids == s))[0]
-            if gidx.shape[0] == 0:
-                continue
-            res = self.shards[s].apply_batch(
-                RequestBatch.gets(batch.keys[gidx]))
-            seqs_out[gidx] = res.seqs
-            reads[gidx] = res.reads
-            probed[gidx] = res.probed
-        # 3. scans fan out to every shard; merge the disjoint windows
-        out_k: list[np.ndarray] = [np.empty(0, np.int64)] * n
-        out_s: list[np.ndarray] = [np.empty(0, np.int64)] * n
-        if is_scan.any():
-            sidx = np.nonzero(is_scan)[0]
+        with span("store.batch"):
+            n = len(batch)
+            kinds = batch.kinds
+            shard_ids = self.router.shard_of(batch.keys)
+            seqs_out = np.full(n, -1, np.int64)
+            reads = np.zeros(n, np.int32)
+            probed = np.zeros(n, np.int32)
+            offsets = np.zeros(n + 1, np.int64)
+            is_write = batch.mask(OpKind.PUT, OpKind.DELETE)
+            is_get = batch.mask(OpKind.GET)
+            is_scan = batch.mask(OpKind.SCAN)
+            # 1. writes, per shard, in arrival order within the shard
             for s in range(self.n_shards):
-                res = self.shards[s].apply_batch(RequestBatch.scans(
-                    batch.keys[sidx], batch.scan_lens[sidx]))
-                for p, g in enumerate(sidx.tolist()):
-                    ks, ss = res.scan_slice(p)
-                    if ks.shape[0]:
-                        out_k[g] = np.concatenate([out_k[g], ks])
-                        out_s[g] = np.concatenate([out_s[g], ss])
-                    reads[g] += int(res.reads[p])
-                    probed[g] += int(res.probed[p])
-            for g in sidx.tolist():
-                # shards partition the keyspace -> windows are disjoint;
-                # merge = sort by key, keep the first `want` live keys
-                order = np.argsort(out_k[g], kind="stable")
-                take = order[:int(batch.scan_lens[g])]
-                out_k[g] = out_k[g][take]
-                out_s[g] = out_s[g][take]
-                seqs_out[g] = int(take.shape[0])
-            lens = np.zeros(n, np.int64)
-            lens[sidx] = [out_k[int(g)].shape[0] for g in sidx]
-            np.cumsum(lens, out=offsets[1:])
-            scan_keys = np.concatenate(out_k)
-            scan_seqs = np.concatenate(out_s)
-        else:
-            scan_keys = scan_seqs = np.empty(0, np.int64)
-        return ResultBatch(kinds, seqs_out, reads, probed, offsets,
-                           scan_keys, scan_seqs)
+                widx = np.nonzero(is_write & (shard_ids == s))[0]
+                if widx.shape[0] == 0:
+                    continue
+                assigned = self._ingest(s, batch.keys[widx],
+                                        kinds[widx] == OpKind.DELETE)
+                seqs_out[widx] = assigned
+                batch.seqnos[widx] = assigned
+            # 2. point reads, per shard
+            for s in range(self.n_shards):
+                gidx = np.nonzero(is_get & (shard_ids == s))[0]
+                if gidx.shape[0] == 0:
+                    continue
+                res = self.shards[s].apply_batch(
+                    RequestBatch.gets(batch.keys[gidx]))
+                seqs_out[gidx] = res.seqs
+                reads[gidx] = res.reads
+                probed[gidx] = res.probed
+            # 3. scans fan out to every shard; merge the disjoint windows
+            out_k: list[np.ndarray] = [np.empty(0, np.int64)] * n
+            out_s: list[np.ndarray] = [np.empty(0, np.int64)] * n
+            if is_scan.any():
+                sidx = np.nonzero(is_scan)[0]
+                for s in range(self.n_shards):
+                    res = self.shards[s].apply_batch(RequestBatch.scans(
+                        batch.keys[sidx], batch.scan_lens[sidx]))
+                    for p, g in enumerate(sidx.tolist()):
+                        ks, ss = res.scan_slice(p)
+                        if ks.shape[0]:
+                            out_k[g] = np.concatenate([out_k[g], ks])
+                            out_s[g] = np.concatenate([out_s[g], ss])
+                        reads[g] += int(res.reads[p])
+                        probed[g] += int(res.probed[p])
+                for g in sidx.tolist():
+                    # shards partition the keyspace -> windows are disjoint;
+                    # merge = sort by key, keep the first `want` live keys
+                    order = np.argsort(out_k[g], kind="stable")
+                    take = order[:int(batch.scan_lens[g])]
+                    out_k[g] = out_k[g][take]
+                    out_s[g] = out_s[g][take]
+                    seqs_out[g] = int(take.shape[0])
+                lens = np.zeros(n, np.int64)
+                lens[sidx] = [out_k[int(g)].shape[0] for g in sidx]
+                np.cumsum(lens, out=offsets[1:])
+                scan_keys = np.concatenate(out_k)
+                scan_seqs = np.concatenate(out_s)
+            else:
+                scan_keys = scan_seqs = np.empty(0, np.int64)
+            return ResultBatch(kinds, seqs_out, reads, probed, offsets,
+                               scan_keys, scan_seqs)
 
     def _ingest(self, shard: int, keys: np.ndarray,
                 tombs: np.ndarray) -> np.ndarray:
@@ -223,11 +225,12 @@ class ShardedStore:
         return seqs
 
     def _roll_memtable(self, shard: int) -> None:
-        tree = self.shards[shard]
-        tree.seal_memtable()
-        tree.flush_immutable()
-        tree.background_triggers()
-        self.job_log.extend(tree.drain_jobs())
+        with span("store.roll"):
+            tree = self.shards[shard]
+            tree.seal_memtable()
+            tree.flush_immutable()
+            tree.background_triggers()
+            self.job_log.extend(tree.drain_jobs())
 
     # ------------------------------------------------------- thin wrappers
     def put_batch(self, keys: np.ndarray) -> np.ndarray:

@@ -57,6 +57,7 @@ import torch
 
 from ..analysis.sanitizer import maybe_sanitizer
 from ..kernels.lindley_scan.ops import lindley_batch
+from ..trace import span
 from .lsm import Job, LSMTree
 from .policies import get_policy
 from .shard import ShardRouter
@@ -493,84 +494,89 @@ class Simulator:
         fill-event schedule.  Both engines — the heap loop here and the
         two-phase :class:`repro_torch.core.fleet.FleetEngine` — start from
         the exact same :class:`_RunState`."""
-        n = op_types.shape[0]
-        assert keys.shape[0] == n and arrivals.shape[0] == n and n > 0
-        cfg = self.cfg
-        kpm = cfg.keys_per_memtable
-        op_types = np.ascontiguousarray(op_types, np.uint8)
-        if scan_lens is None:
-            assert not (op_types == OpKind.SCAN).any(), \
-                "SCAN ops require scan_lens"
-            scan_lens = np.zeros(n, np.int32)
-        scan_lens = np.ascontiguousarray(scan_lens, np.int32)
-        service = np.full(n, PUT_SERVICE)
-        service[op_types == OpKind.GET] = GET_CPU
-        service[op_types == OpKind.SCAN] = SCAN_CPU
-        get_reads = np.zeros(n, dtype=np.int32)
-        get_probed = np.zeros(n, dtype=np.int32)
-        block_t = (self.device.io_latency
-                   + self.device.block_size / self.device.read_bw)
+        with span("des.setup"):
+            n = op_types.shape[0]
+            assert keys.shape[0] == n and arrivals.shape[0] == n and n > 0
+            cfg = self.cfg
+            kpm = cfg.keys_per_memtable
+            op_types = np.ascontiguousarray(op_types, np.uint8)
+            if scan_lens is None:
+                assert not (op_types == OpKind.SCAN).any(), \
+                    "SCAN ops require scan_lens"
+                scan_lens = np.zeros(n, np.int32)
+            scan_lens = np.ascontiguousarray(scan_lens, np.int32)
+            service = np.full(n, PUT_SERVICE)
+            service[op_types == OpKind.GET] = GET_CPU
+            service[op_types == OpKind.SCAN] = SCAN_CPU
+            get_reads = np.zeros(n, dtype=np.int32)
+            get_probed = np.zeros(n, dtype=np.int32)
+            block_t = (self.device.io_latency
+                       + self.device.block_size / self.device.read_bw)
 
-        # Columnar routing: shard (hash/range partition of the keyspace),
-        # then region within the (single) shard.  tree = flat shard-major.
-        shard_ids = self.router.shard_of(keys) if self.n_shards > 1 \
-            else np.zeros(n, np.int64)
-        regions = (keys % self.n_regions).astype(np.int64) \
-            if self.n_regions > 1 else np.zeros(n, np.int64)
-        tree_ids = shard_ids * self.n_regions + regions
-        write_mask = (op_types == OpKind.PUT) | (op_types == OpKind.DELETE)
-        write_idx = np.nonzero(write_mask)[0]
+            # Columnar routing: shard (hash/range partition of the keyspace),
+            # then region within the (single) shard.  tree = flat shard-major.
+            shard_ids = self.router.shard_of(keys) if self.n_shards > 1 \
+                else np.zeros(n, np.int64)
+            regions = (keys % self.n_regions).astype(np.int64) \
+                if self.n_regions > 1 else np.zeros(n, np.int64)
+            tree_ids = shard_ids * self.n_regions + regions
+            write_mask = (op_types == OpKind.PUT) | (op_types == OpKind.DELETE)
+            write_idx = np.nonzero(write_mask)[0]
 
-        # Fill-event schedule: the op index at which each tree's memtable
-        # fills = every kpm-th write (PUT or DELETE) routed to that tree.
-        fill_events: list[tuple[int, int]] = []  # (op_idx, tree_idx)
-        for ti in range(len(self.trees)):
-            t_writes = write_idx[tree_ids[write_idx] == ti]
-            marks = t_writes[kpm - 1::kpm]
-            fill_events.extend((int(m), ti) for m in marks)
-        fill_events.sort()
-        ev_by_shard: list[list[tuple[int, int]]] = \
-            [[] for _ in range(self.n_shards)]
-        for op_i, ti in fill_events:
-            ev_by_shard[ti // self.n_regions].append((op_i, ti))
-        shard_pos = [np.arange(n)] if self.n_shards == 1 else \
-            [np.nonzero(shard_ids == s)[0] for s in range(self.n_shards)]
-        return _RunState(n=n, op_types=op_types, keys=keys,
-                         arrivals=arrivals, scan_lens=scan_lens,
-                         service=service, get_reads=get_reads,
-                         get_probed=get_probed, block_t=block_t,
-                         shard_ids=shard_ids, regions=regions,
-                         ev_by_shard=ev_by_shard, shard_pos=shard_pos)
+            # Fill-event schedule: the op index at which each tree's memtable
+            # fills = every kpm-th write (PUT or DELETE) routed to that tree.
+            fill_events: list[tuple[int, int]] = []  # (op_idx, tree_idx)
+            for ti in range(len(self.trees)):
+                t_writes = write_idx[tree_ids[write_idx] == ti]
+                marks = t_writes[kpm - 1::kpm]
+                fill_events.extend((int(m), ti) for m in marks)
+            fill_events.sort()
+            ev_by_shard: list[list[tuple[int, int]]] = \
+                [[] for _ in range(self.n_shards)]
+            for op_i, ti in fill_events:
+                ev_by_shard[ti // self.n_regions].append((op_i, ti))
+            shard_pos = [np.arange(n)] if self.n_shards == 1 else \
+                [np.nonzero(shard_ids == s)[0] for s in range(self.n_shards)]
+            return _RunState(n=n, op_types=op_types, keys=keys,
+                             arrivals=arrivals, scan_lens=scan_lens,
+                             service=service, get_reads=get_reads,
+                             get_probed=get_probed, block_t=block_t,
+                             shard_ids=shard_ids, regions=regions,
+                             ev_by_shard=ev_by_shard, shard_pos=shard_pos)
 
     def _busy_inflation(self, st: "_RunState") -> None:
         """Read service refinement: device busy while compactions run
         (vectorized post-pass over the scheduled job log)."""
-        service, arrivals, op_types = st.service, st.arrivals, st.op_types
-        get_reads, block_t = st.get_reads, st.block_t
-        # Only read kinds are inflated — compute overlap counts at their
-        # arrivals alone (a temporal-pass hot path in the fleet engine).
-        is_get = op_types == OpKind.GET
-        is_scan = op_types == OpKind.SCAN
-        ridx = np.nonzero(is_get | is_scan)[0]
-        if ridx.size == 0:
-            return
-        starts = np.sort(np.array([j.t_start for j in self.job_log
-                                   if j.kind == "compact"], dtype=np.float64))
-        ends = np.sort(np.array([j.t_finish for j in self.job_log
-                                 if j.kind == "compact"], dtype=np.float64))
-        if starts.size == 0:
-            return
-        a_r = arrivals[ridx]
-        busy_r = (np.searchsorted(starts, a_r, side="right")
-                  - np.searchsorted(ends, a_r, side="right"))
-        get_r = is_get[ridx]
-        gi = ridx[get_r]
-        service[gi] += (get_reads[gi] * block_t * (BUSY_ALPHA * busy_r[get_r]))
-        if is_scan.any():
-            seq_block_t = self.device.block_size / self.device.read_bw
-            si = ridx[~get_r]
-            service[si] += (get_reads[si] * seq_block_t
-                            * (BUSY_ALPHA * busy_r[~get_r]))
+        with span("des.inflation"):
+            service, arrivals, op_types = st.service, st.arrivals, st.op_types
+            get_reads, block_t = st.get_reads, st.block_t
+            # Only read kinds are inflated — compute overlap counts at their
+            # arrivals alone (a temporal-pass hot path in the fleet engine).
+            is_get = op_types == OpKind.GET
+            is_scan = op_types == OpKind.SCAN
+            ridx = np.nonzero(is_get | is_scan)[0]
+            if ridx.size == 0:
+                return
+            starts = np.sort(np.array([j.t_start for j in self.job_log
+                                       if j.kind == "compact"],
+                                      dtype=np.float64))
+            ends = np.sort(np.array([j.t_finish for j in self.job_log
+                                     if j.kind == "compact"],
+                                    dtype=np.float64))
+            if starts.size == 0:
+                return
+            a_r = arrivals[ridx]
+            busy_r = (np.searchsorted(starts, a_r, side="right")
+                      - np.searchsorted(ends, a_r, side="right"))
+            get_r = is_get[ridx]
+            gi = ridx[get_r]
+            service[gi] += (get_reads[gi] * block_t
+                            * (BUSY_ALPHA * busy_r[get_r]))
+            if is_scan.any():
+                seq_block_t = self.device.block_size / self.device.read_bw
+                si = ridx[~get_r]
+                service[si] += (get_reads[si] * seq_block_t
+                                * (BUSY_ALPHA * busy_r[~get_r]))
 
     def _make_result(self, st: "_RunState", latency: np.ndarray,
                      makespan: float,
@@ -620,97 +626,104 @@ class Simulator:
         SCAN CPU + per-file seek + blocks spanned × sequential read — all
         read kinds get the same busy-inflation post-pass.
         """
-        st = self._setup(op_types, keys, arrivals, scan_lens)
-        n = st.n
-        op_types, keys, arrivals = st.op_types, st.keys, st.arrivals
-        scan_lens, service = st.scan_lens, st.service
-        get_reads, get_probed = st.get_reads, st.get_probed
-        block_t, regions = st.block_t, st.regions
-        ev_by_shard, shard_pos = st.ev_by_shard, st.shard_pos
+        with span("des.run"):
+            st = self._setup(op_types, keys, arrivals, scan_lens)
+            n = st.n
+            op_types, keys, arrivals = st.op_types, st.keys, st.arrivals
+            scan_lens, service = st.scan_lens, st.service
+            get_reads, get_probed = st.get_reads, st.get_probed
+            block_t, regions = st.block_t, st.regions
+            ev_by_shard, shard_pos = st.ev_by_shard, st.shard_pos
 
-        # Per-shard processed clocks: D[s] = departure time of shard s's
-        # most recently serviced op (exact Lindley per queue, maintained
-        # incrementally per window); cur[s] = the shard's op cursor into
-        # its own arrival sub-sequence.  Events are processed in
-        # SIMULATED-TIME order: each shard's next fill time depends only
-        # on its own queue, so one event per shard is staged (advancing
-        # that shard's clock) and a heap pops the globally earliest —
-        # shared-slot scheduling then sees chronological ready times, so
-        # a lagging shard's backlogged jobs cannot phantom-block another
-        # shard's earlier device work.  (op_i tiebreak: deterministic.)
-        D = [0.0] * self.n_shards
-        cur = [0] * self.n_shards
-        ptrs = [0] * self.n_shards
-        heap: list[tuple[float, int, int, int]] = []
+            # Per-shard processed clocks: D[s] = departure time of shard s's
+            # most recently serviced op (exact Lindley per queue, maintained
+            # incrementally per window); cur[s] = the shard's op cursor into
+            # its own arrival sub-sequence.  Events are processed in
+            # SIMULATED-TIME order: each shard's next fill time depends only
+            # on its own queue, so one event per shard is staged (advancing
+            # that shard's clock) and a heap pops the globally earliest —
+            # shared-slot scheduling then sees chronological ready times, so
+            # a lagging shard's backlogged jobs cannot phantom-block another
+            # shard's earlier device work.  (op_i tiebreak: deterministic.)
+            D = [0.0] * self.n_shards
+            cur = [0] * self.n_shards
+            ptrs = [0] * self.n_shards
+            heap: list[tuple[float, int, int, int]] = []
 
-        def stage(s: int) -> None:
-            """Advance shard s's clock to its next fill event (applying
-            the window structurally) and stage the event for dispatch."""
-            if ptrs[s] >= len(ev_by_shard[s]):
-                return
-            op_i, ti = ev_by_shard[s][ptrs[s]]
-            pos = shard_pos[s]
-            upper = int(np.searchsorted(pos, op_i, side="right"))
-            D[s] = self._advance_clock(s, D[s], pos[cur[s]:upper], op_types,
-                                       keys, scan_lens, regions, get_reads,
-                                       get_probed, service, arrivals,
-                                       block_t)
-            cur[s] = upper
-            heapq.heappush(heap, (D[s], op_i, s, ti))
+            def stage(s: int) -> None:
+                """Advance shard s's clock to its next fill event (applying
+                the window structurally) and stage the event for dispatch."""
+                if ptrs[s] >= len(ev_by_shard[s]):
+                    return
+                op_i, ti = ev_by_shard[s][ptrs[s]]
+                pos = shard_pos[s]
+                upper = int(np.searchsorted(pos, op_i, side="right"))
+                D[s] = self._advance_clock(s, D[s], pos[cur[s]:upper],
+                                           op_types, keys, scan_lens, regions,
+                                           get_reads, get_probed, service,
+                                           arrivals, block_t)
+                cur[s] = upper
+                heapq.heappush(heap, (D[s], op_i, s, ti))
 
-        for s in range(self.n_shards):
-            stage(s)
-        while heap:
-            t, op_i, s, ti = heapq.heappop(heap)
-            if self.sanitizer is not None:
-                self.sanitizer.on_event(ti, t)
-            # t = D[s]: the fill happens when its last write is serviced
-            tree = self.trees[ti]
-            tree.seal_memtable()
-            stall = self._wb_stall(ti, t)
-            tree.flush_immutable()
-            self._schedule_drained(tree, ti, t)
-            bg = tree.background_triggers()
-            if bg:
-                self._schedule_drained(tree, ti, t)
-            l0_stall, cid = self._l0_stall(ti, t)
-            if l0_stall > stall and cid >= 0:
-                # the L0 wait is the binding delay: pin it on the chain
-                # whose head clears the awaited slot (the shard's ledger)
-                rec = self.shard_stats[s].chain_index.get(cid)
-                if rec is not None:
-                    rec.stall_s += l0_stall
-            stall = max(stall, l0_stall)
-            if stall > 0:
-                service[op_i] += stall
-                D[s] += stall
-                self.stall_events.append((op_i, stall))
-            ptrs[s] += 1
-            stage(s)
-        for s in range(self.n_shards):
-            self._advance_clock(s, D[s], shard_pos[s][cur[s]:], op_types,
-                                keys, scan_lens, regions, get_reads,
-                                get_probed, service, arrivals, block_t)
+            for s in range(self.n_shards):
+                stage(s)
+            while heap:
+                t, op_i, s, ti = heapq.heappop(heap)
+                with span("des.fill"):
+                    if self.sanitizer is not None:
+                        self.sanitizer.on_event(ti, t)
+                    # t = D[s]: the fill happens when its last write is
+                    # serviced
+                    tree = self.trees[ti]
+                    tree.seal_memtable()
+                    stall = self._wb_stall(ti, t)
+                    tree.flush_immutable()
+                    self._schedule_drained(tree, ti, t)
+                    bg = tree.background_triggers()
+                    if bg:
+                        self._schedule_drained(tree, ti, t)
+                    l0_stall, cid = self._l0_stall(ti, t)
+                    if l0_stall > stall and cid >= 0:
+                        # the L0 wait is the binding delay: pin it on the
+                        # chain whose head clears the awaited slot (the
+                        # shard's ledger)
+                        rec = self.shard_stats[s].chain_index.get(cid)
+                        if rec is not None:
+                            rec.stall_s += l0_stall
+                    stall = max(stall, l0_stall)
+                if stall > 0:
+                    service[op_i] += stall
+                    D[s] += stall
+                    self.stall_events.append((op_i, stall))
+                ptrs[s] += 1
+                stage(s)
+            for s in range(self.n_shards):
+                self._advance_clock(s, D[s], shard_pos[s][cur[s]:], op_types,
+                                    keys, scan_lens, regions, get_reads,
+                                    get_probed, service, arrivals, block_t)
 
-        # --- read service refinement: device busy while compactions run ----
-        self._busy_inflation(st)
+            # --- read service refinement: device busy while compactions run
+            self._busy_inflation(st)
 
-        # --- exact Lindley over each shard's FIFO queue --------------------
-        # ONE ragged batch (a CSR row per shard) through the lindley_scan
-        # kernel; on the CPU its plain version is the reference's numpy
-        # recursion, bit for bit.
-        order = np.concatenate(shard_pos)
-        offsets = np.zeros(self.n_shards + 1, np.int64)
-        np.cumsum([pos.shape[0] for pos in shard_pos], out=offsets[1:])
-        arr = arrivals[order].astype(np.float64)
-        queues = torch.from_numpy(np.stack([service[order], arr])).to(
-            self.compute_device)
-        departures = lindley_batch(queues[0], queues[1], offsets).cpu().numpy()
-        latency = np.zeros(n, np.float64)
-        latency[order] = departures - arr
-        ends = offsets[1:][offsets[1:] > offsets[:-1]] - 1
-        makespan = float(departures[ends].max()) if ends.size else 0.0
-        return self._make_result(st, latency, makespan)
+            # --- exact Lindley over each shard's FIFO queue ----------------
+            # ONE ragged batch (a CSR row per shard) through the lindley_scan
+            # kernel; on the CPU its plain version is the reference's numpy
+            # recursion, bit for bit.
+            with span("des.lindley"):
+                order = np.concatenate(shard_pos)
+                offsets = np.zeros(self.n_shards + 1, np.int64)
+                np.cumsum([pos.shape[0] for pos in shard_pos],
+                          out=offsets[1:])
+                arr = arrivals[order].astype(np.float64)
+                queues = torch.from_numpy(np.stack([service[order], arr])).to(
+                    self.compute_device)
+                departures = lindley_batch(queues[0], queues[1],
+                                           offsets).cpu().numpy()
+            latency = np.zeros(n, np.float64)
+            latency[order] = departures - arr
+            ends = offsets[1:][offsets[1:] > offsets[:-1]] - 1
+            makespan = float(departures[ends].max()) if ends.size else 0.0
+            return self._make_result(st, latency, makespan)
 
     def serve(self, spec, *, load_factor: float = 1.0):
         """Drive the store from a ``TrafficSpec`` (open-loop serving).
@@ -747,10 +760,11 @@ class Simulator:
         """
         if idx.shape[0] == 0:
             return D
-        wsum, wmax = self._advance_window(shard, idx, op_types, keys,
-                                          scan_lens, regions, get_reads,
-                                          get_probed, service, arrivals,
-                                          block_t)
+        with span("des.window"):
+            wsum, wmax = self._advance_window(shard, idx, op_types, keys,
+                                              scan_lens, regions, get_reads,
+                                              get_probed, service, arrivals,
+                                              block_t)
         return wsum + max(D, wmax)
 
     def _advance_window(self, shard: int, idx: np.ndarray,
