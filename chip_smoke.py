@@ -67,14 +67,20 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    uniform keys loaded at 500,000 ops/s, a 10 s settle, then 2,000,000
    YCSB Run A ops (50% GET / 50% update, Zipfian 0.99) at 8,000 ops/s.
    Launch counts are zeroed just before and read just after; overlap_scan
-   and lindley_scan must have launched, and merge_path exactly once for
+   and lindley_scan must have launched, lookup_probe exactly once for each
+   GET batch (each ``LSMTree._lookup_batch`` call with a key, counted by
+   wrapping it), and merge_path exactly once for
    each input SST of a compaction past the first of its merge: the runs
    that ``LSMTree.merge_runs`` is handed must add up to the job log's input
    SSTs (lsmi's here each move one SST into an empty key range and merge
    nothing).  The (keys, fences) sizes of every rank call and the (A, B)
    lengths of every merge call are counted on the way (by wrapping the
    names in the store's modules, not in the package) and must add up to
-   overlap_scan's and merge_path's launches.
+   overlap_scan's and merge_path's launches.  On vlsm's and rocksdb's
+   trees as their runs left them, lookup_probe is held against its plain
+   chain element for element: the run's median GET batch of its first GET
+   keys, with every fence, one below and one above it, and the int64
+   extremes.
 3b. db_bench: ``db_bench.main`` on the card, from rewound uid counters, at
    the reference's full sizes for every policy (fillrandom uniform and
    pareto, read_path, ycsb_a, seekrandom, chain_report, shard_sweep
@@ -143,8 +149,8 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    8 of 128), yi-6b (32 layers, 32 over 4 of 128), qwen2-vl-2b (28
    layers, 12 over 2 of 128, M-RoPE over token prompts as the reference
    serves it) and mamba2-130m (24 Mamba2 layers, N 128, no attention).  Launch counts are zeroed just before each
-   run and read just after: overlap_scan must have launched, and
-   flash_attention and paged_attention (and ssd_scan for zamba2) where
+   run and read just after: lookup_probe (the prefix cache's lookups) must
+   have launched, and flash_attention and paged_attention (and ssd_scan for zamba2) where
    the model has attention layers, paged_attention once per attention
    layer and decode step (6 x 15 x 8 = 720 for zamba2, 28 x 15 x 8 =
    3,360 for qwen3, llama3.2 and qwen2-vl, 26 x 15 x 8 = 3,120 for
@@ -202,7 +208,10 @@ Phases, each of which must pass (any failure raises and exits non-zero):
    back-to-back calls, and ``device_ms``, the kernels' own device time from
    torch.profiler, with the device events it recorded per call — beside
    the bound: the larger of the bytes at 3.35 TB/s
-   and the operations at 989 TFLOP/s (bf16).  overlap_scan and merge_path
+   and the operations at 989 TFLOP/s (bf16).  lookup_probe at vlsm's
+   median GET batch beside the plain chain it replaced (no library call
+   computes it; its bound counts every key, fence and seq entry the
+   searches read once, ``probe_bytes``).  overlap_scan and merge_path
    are also held against their plain versions at the store's commonest
    call shape from phase 3, lindley_scan over a ragged batch of 4,096 rows
    (timed by ``scripts/probe.py merge rank lindley``; the fleet matrix's
@@ -354,22 +363,23 @@ SERVE_REQUESTS = 8             # serve.run's default, the reference's
 DECODE_TOKENS = 16             # serve.run's default, the reference's
 PROFILE_REQUESTS = 2           # the profiled serving runs (probe.py serve_*)
 # serving model -> (kernels its run must launch, depth of the float32
-# card-vs-CPU cross-check); deepseek-v2-lite's MLA and MoE run no kernel of
-# their own, so only the prefix cache's overlap_scan launches there;
+# card-vs-CPU cross-check); the prefix cache's lookups each launch
+# lookup_probe, its index's GET path; deepseek-v2-lite's MLA and MoE run
+# no kernel of their own, so only lookup_probe launches there;
 # mamba2-130m is attention-free (ssd_scan in its prefill, the recurrence in
 # plain torch in its decode) and is cross-checked at its full 24 layers
-GQA_SERVE = ("flash_attention", "overlap_scan", "paged_attention")
+GQA_SERVE = ("flash_attention", "lookup_probe", "paged_attention")
 SERVE_PATHS = {
-    "zamba2_1_2b": (("flash_attention", "ssd_scan", "overlap_scan",
+    "zamba2_1_2b": (("flash_attention", "ssd_scan", "lookup_probe",
                      "paged_attention"), 7),
     "qwen3_1_7b": (GQA_SERVE, 2),
     "gemma3_1b": (GQA_SERVE, 6),
-    "deepseek_v2_lite": (("overlap_scan",), 2),
+    "deepseek_v2_lite": (("lookup_probe",), 2),
     "whisper_tiny": (GQA_SERVE, 4),
     "llama3_2_3b": (GQA_SERVE, 2),
     "yi_6b": (GQA_SERVE, 2),
     "qwen2_vl_2b": (GQA_SERVE, 2),
-    "mamba2_130m": (("ssd_scan", "overlap_scan"), 24)}
+    "mamba2_130m": (("ssd_scan", "lookup_probe"), 24)}
 # cross-checks whose prompt is not the first serving request's: (seeded
 # prompt tokens, cache length, greedy steps); gemma3's 1,000 tokens pass
 # its 512-token window in the prefill and in every decode step (its 6
@@ -458,7 +468,7 @@ LONG_PREFILL = 4096
 GEMMA_WINDOW = 512             # gemma3-1b's local layers
 GEMMA_WINDOWS = (1, 16, GEMMA_WINDOW)   # flash_attention's D 256 edge cases
 LONG_DECODE = (8, 4096, 2048)  # sequences, tokens each, pages in the pool
-STORE_KERNELS = ("merge_path", "overlap_scan", "lindley_scan")
+STORE_KERNELS = ("merge_path", "overlap_scan", "lookup_probe", "lindley_scan")
 # the serving path whose launches each LM kernel's row reports
 # (flash_attention_bwd's row: qwen3-1.7b's training steps, the D 128 route
 # it is timed at; gemma3-1b's D 256 launches are in the report's
@@ -469,6 +479,9 @@ ROW_PATH = {"flash_attention": "zamba2_1_2b", "ssd_scan": "zamba2_1_2b",
             "paged_attention": "qwen3_1_7b"}
 SOURCES = {"merge_path": "kernels/merge_path/kernel.py:131",
            "overlap_scan": "kernels/overlap_scan/kernel.py:63",
+           # no TPU kernel: XLA's fusion of the reference's GET chain
+           # around _rank_kernel
+           "lookup_probe": "core/lsm.py:539",
            "lindley_scan": "kernels/lindley_scan/kernel.py:61",
            "flash_attention": "kernels/flash_attention/kernel.py:108",
            # no TPU backward kernel: the gradient of this one
@@ -477,6 +490,8 @@ SOURCES = {"merge_path": "kernels/merge_path/kernel.py:131",
            # no TPU backward kernel: the gradient of this one
            "ssd_scan_bwd": "kernels/ssd_scan/kernel.py:81",
            "paged_attention": "kernels/paged_attention/kernel.py:102"}
+# the CUDA file of a kernel not named after its own (csrc/<name>.cu)
+CSRC = {"lookup_probe": "overlap_scan"}
 # the store path's policies: every registered one (phase 3); the card-vs-CPU
 # cross-check (phase 6) keeps to the first two
 CROSS_POLICIES = ("vlsm", "rocksdb")
@@ -729,6 +744,40 @@ class CompactionInputs:
     def __exit__(self, *exc):
         from repro_torch.core.lsm import LSMTree
         LSMTree.merge_runs = self._orig
+
+
+class GetBatches:
+    """The GET batches of a run: wraps ``LSMTree._lookup_batch`` (the one
+    door of every GET batch) and counts the calls that hold a key, each of
+    which launches lookup_probe once on the card, by their number of keys.
+    The package itself is left as it is."""
+
+    def __enter__(self):
+        from repro_torch.core.lsm import LSMTree
+        self.sizes: collections.Counter = collections.Counter()
+        self._orig = orig = LSMTree._lookup_batch
+
+        def recorded(tree, keys):
+            if keys.shape[0]:
+                self.sizes[int(keys.shape[0])] += 1
+            return orig(tree, keys)
+        LSMTree._lookup_batch = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.lsm import LSMTree
+        LSMTree._lookup_batch = self._orig
+
+    def median(self) -> int:
+        """The median batch's number of keys (0 without a batch)."""
+        calls = sorted(self.sizes.elements())
+        return calls[len(calls) // 2] if calls else 0
+
+    def report(self) -> dict:
+        return {"calls": sum(self.sizes.values()),
+                "keys": sum(k * c for k, c in self.sizes.items()),
+                "median_keys": self.median(),
+                "max_keys": max(self.sizes, default=0)}
 
 
 def bound_ms(nbytes: float) -> float:
@@ -1109,6 +1158,85 @@ def time_rank_at(torch, np, trace, m: int, n: int) -> dict:
         **time_all(torch, lambda: fence_rank(fences, k, "left"),
                    lambda: fence_rank_plain(fences, k, "left"),
                    lambda: torch.searchsorted(fences, k, side="left"), 200)}
+
+
+def probe_bytes(torch, keys, runs) -> int:
+    """The bytes a GET walk of ``keys`` through ``runs`` must move, each
+    counted once: 8 in and 24 out a key, every key and fence entry that a
+    binary search over each run it reaches reads (``distinct_probes``: the
+    tops of the searches, shared by many keys, once) and each hit's seq.
+    The keys each run's searches see are the plain chain's own
+    (``plain_walk``)."""
+    from repro_torch.kernels.overlap_scan.ops import LEVEL, plain_walk
+    entries = 0
+    for step in plain_walk(keys, runs):
+        run = step.run
+        if run.kind == LEVEL:   # the fence ranks of every key reaching it
+            reached = keys[step.active]
+            entries += distinct_probes(torch, run.largest, reached, "left")
+            entries += distinct_probes(torch, run.smallest, reached, "right")
+        entries += distinct_probes(torch, run.keys, keys[step.cand], "left")
+        entries += int(step.found.sum())
+    return 32 * int(keys.shape[0]) + 8 * entries
+
+
+def probe_keys(np, tree, trace, m: int):
+    """The run phase's first m GET keys, then every fence of ``tree``, one
+    below and one above each, and the int64 extremes."""
+    ops, keys, _, n_load = trace
+    lo, hi = np.iinfo(np.int64).min, np.iinfo(np.int64).max
+    fences = np.concatenate([np.concatenate([tree.index.smallest[lv],
+                                             tree.index.largest[lv]])
+                             for lv in range(tree.cfg.max_levels)])
+    return np.concatenate([
+        keys[n_load:][ops[n_load:] == 1][:m], fences,
+        fences[fences > lo] - 1, fences[fences < hi] + 1,
+        [lo, lo + 1, hi - 1, hi]]).astype(np.int64)
+
+
+def check_probe_at(torch, np, tree, trace, m: int, what: str) -> dict:
+    """lookup_probe on a main path's tree as the run left it, held against
+    its plain chain on the same runs, element for element: the run phase's
+    first m GET keys (m, the run's median GET batch) with every fence edge
+    and the int64 extremes (``probe_keys``), and the m keys alone."""
+    from repro_torch.kernels.overlap_scan.ops import (
+        L0_SST, LEVEL, MEMTABLE, lookup_probe, lookup_probe_plain)
+    runs, fpr = tree.probe_runs(), tree.cfg.bloom_fpr
+    dev = torch.device("cuda")
+    edges = probe_keys(np, tree, trace, m)
+    err = 0
+    for batch in (edges, edges[:m]):
+        err = max(err, check_equal(
+            torch, f"lookup_probe on {what}'s main-path tree",
+            lookup_probe(batch, runs, fpr, dev),
+            lookup_probe_plain(torch.from_numpy(batch).to(dev), runs, fpr)))
+    kinds = [r.kind for r in runs]
+    return {"shape": f"{m} GET keys + {edges.shape[0] - m} fence edges "
+                     f"over {len(runs)} runs",
+            "runs": {"memtables": kinds.count(MEMTABLE),
+                     "l0": kinds.count(L0_SST), "levels": kinds.count(LEVEL)},
+            "max_abs_err": err}
+
+
+def time_probe(torch, np, tree, trace, m: int) -> dict:
+    """lookup_probe at the main path's median GET batch (m keys from the
+    host, the copy in included) on vlsm's tree, beside its plain chain on
+    the same runs (the chain it replaced, from keys on the card)."""
+    from repro_torch.kernels.overlap_scan.ops import (lookup_probe,
+                                                      lookup_probe_plain)
+    runs, fpr = tree.probe_runs(), tree.cfg.bloom_fpr
+    dev = torch.device("cuda")
+    keys = probe_keys(np, tree, trace, m)[:m]
+    k_dev = torch.from_numpy(keys).to(dev)
+    err = check_equal(torch, "lookup_probe at the main path's shape",
+                      lookup_probe(keys, runs, fpr, dev),
+                      lookup_probe_plain(k_dev, runs, fpr))
+    return {
+        "shape": f"{m} GET keys over {len(runs)} runs",
+        "max_abs_err": err,
+        "bound_ms": bound_ms(probe_bytes(torch, k_dev, runs)),
+        **time_all(torch, lambda: lookup_probe(keys, runs, fpr, dev),
+                   lambda: lookup_probe_plain(k_dev, runs, fpr), None, 200)}
 
 
 def lindley_queue(np, sim, res):
@@ -4504,15 +4632,16 @@ def run(args, torch, pool, bench_pool) -> int:
     from repro_torch.core import policies
     store_policies = policies.names()
     kernels.reset_launch_counts()
-    main_sim, launches, card_runs = None, {}, {}
+    main_sim, launches, card_runs, probe_m = None, {}, {}, 0
     before = kernels.launch_counts()
     for policy in store_policies:
         torch.cuda.reset_peak_memory_stats()
         with rank_shapes() as shapes, merge_shapes() as merges, \
-                CompactionInputs() as inputs:
+                CompactionInputs() as inputs, GetBatches() as gets:
             sim, res, wall = run_main_path(torch, np, policy, trace, "cuda")
         report[f"rank_shapes_{policy}"] = shapes.report()
         report[f"merge_shapes_{policy}"] = merges.report()
+        report[f"get_batches_{policy}"] = gets.report()
         after = kernels.launch_counts()
         launches[policy] = {k: after[k] - before[k] for k in after}
         before = after
@@ -4534,11 +4663,20 @@ def run(args, torch, pool, bench_pool) -> int:
                  f"{launches[policy]['merge_path']} times for "
                  f"{inputs.pairwise} pairwise merges of its compactions")
         row["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if gets.report()["calls"] != launches[policy]["lookup_probe"]:
+            fail(f"{policy}: lookup_probe launched "
+                 f"{launches[policy]['lookup_probe']} times for "
+                 f"{gets.report()['calls']} GET batches")
         if policy == "vlsm":
             main_sim = (sim, res)
+            probe_m = gets.median()
         if policy in CROSS_POLICIES:
             card_runs[policy] = (res.get_reads, res.get_probed, res.latency,
                                  res.n_stalls)
+            report[f"probe_check_{policy}"] = check_probe_at(
+                torch, np, sim.trees[0], trace, gets.median(), policy)
+            # the check's launches belong to no policy's path
+            before = kernels.launch_counts()
         del sim, res
         report[f"main_{policy}"] = row
         print(f"main path {policy}: " + json.dumps(row), flush=True)
@@ -4556,7 +4694,12 @@ def run(args, torch, pool, bench_pool) -> int:
               flush=True)
         print(f"merge shapes {policy}: " + json.dumps(merges.report()),
               flush=True)
-    total = kernels.launch_counts()
+        print(f"GET batches {policy}: " + json.dumps(gets.report())
+              + (", lookup_probe equal to its plain chain: "
+                 + json.dumps(report[f"probe_check_{policy}"])
+                 if policy in CROSS_POLICIES else ""), flush=True)
+    total = {k: sum(counts[k] for counts in launches.values())
+             for k in kernels.launch_counts()}
     common = collections.Counter()
     common_merge = collections.Counter()
     for policy in CROSS_POLICIES:
@@ -4709,6 +4852,8 @@ def run(args, torch, pool, bench_pool) -> int:
     sim, res = main_sim
     timings = {"merge_path": time_merge(torch, sim),
                "overlap_scan": time_rank(torch, np, sim, trace),
+               "lookup_probe": time_probe(torch, np, sim.trees[0], trace,
+                                          probe_m),
                "lindley_scan": time_lindley(torch, np,
                                             *lindley_queue(np, sim, res))}
     # the commonest shapes are held against the plain version here and
@@ -4719,6 +4864,10 @@ def run(args, torch, pool, bench_pool) -> int:
     timings["overlap_scan"]["max_abs_err"] = max(
         timings["overlap_scan"]["max_abs_err"],
         report["rank_common"]["max_abs_err"])
+    timings["lookup_probe"]["max_abs_err"] = max(
+        [timings["lookup_probe"]["max_abs_err"]]
+        + [report[f"probe_check_{p}"]["max_abs_err"]
+           for p in CROSS_POLICIES])
     report["merge_common"] = check_merge_at(
         torch, np, trace, *common_merge.most_common(1)[0][0])[0]
     report["lindley_ragged"] = check_lindley_ragged(
@@ -4867,7 +5016,7 @@ def run(args, torch, pool, bench_pool) -> int:
         # of ROW_PATH)
         rows.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu",
+            "source": f"src/repro_torch/csrc/{CSRC.get(name, name)}.cu",
             "replaces": f"src/repro/{SOURCES[name]}",
             "launches": (total if name in STORE_KERNELS
                          else report[ROW_PATH[name]]["launches"]

@@ -125,6 +125,12 @@ Phases, each made of ``chip_smoke.py``'s own functions:
     shard_store ``ShardedStore`` of 4 shards and of 1 on the card against
               the CPU, and the 1 against a bare tree (``chip_smoke.py``
               phase 3e)
+    lookup_probe the GET path's fused probe on the vlsm.ycsb_b.served
+              cell's tree (8 M keys preloaded, its 32 warm batches served):
+              one batch's ~9,500 GETs, the kernel beside the plain chain
+              on the same runs (equal element for element), their device
+              time and events a call, the whole ``_lookup_batch`` on the
+              host clock, and the bytes bound
     window    ``device_ms`` read three times a function at the main
               shapes, with the device events each reading recorded
     clocks    merge_path's, lindley_scan's and ssd_scan's device time after
@@ -804,6 +810,60 @@ def clocks(torch, np, cs, ctx) -> dict:
     return out
 
 
+def lookup_probe(torch, np, cs, ctx) -> dict:
+    from port_bench import harness
+    from repro_torch.core.types import OpKind
+    from repro_torch.kernels.overlap_scan import ops
+    _cell, spec, traffic = harness.cell_files("vlsm.ycsb_b.served")
+    launches = ops.lookup_probe.launches
+    t0 = time.perf_counter()
+    with cs.GetBatches() as gets:   # set-up serves the warm batches
+        entry = harness.entry_module("served").Entry(spec, traffic,
+                                                     2 ** 31 + 5)
+    setup_s = time.perf_counter() - t0
+    get_batches = gets.report()["calls"]
+    if ops.lookup_probe.launches - launches != get_batches:
+        cs.fail(f"lookup_probe: {ops.lookup_probe.launches - launches} "
+                f"launches for {get_batches} GET batches")
+    tree = entry.store.shards[0]
+    batch = entry.batches[entry.warm]
+    keys = np.ascontiguousarray(batch.keys[batch.kinds == OpKind.GET])
+    runs = tree.probe_runs()
+    fpr = tree.cfg.bloom_fpr
+    dev = torch.device("cuda")
+    k_dev = torch.from_numpy(keys).to(dev)
+    got = ops.lookup_probe(keys, runs, fpr, dev)
+    cs.check_equal(torch, "lookup_probe on the B cell's tree", got,
+                   ops.lookup_probe_plain(k_dev, runs, fpr))
+    got = got.cpu().numpy()
+    n = int(keys.shape[0])
+    nbytes = cs.probe_bytes(torch, k_dev, runs)
+    kinds = [r.kind for r in runs]
+    out = {"shape": f"{n} GETs over {len(runs)} runs",
+           "runs": {"memtables": kinds.count(ops.MEMTABLE),
+                    "l0": kinds.count(ops.L0_SST),
+                    "levels": [int(r.keys.shape[0]) for r in runs
+                               if r.kind == ops.LEVEL]},
+           "equal": True, "setup_s": setup_s,
+           "warm_get_batches": get_batches,
+           "hits": int((got[0] >= 0).sum()), "probed": int(got[2].sum()),
+           "reads": int(got[1].sum()), "bytes": nbytes,
+           "bound_ms": cs.bound_ms(nbytes)}
+    out.update(cs.time_all(
+        torch, lambda: ops.lookup_probe(keys, runs, fpr, dev),
+        lambda: ops.lookup_probe_plain(k_dev, runs, fpr), None, 200))
+    out["passes"] = cs.pass_ms(
+        torch, lambda: ops.lookup_probe(keys, runs, fpr, dev), 200)
+    walls = []
+    for _ in range(50):
+        t = time.perf_counter()
+        tree._lookup_batch(keys)
+        walls.append((time.perf_counter() - t) * 1e3)
+    walls.sort()
+    out["lookup_batch_ms"] = walls[len(walls) // 2]
+    return out
+
+
 def shard_store(torch, np, cs, ctx) -> dict:
     want = {n: cs.shard_run(np, "cpu", n)[0] for n in (cs.SHARD_COUNT, 1)}
     return cs.shard_store_check(np, cs.shard_card_runs(torch, np), want)
@@ -901,6 +961,7 @@ PHASES = {
     "serve_open": (STORE, serve_open),
     "profiles": (STORE, profiles),
     "shard_store": (STORE, shard_store),
+    "lookup_probe": (STORE, lookup_probe),
     "window": (STORE + ("flash_attention", "ssd_scan", "paged_attention"),
                window),
     "clocks": (STORE + ("ssd_scan",), clocks),

@@ -24,32 +24,16 @@ import torch
 from ..kernels.overlap_scan.ops import fence_rank
 from .sst import SST
 
-# Deterministic bloom-filter model: a (key, sst) pair pseudo-randomly false
-# positives at the configured FPR.  The reference multiplies in uint64; the
-# port multiplies in int64 with two's-complement wraparound, with each
-# constant written as its int64 value, so the low 32 bits — and the float
-# test against the FPR — are bit for bit the same.
-_KEY_MIX = 0x9E3779B97F4A7C15 - (1 << 64)
+# The bloom model (``bloom_false_positives``) lives beside the fused probe
+# whose kernel computes it; an SST's seed is its uid times _UID_MIX, wrapped
+# to int64 as the reference's uint64 product is.
 _UID_MIX = 0xBF58476D1CE4E5B9 - (1 << 64)
-_MASK32 = 0xFFFFFFFF
-_MAX32 = float(0xFFFFFFFF)
 
 
 def bloom_seed_for_uid(uid: int) -> int:
     """The bloom seed of one SST uid, as an int64 value."""
     seed = (int(uid) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
     return seed - (1 << 64) if seed >= 1 << 63 else seed
-
-
-def bloom_false_positives(keys: torch.Tensor, bloom_seed,
-                          fpr: float) -> torch.Tensor:
-    """Boolean mask: which (key, sst) probes read a block despite a miss.
-
-    ``bloom_seed`` is a scalar (one SST, many keys) or a tensor aligned
-    with ``keys`` (one key per SST probe), int64 either way.
-    """
-    h = (keys * _KEY_MIX + bloom_seed) & _MASK32
-    return (h.to(torch.float64) / _MAX32) < fpr
 
 
 def _as_device(vals, dev: torch.device) -> torch.Tensor:

@@ -10,8 +10,9 @@ replayable.
 Placement: memtable chunks, SST payloads, each level's flat key/seq cache
 and the LevelIndex fence/bloom arrays are int64 tensors on the compute
 device; jobs, chain records, Stats and every policy decision stay on the
-host.  A window's GET batch is resolved on the device with no host reads
-and comes back in one transfer.
+host.  A window's GET batch goes to the device in one transfer, is resolved
+there by one launch of the fused probe with no host reads, and comes back
+in one transfer.
 
 This module is **policy-agnostic**: every compaction decision is delegated
 to the ``CompactionPolicy`` object resolved from ``cfg.policy``; the
@@ -29,16 +30,18 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..kernels.overlap_scan.ops import fence_rank
+from ..kernels.overlap_scan.ops import (L0_SST, LEVEL, MEMTABLE,
+                                        ProbeRun, fence_rank,
+                                        lookup_probe)
 from ..trace import span
 from . import merge as merge_backend
-from .level_index import LevelIndex, bloom_false_positives
+from .level_index import LevelIndex, bloom_seed_for_uid
 from .memtable import Memtable
 from .policies import get_policy
 from .sst import SST, split_fixed, total_size, uid_allocator
 from .stats import ChainRecord, Stats
 from .types import (LSMConfig, OpKind, RequestBatch, ResultBatch,
-                    resolve_compute_device, seq_decode, seq_encode)
+                    resolve_compute_device, seq_encode)
 from .uids import UidNamespace
 
 _job_ids = itertools.count()
@@ -76,13 +79,6 @@ class Job:
     @property
     def total_bytes(self) -> int:
         return self.bytes_read + self.bytes_written
-
-
-def _resolved(found: torch.Tensor, enc: torch.Tensor,
-              seqs: torch.Tensor) -> None:
-    """Write the logical seq (or -1 for a tombstone) of every found op."""
-    log, tomb = seq_decode(enc)
-    seqs.copy_(torch.where(found, torch.where(tomb, -1, log), seqs))
 
 
 class LSMTree:
@@ -493,58 +489,40 @@ class LSMTree:
         """Resolve a GET batch on the device: memtables (free), L0 newest to
         oldest (every range-overlapping SST), then one fence-selected SST
         per level; a bloom filter screens block reads with deterministic
-        false positives.  Every op is carried through every stage under an
-        ``active`` mask (no host reads), which accounts exactly as the
-        reference's shrinking index sets."""
+        false positives.  On the card one fused probe launch walks every
+        key through :meth:`probe_runs` (one copy in, one copy out); on the
+        CPU the same walk is the plain chain of torch ops."""
         n = int(keys.shape[0])
         if n == 0:
             return (np.full(0, -1, np.int64), np.zeros(0, np.int32),
                     np.zeros(0, np.int32))
         with span("store.lookup"):
-            dev = self.compute_device
-            fpr = self.cfg.bloom_fpr
-            k = torch.from_numpy(np.ascontiguousarray(keys, np.int64)).to(dev)
-            seqs = torch.full((n,), -1, dtype=torch.int64, device=dev)
-            reads = torch.zeros(n, dtype=torch.int32, device=dev)
-            probed = torch.zeros(n, dtype=torch.int32, device=dev)
-            active = torch.ones(n, dtype=torch.bool, device=dev)
-            # Memtable probes are free (no device reads), newest first.
-            for mt in [self.memtable] + self.immutables[::-1]:
-                if mt.n == 0:
-                    continue
-                got = mt.get_batch(k)
-                hit = active & (got >= 0)
-                _resolved(hit, got, seqs)
-                active &= ~hit
-            # L0 newest -> oldest: every range-overlapping SST is probed.
-            l0 = self.levels[0]
-            for p in range(len(l0) - 1, -1, -1):
-                inr = (active & (k >= self.index.dev_smallest[0][p])
-                       & (k <= self.index.dev_largest[0][p]))
-                self._probe_sst_batch(l0[p], self.index.bloom[0][p], inr, k,
-                                      seqs, reads, probed, active)
-            # Leveled: at most one fence-selected SST per level.  A sorted,
-            # disjoint level's concatenated keys are globally sorted, so ONE
-            # rank over the flat level resolves every candidate probe.
-            for level in range(1, self.cfg.max_levels):
-                n_ssts = self.index.n_ssts(level)
-                if n_ssts == 0:
-                    continue
-                starts, ends = self.index.overlap_ranges(level, k, k)
-                cand = active & (ends > starts)
-                fkeys, fseqs = self._flat_level(level)
-                probed += cand
-                pos = fence_rank(fkeys, k, "left").clamp_(
-                    max=fkeys.shape[0] - 1)
-                found = cand & (fkeys[pos] == k)
-                _resolved(found, fseqs[pos], seqs)
-                reads += found     # bloom true positive -> one block read
-                active &= ~found
-                seed = self.index.bloom[level][starts.clamp(max=n_ssts - 1)]
-                reads += cand & ~found & bloom_false_positives(k, seed, fpr)
-            out = torch.stack([seqs, reads.to(torch.int64),
-                               probed.to(torch.int64)]).cpu().numpy()
+            out = lookup_probe(keys, self.probe_runs(), self.cfg.bloom_fpr,
+                               self.compute_device).cpu().numpy()
             return out[0], out[1].astype(np.int32), out[2].astype(np.int32)
+
+    def probe_runs(self) -> list[ProbeRun]:
+        """The runs a GET walks, in its order, from what the host knows:
+        the memtables newest first (their sorted views), L0 newest to
+        oldest, then every non-empty level as its flat keys with its fence
+        and bloom-seed arrays.  A sorted, disjoint level's concatenated keys
+        are globally sorted, so ONE rank over the flat level finds the key
+        in the fence-selected SST."""
+        runs = []
+        for mt in [self.memtable] + self.immutables[::-1]:
+            if mt.n:
+                keys, seqs = mt.to_sorted()
+                if keys.shape[0]:   # not when every write was left out
+                    runs.append(ProbeRun(MEMTABLE, keys, seqs))
+        for sst in reversed(self.levels[0]):
+            runs.append(ProbeRun(L0_SST, sst.keys, sst.seqs, sst.smallest,
+                                 sst.largest, bloom_seed_for_uid(sst.uid)))
+        for level in range(1, self.cfg.max_levels):
+            if self.index.n_ssts(level):
+                runs.append(ProbeRun(LEVEL, *self._flat_level(level),
+                                     *self.index.fences(level),
+                                     self.index.bloom[level]))
+        return runs
 
     def _flat_level(self, level: int) -> tuple[torch.Tensor, torch.Tensor]:
         """The level's keys/seqs as one sorted flat device pair, cached
@@ -563,24 +541,6 @@ class LSMTree:
             ent = (ver, fkeys, fseqs)
             self._flat[level] = ent
         return ent[1], ent[2]
-
-    def _probe_sst_batch(self, sst: SST, bloom_seed: torch.Tensor,
-                         mask: torch.Tensor, k: torch.Tensor,
-                         seqs: torch.Tensor, reads: torch.Tensor,
-                         probed: torch.Tensor, active: torch.Tensor) -> None:
-        """Probe one SST for the (in-range) ops under ``mask``.
-
-        A found tombstone resolves the op as not-found (seq stays -1) but
-        still costs the block read.
-        """
-        probed += mask
-        pos = fence_rank(sst.keys, k, "left").clamp_(max=sst.n - 1)
-        found = mask & (sst.keys[pos] == k)
-        _resolved(found, sst.seqs[pos], seqs)
-        reads += found     # bloom true positive -> one block read
-        active &= ~found
-        reads += mask & ~found & bloom_false_positives(k, bloom_seed,
-                                                       self.cfg.bloom_fpr)
 
     # --------------------------------------------------------------- scan
     def scan_batch(self, start_keys: np.ndarray,

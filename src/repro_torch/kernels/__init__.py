@@ -3,8 +3,11 @@ PyTorch versions and launch counters.
 
     merge_path          — compaction's stable two-run merge
                           (csrc/merge_path.cu)
-    overlap_scan        — sorted-array rank behind every fence/GET probe
+    overlap_scan        — sorted-array rank behind every fence probe
                           (csrc/overlap_scan.cu)
+    lookup_probe        — the GET path's fused probe: a GET batch's walk
+                          through the tree's runs in one launch (the
+                          second entry of csrc/overlap_scan.cu)
     lindley_scan        — the DES's batched FIFO departure scan
                           (csrc/lindley_scan.cu)
     flash_attention     — causal / sliding-window attention of the LM
@@ -32,12 +35,13 @@ only.  Importing this package builds nothing (see ``_build``).
 from .flash_attention.ops import flash_attention, flash_attention_bwd
 from .lindley_scan.ops import lindley_batch
 from .merge_path.ops import merge_two_runs
-from .overlap_scan.ops import fence_rank
+from .overlap_scan.ops import fence_rank, lookup_probe
 from .paged_attention.ops import paged_attention
 from .ssd_scan.ops import ssd_scan, ssd_scan_bwd
 
 #: kernel name -> wrapper that counts its launches
 WRAPPERS = {"merge_path": merge_two_runs, "overlap_scan": fence_rank,
+            "lookup_probe": lookup_probe,
             "lindley_scan": lindley_batch, "flash_attention": flash_attention,
             "flash_attention_bwd": flash_attention_bwd,
             "ssd_scan": ssd_scan, "ssd_scan_bwd": ssd_scan_bwd,
@@ -54,6 +58,7 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["WRAPPERS", "fence_rank", "flash_attention", "flash_attention_bwd",
-           "launch_counts", "lindley_batch", "merge_two_runs",
+           "launch_counts", "lindley_batch", "lookup_probe",
+           "merge_two_runs",
            "paged_attention", "reset_launch_counts", "ssd_scan",
            "ssd_scan_bwd"]

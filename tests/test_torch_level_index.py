@@ -12,6 +12,7 @@ import repro.core.level_index as ref_li
 from repro.core.sst import SST as RefSST
 from repro_torch.core import level_index as port_li
 from repro_torch.core.sst import SST as PortSST
+from repro_torch.kernels.overlap_scan.ops import bloom_false_positives
 from _torch_parity import reference_numpy_tiers  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("reference_numpy_tiers")
@@ -39,15 +40,14 @@ def test_bloom_mask_bit_for_bit(seed, fpr):
     ref_seeds = uids.astype(np.uint64) * ref_li._UID_MIX
     want = ref_li.bloom_false_positives(keys, ref_seeds, fpr)
     port_seeds = torch.from_numpy(uids) * port_li._UID_MIX
-    got = port_li.bloom_false_positives(torch.from_numpy(keys), port_seeds,
-                                        fpr)
+    got = bloom_false_positives(torch.from_numpy(keys), port_seeds, fpr)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(port_seeds.numpy().view(np.uint64),
                                   ref_seeds)
     for uid in uids[::997]:     # the scalar seed of one SST, many keys
         want1 = ref_li.bloom_false_positives(
             keys, ref_li.bloom_seed_for_uid(uid), fpr)
-        got1 = port_li.bloom_false_positives(
+        got1 = bloom_false_positives(
             torch.from_numpy(keys), port_li.bloom_seed_for_uid(uid), fpr)
         np.testing.assert_array_equal(got1.numpy(), want1)
 
